@@ -1,0 +1,88 @@
+"""Shared building blocks: Flax-equivalent conv layers on NHWC tensors.
+
+Parameters are float32 and named as in the Flax tree (`Conv_0`,
+`weight` for Flax's `kernel`), so `convert.py` maps a checkpoint by
+path alone. Init mirrors Flax's defaults: lecun-normal kernels
+(truncated normal, fan-in) and zero biases, from a seeded generator.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
+    """Flax/XLA `padding="SAME"`: output ceil(size/stride), the total
+    padding split with the smaller half low. Stride 2 on an even input
+    pads (0, 1) for a 3x3 and (2, 3) for a 7x7 — torch's symmetric
+    `padding=k//2` would shift every such feature map."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Module):
+    """`flax.linen.Conv(features, (k, k), strides, padding="SAME",
+    dtype=dtype, param_dtype=float32)` on NHWC input: input, kernel and
+    bias are cast to `dtype` and the conv runs in it."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.kernel, self.stride, self.dtype = kernel, stride, dtype
+        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
+        self.bias = nn.Parameter(torch.empty(cout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k, s = self.kernel, self.stride
+        (top, bottom), (left, right) = (same_pads(n, k, s) for n in x.shape[1:3])
+        if (top, left) == (bottom, right):
+            pad = (top, left)
+        else:
+            x = F.pad(x, (0, 0, left, right, top, bottom))
+            pad = 0
+        # An NHWC tensor seen as NCHW is channels-last memory: no copy.
+        y = F.conv2d(
+            x.to(self.dtype).permute(0, 3, 1, 2),
+            self.weight.to(self.dtype),
+            stride=s,
+            padding=pad,
+        )
+        # Bias after the conv's output is rounded to `dtype`, as Flax adds it.
+        return y.permute(0, 2, 3, 1) + self.bias.to(self.dtype)
+
+
+class ConvBlock(nn.Module):
+    """Conv + ReLU in the compute dtype (the reference's ConvBlock)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.Conv_0 = Conv(cin, cout, kernel, stride, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.Conv_0(x))
+
+
+def lecun_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Flax's default init for every Conv and Linear under `module`, in
+    module order: truncated-normal kernels (bounds +-2 sigma, variance
+    1/fan_in after truncation) and zero biases."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (Conv, nn.Linear)):
+                fan_in = m.weight[0].numel()
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+                nn.init.zeros_(m.bias)
+    return module

@@ -1,0 +1,142 @@
+"""DavoModel: the DAVO forward pass for pose inference (port of
+davo_tpu.models.davo with train=False).
+
+    (I_src, I_tgt) -> FlowNetLite -> flow pyramid
+    flow (+seg) -> RegionAttention -> 19 region weights
+    (I_tgt, I_src, direction, flow) -> PoseNet -> 6-DoF xi * pose_scale
+
+DispNet runs only in training and is not part of this port yet; every
+option that selects something not ported raises NotImplementedError
+rather than running a different path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.nn as nn
+
+from davo_tpu_torch import exact_f32, resolve_device
+from davo_tpu_torch.config import ModelConfig
+from davo_tpu_torch.core.warp import flow_warp_separable
+from davo_tpu_torch.kernels.resize import resize_bilinear_aligned
+from davo_tpu_torch.models.attention import RegionAttention, region_weight_map
+from davo_tpu_torch.models.common import lecun_init_
+from davo_tpu_torch.models.flownet import FlowNetLite
+from davo_tpu_torch.models.posenet import PoseNet
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for options outside the ported slice."""
+    fused = [
+        f.name for f in dataclasses.fields(cfg)
+        if f.name.startswith("fuse_") and getattr(cfg, f.name) is True
+    ]
+    if fused:
+        raise NotImplementedError(
+            f"{fused}: the fused kernels these select are not ported yet"
+        )
+    if cfg.pose_head != "conv":
+        raise NotImplementedError(f"pose_head={cfg.pose_head!r} is not ported yet")
+    if cfg.s2d_first_conv:
+        raise NotImplementedError("s2d_first_conv is not ported yet")
+    if cfg.attention not in ("none", "flow", "flow_seg"):
+        raise ValueError(f"unknown attention {cfg.attention!r}")
+    if cfg.attention_cue not in ("flow", "flow_fb"):
+        raise ValueError(f"unknown attention_cue {cfg.attention_cue!r}")
+
+
+class DavoModel(nn.Module):
+    """Built with Flax's default init from `seed` on `device` (the GPU
+    unless device="cpu"); `convert.load_flax_params` loads a reference
+    parameter tree instead."""
+
+    def __init__(self, cfg: ModelConfig, *, device: str | torch.device | None = None,
+                 seed: int = 0):
+        super().__init__()
+        check_supported(cfg)
+        device = resolve_device(device)
+        exact_f32()
+        self.cfg = cfg
+        use_flow = cfg.attention != "none"
+        self.posenet = PoseNet(cfg, extra_channels=1 + (2 if use_flow else 0))
+        if use_flow:
+            self.flownet = FlowNetLite(cfg)
+        if cfg.attention == "flow_seg":
+            self.attn = RegionAttention(cfg, 3 if cfg.attention_cue == "flow_fb" else 2)
+        lecun_init_(self, torch.Generator().manual_seed(seed))
+        self.to(device)
+
+    def forward(
+        self,
+        target: torch.Tensor,
+        sources: torch.Tensor,
+        seg: torch.Tensor | None = None,
+        train: bool = False,
+    ) -> dict[str, Any]:
+        """target: (B, H, W, 3); sources: (B, S, H, W, 3); seg: (B, H, W)
+        int labels (used with attention="flow_seg").
+
+        Returns poses (B, S, 6), flows (per-source flow pyramids, when
+        attention != "none") and attn ((B, S, K), attention="flow_seg").
+        """
+        if train:
+            raise NotImplementedError(
+                "train=True (DispNet and the training forward) is not ported yet"
+            )
+        cfg = self.cfg
+        B, S = sources.shape[0], sources.shape[1]
+        H, W = target.shape[1], target.shape[2]
+        out: dict[str, Any] = {}
+
+        # Batch-fold the sources: source s occupies rows [s*B, (s+1)*B).
+        flat_src = sources.movedim(1, 0).reshape(S * B, H, W, 3)
+        rep_tgt = target.repeat(S, 1, 1, 1)
+
+        # Temporal-direction plane: sources are ordered
+        # [t-k..t-1, t+1..t+k]; offset in [-1, 1].
+        k = S // 2 if S > 1 else 1
+        offsets = [
+            (i - k if i < k else i - k + 1) / k if S > 1 else -1.0 for i in range(S)
+        ]
+        dir_plane = torch.cat(
+            [target.new_full((B, H, W, 1), o) for o in offsets], 0
+        )
+
+        extra = dir_plane
+        region_weight_fn = None
+        if cfg.attention != "none":
+            pyr = self.flownet(rep_tgt, flat_src)
+            out["flows"] = [[lv[s * B : (s + 1) * B] for lv in pyr] for s in range(S)]
+            flow_full = FlowNetLite.full_res_flow(pyr[0], H, W)
+            extra = torch.cat([dir_plane, flow_full], -1)
+            if cfg.attention == "flow_seg":
+                attn_in = flow_full
+                if cfg.attention_cue == "flow_fb":
+                    attn_in = torch.cat([flow_full, self._fb_cue(pyr[0], rep_tgt, flat_src, H, W)], -1)
+                weights = self.attn(attn_in)  # (S*B, K)
+                out["attn"] = weights.reshape(S, B, -1).movedim(0, 1)
+                if seg is not None:
+                    seg_rep = seg.repeat(S, 1, 1)
+                    region_weight_fn = lambda hw: region_weight_map(  # noqa: E731
+                        weights, seg_rep, cfg.num_seg_classes, hw
+                    )
+
+        pose_flat = self.posenet(rep_tgt, flat_src, extra=extra, region_weight_fn=region_weight_fn)
+        out["poses"] = pose_flat.reshape(S, B, 6).movedim(0, 1)
+        return out
+
+    def _fb_cue(self, fwd4, rep_tgt, flat_src, H, W):
+        """|fwd(x) + bwd(x + fwd(x))| at the /4 level, upsampled to (H, W):
+        near zero where the point is rigid and seen in both frames."""
+        bwd4 = self.flownet(flat_src, rep_tgt)[0]
+        bwd_at_fwd, _ = flow_warp_separable(bwd4, fwd4)
+        # Rescale per axis before the norm: du by W/w4, dv by H/h4.
+        scale = torch.tensor(
+            [W / fwd4.shape[2], H / fwd4.shape[1]], dtype=torch.float32, device=fwd4.device
+        )
+        resid = (fwd4 + bwd_at_fwd) * scale
+        fb4 = torch.sqrt((resid * resid).sum(-1, keepdim=True) + 1e-8)
+        return resize_bilinear_aligned(fb4, H, W)

@@ -1,0 +1,128 @@
+"""FlowNetLite: PWC-style coarse-to-fine optical flow (port of
+davo_tpu.models.flownet, serving path).
+
+Every `costvol_impl` of the reference computes the same function, so
+here the cost volume always goes through `kernels.costvol.cost_volume`:
+the hand-written CUDA kernel on the GPU, its plain version on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from davo_tpu_torch.config import ModelConfig
+from davo_tpu_torch.core.warp import flow_warp_separable
+from davo_tpu_torch.kernels.costvol import cost_volume
+from davo_tpu_torch.kernels.resize import resize_bilinear_aligned
+from davo_tpu_torch.models.common import Conv, ConvBlock, dtype_of
+
+_LEVEL_CHANNELS = (16, 32, 64, 96)
+
+
+class FeaturePyramid(nn.Module):
+    """(B, H, W, 3) -> [(B, H/2, W/2, 16), (B, H/4, W/4, 32), ...]."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        dt = dtype_of(cfg.compute_dtype)
+        cin = 3
+        self.levels = len(_LEVEL_CHANNELS[: cfg.flow_levels])
+        for i, ch in enumerate(_LEVEL_CHANNELS[: cfg.flow_levels]):
+            self.add_module(f"feat{i}a", ConvBlock(cin, ch, 3, 2, dt))
+            self.add_module(f"feat{i}b", ConvBlock(ch, ch, 3, 1, dt))
+            cin = ch
+        self.dtype = dt
+
+    def forward(self, img: torch.Tensor) -> list[torch.Tensor]:
+        x = img.to(self.dtype)
+        pyr = []
+        for i in range(self.levels):
+            x = getattr(self, f"feat{i}b")(getattr(self, f"feat{i}a")(x))
+            pyr.append(x)
+        return pyr  # fine (/2) -> coarse
+
+
+class FlowEstimator(nn.Module):
+    """[cost volume, features, upsampled flow] -> refined flow (f32)."""
+
+    def __init__(self, cfg: ModelConfig, cin: int):
+        super().__init__()
+        dt = dtype_of(cfg.compute_dtype)
+        self.dtype = dt
+        if cfg.flow_est_bottleneck > 0:
+            self.est_in = ConvBlock(cin, cfg.flow_est_bottleneck, 1, 1, dt)
+            cin = cfg.flow_est_bottleneck
+        for i, ch in enumerate((96, 64, 32)):
+            self.add_module(f"est{i}", ConvBlock(cin, ch, 3, 1, dt))
+            cin = ch
+        self.flow = Conv(cin, 2, 3, 1, dt)
+
+    def forward(self, cv, feat, flow_up):
+        x = torch.cat([cv.to(self.dtype), feat, flow_up.to(self.dtype)], -1)
+        if hasattr(self, "est_in"):
+            x = self.est_in(x)
+        x = self.est2(self.est1(self.est0(x)))
+        return flow_up + self.flow(x).float()
+
+
+class FlowNetLite(nn.Module):
+    """(img1, img2) -> flow pyramid fine->coarse [(B, H/4, W/4, 2), ...],
+    in pixels at each level's own resolution (f32)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.search = cfg.flow_search_range
+        self.levels = cfg.flow_levels
+        dt = dtype_of(cfg.compute_dtype)
+        self.pyramid = FeaturePyramid(cfg)
+        d2 = (2 * self.search + 1) ** 2
+        for lv in range(1, cfg.flow_levels):
+            self.add_module(
+                f"estimator{lv}", FlowEstimator(cfg, d2 + _LEVEL_CHANNELS[lv] + 2)
+            )
+        self.project = cfg.costvol_feat_channels > 0
+        if self.project:
+            # One linear 1x1 shared by both maps: the correlation stays
+            # a dot product in a learned subspace.
+            for lv in range(1, cfg.flow_levels):
+                self.add_module(
+                    f"cv_proj{lv}",
+                    Conv(_LEVEL_CHANNELS[lv], cfg.costvol_feat_channels, 1, 1, dt),
+                )
+
+    def forward(self, img1: torch.Tensor, img2: torch.Tensor) -> list[torch.Tensor]:
+        B = img1.shape[0]
+        pboth = self.pyramid(torch.cat([img1, img2], 0))
+        flows: list[torch.Tensor] = []
+        flow = None
+        # Coarse -> fine, skipping the /2 level (stop at index 1 == /4).
+        for level in range(len(pboth) - 1, 0, -1):
+            f1, f2 = pboth[level][:B], pboth[level][B:]
+            _, H, W, _ = f1.shape
+            if flow is None:
+                flow_up = torch.zeros((B, H, W, 2), dtype=torch.float32, device=f1.device)
+                f2w = f2
+            else:
+                flow_up = 2.0 * resize_bilinear_aligned(flow, H, W)
+                f2w, _ = flow_warp_separable(f2, flow_up)
+            f1c, f2c = f1, f2w
+            if self.project:
+                proj = getattr(self, f"cv_proj{level}")
+                f1c, f2c = proj(f1), proj(f2w)
+            cv = torch.relu(
+                cost_volume(
+                    f1c.float().contiguous(), f2c.float().contiguous(), self.search
+                )
+            )
+            flow = getattr(self, f"estimator{level}")(cv, f1, flow_up)
+            flows.append(flow)
+        return flows[::-1]  # fine (/4) first
+
+    @staticmethod
+    def full_res_flow(flow: torch.Tensor, height: int, width: int) -> torch.Tensor:
+        """Upsample a /k-level flow to full resolution; du and dv scale
+        independently (width/w, height/h)."""
+        _, h, w, _ = flow.shape
+        scale = torch.tensor([width / w, height / h], dtype=flow.dtype, device=flow.device)
+        return resize_bilinear_aligned(flow, height, width) * scale

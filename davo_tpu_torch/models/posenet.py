@@ -1,0 +1,63 @@
+"""PoseNet: frame-pair 6-DoF egomotion regression (port of
+davo_tpu.models.posenet).
+
+Stride-2 conv stack on the concatenated pair, optional region-attention
+map multiplied into the features, 1x1 conv head, global mean, x
+pose_scale. Output ``[tx, ty, tz, rx, ry, rz] * pose_scale`` maps
+target-cam points to source-cam points.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from davo_tpu_torch.config import ModelConfig
+from davo_tpu_torch.models.common import Conv, ConvBlock, dtype_of
+
+
+class PoseEncoder(nn.Module):
+    def __init__(self, cfg: ModelConfig, cin: int):
+        super().__init__()
+        self.dtype = dtype_of(cfg.compute_dtype)
+        self.depth = len(cfg.pose_channels)
+        for i, ch in enumerate(cfg.pose_channels):
+            k = 7 if i == 0 else (5 if i == 1 else 3)
+            self.add_module(f"enc{i}", ConvBlock(cin, ch, k, 2, self.dtype))
+            cin = ch
+
+    def forward(self, pair: torch.Tensor) -> torch.Tensor:
+        x = pair.to(self.dtype)
+        for i in range(self.depth):
+            x = getattr(self, f"enc{i}")(x)
+        return x
+
+
+class PoseHead(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.pose_scale = cfg.pose_scale
+        self.pose_head = Conv(cfg.pose_channels[-1], 6, 1, 1, dtype_of(cfg.compute_dtype))
+
+    def forward(self, features: torch.Tensor) -> torch.Tensor:
+        pose = self.pose_head(features).float().mean(dim=(1, 2))
+        return pose * self.pose_scale
+
+
+class PoseNet(nn.Module):
+    """(target, source, extra cue channels) -> (B, 6) pose vectors."""
+
+    def __init__(self, cfg: ModelConfig, extra_channels: int = 0):
+        super().__init__()
+        self.encoder = PoseEncoder(cfg, 6 + extra_channels)
+        self.head = PoseHead(cfg)
+
+    def forward(self, target, source, extra=None, region_weight_fn=None):
+        """`region_weight_fn`, if given, maps the encoder's (h, w) to a
+        (B, h, w, 1) attention map multiplied into the features."""
+        parts = [target, source] + ([extra] if extra is not None else [])
+        features = self.encoder(torch.cat(parts, -1))
+        if region_weight_fn is not None:
+            wmap = region_weight_fn((features.shape[1], features.shape[2]))
+            features = features * wmap.to(features.dtype)
+        return self.head(features)

@@ -1,0 +1,151 @@
+"""davo_tpu_torch kernels and primitives against the JAX reference (CPU).
+
+On the CPU the port's cost-volume wrapper runs its plain version; the
+CUDA kernel itself is held against that plain version on the card by
+chip_smoke.py. Inputs come from numpy with a fixed seed and go to both
+packages.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from davo_tpu.core import geometry as jgeo
+from davo_tpu.core.warp import flow_warp_separable as j_flow_warp_separable
+from davo_tpu.kernels.costvol import cost_volume_pallas, cost_volume_pallas_rows
+from davo_tpu.kernels.resize import upsample2x_bilinear as j_upsample
+from davo_tpu.models.flownet import cost_volume as j_cost_volume
+from davo_tpu_torch.core import geometry as geo
+from davo_tpu_torch.core.warp import flow_warp_separable
+from davo_tpu_torch.kernels import costvol, cuda_build
+from davo_tpu_torch.kernels.resize import resize_bilinear_aligned, upsample2x_bilinear
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _maps(seed, shape):
+    rng = np.random.default_rng(seed)
+    return (
+        rng.normal(size=shape).astype(np.float32),
+        rng.normal(size=shape).astype(np.float32),
+    )
+
+
+# Odd W throughout; s=4 on H=7 also puts whole shift rows out of frame.
+@pytest.mark.parametrize("search", [2, 3, 4])
+@pytest.mark.parametrize("channels", [8, 32])
+def test_cost_volume_matches_reference(search, channels):
+    a, b = _maps(search * 100 + channels, (2, 7, 13, channels))
+    got = costvol.cost_volume_plain(torch.from_numpy(a), torch.from_numpy(b), search).numpy()
+    d = (2 * search + 1) ** 2
+    assert got.shape == (2, 7, 13, d)
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    for want in (
+        cost_volume_pallas(ja, jb, search),
+        cost_volume_pallas_rows(ja, jb, search),
+        j_cost_volume(ja, jb, search),
+    ):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-5)
+
+
+def test_cost_volume_wrapper_on_cpu_is_plain_and_uncounted():
+    a, b = (torch.from_numpy(x) for x in _maps(1, (2, 5, 9, 8)))
+    before = costvol.launches
+    got = costvol.cost_volume(a, b, 3)
+    assert costvol.launches == before
+    assert torch.equal(got, costvol.cost_volume_plain(a, b, 3))
+
+
+
+def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
+    """No toolkit: loading a kernel raises; nothing is built or loaded."""
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build, "_LOADED", {})
+    monkeypatch.setattr(cuda_build.shutil, "which", lambda _name: None)
+    monkeypatch.setattr(cuda_build.os.path, "exists", lambda _path: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_build.load("costvol")
+    assert not list(tmp_path.iterdir()) and not cuda_build._LOADED
+
+
+def test_kernel_build_failure_raises_and_leaves_no_library(tmp_path, monkeypatch):
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build, "_LOADED", {})
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: "false")  # exits 1
+    with pytest.raises(RuntimeError, match="costvol.cu .nvcc exit 1"):
+        cuda_build.load("costvol")
+    assert not list(tmp_path.iterdir()) and not cuda_build._LOADED
+
+
+def test_cost_volume_rows_matches_pallas_rows():
+    a, b = _maps(2, (2, 6, 11, 8))
+    got = costvol.cost_volume_rows(
+        torch.from_numpy(a.reshape(2, 66, 8)), torch.from_numpy(b.reshape(2, 66, 8)), 6, 11, 3
+    ).numpy()
+    want = np.asarray(cost_volume_pallas_rows(jnp.asarray(a), jnp.asarray(b), 3))
+    np.testing.assert_allclose(got, want.reshape(2, 66, 49), rtol=0, atol=1e-5)
+
+
+def test_cost_volume_plain_is_differentiable_on_cpu():
+    a, b = (torch.from_numpy(x).requires_grad_() for x in _maps(3, (1, 4, 5, 8)))
+    costvol.cost_volume(a, b, 2).sum().backward()
+    assert a.grad is not None and b.grad is not None
+    assert torch.isfinite(a.grad).all() and a.grad.abs().sum() > 0
+
+
+@pytest.mark.parametrize("factor", [2, 4])
+def test_upsample_matches_reference(factor):
+    x = np.random.default_rng(factor).uniform(size=(2, 6, 10, 3)).astype(np.float32)
+    got = upsample2x_bilinear(torch.from_numpy(x), factor).numpy()
+    want = np.asarray(j_upsample(jnp.asarray(x), factor))
+    assert got.shape == (2, 6 * factor, 10 * factor, 3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def test_resize_refuses_non_integer_factor():
+    with pytest.raises(NotImplementedError):
+        resize_bilinear_aligned(torch.zeros(1, 4, 4, 2), 6, 6)
+
+
+def test_flow_warp_separable_matches_reference():
+    rng = np.random.default_rng(4)
+    src = rng.uniform(size=(2, 12, 16, 5)).astype(np.float32)
+    gy, gx = np.meshgrid(np.arange(12), np.arange(16), indexing="ij")
+    # A smooth field that also pushes some pixels out of frame.
+    flow = np.stack([3.0 * np.sin(gy / 4.0), 2.0 * np.cos(gx / 5.0)], -1)
+    flow = np.broadcast_to(flow, (2, 12, 16, 2)).astype(np.float32)
+    got, got_valid = flow_warp_separable(torch.from_numpy(src), torch.from_numpy(flow))
+    want, want_valid = j_flow_warp_separable(jnp.asarray(src), jnp.asarray(flow))
+    assert 0 < float(got_valid.mean()) < 1
+    np.testing.assert_array_equal(got_valid.numpy(), np.asarray(want_valid))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+
+def test_pose_vec_to_mat_matches_reference():
+    vec = np.random.default_rng(5).normal(scale=0.3, size=(16, 6)).astype(np.float32)
+    got = geo.pose_vec_to_mat(torch.from_numpy(vec)).numpy()
+    want = np.asarray(jgeo.pose_vec_to_mat(jnp.asarray(vec)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def test_trajectory_from_relatives_matches_reference():
+    rng = np.random.default_rng(6)
+    vec = np.concatenate(
+        [rng.normal(scale=0.5, size=(64, 3)), rng.normal(scale=0.02, size=(64, 3))], -1
+    ).astype(np.float32)
+    rel = geo.pose_vec_to_mat(torch.from_numpy(vec))
+    got = geo.trajectory_from_relatives(rel).numpy()
+    want = np.asarray(jgeo.trajectory_from_relatives(jnp.asarray(rel.numpy())))
+    assert got.shape == (65, 4, 4)
+    # Both chain by a log-depth scan; the groupings differ, so the
+    # products agree to f32 rounding over 64 steps, not bit for bit.
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    # And against the plain sequential chain.
+    seq = [np.eye(4, dtype=np.float64)]
+    for m in rel.numpy().astype(np.float64):
+        seq.append(seq[-1] @ m)
+    np.testing.assert_allclose(got, np.stack(seq), rtol=0, atol=1e-4)

@@ -1,0 +1,356 @@
+"""davo_tpu_torch models against the JAX reference (CPU; float32, and bf16 rounding).
+
+Each module gets the reference's parameters through the Flax -> torch
+converter and the same numpy inputs; outputs must agree within the
+stated tolerances.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from davo_tpu.models import presets as jpresets
+from davo_tpu.models.attention import RegionAttention as JRegionAttention
+from davo_tpu.models.attention import region_weight_map as j_region_weight_map
+from davo_tpu.models.attention import seg_to_onehot as j_seg_to_onehot
+from davo_tpu.models.common import ConvBlock as JConvBlock
+from davo_tpu.models.davo import DavoModel as JDavoModel
+from davo_tpu.models.flownet import FeaturePyramid as JFeaturePyramid
+from davo_tpu.models.flownet import FlowNetLite as JFlowNetLite
+from davo_tpu.models.posenet import PoseNet as JPoseNet
+from davo_tpu_torch.convert import flax_to_state_dict, load_flax_params
+from davo_tpu_torch.models import presets
+from davo_tpu_torch.models.attention import RegionAttention, region_weight_map
+from davo_tpu_torch.models.common import ConvBlock
+from davo_tpu_torch.models.davo import DavoModel
+from davo_tpu_torch.models.flownet import FeaturePyramid, FlowNetLite
+from davo_tpu_torch.models.posenet import PoseNet
+
+TINY = presets.get("tiny").model
+J_TINY = jpresets.get("tiny").model
+H, W = TINY.img_height, TINY.img_width
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _images(seed, *shape):
+    return np.random.default_rng(seed).uniform(size=shape).astype(np.float32)
+
+
+def _seg(seed, b, h, w):
+    return np.random.default_rng(seed).integers(0, 19, size=(b, h, w)).astype(np.int32)
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+def _close(got, want, atol):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=0, atol=atol)
+
+
+def _davo_pair(jcfg, cfg, target, sources, seg):
+    jmodel = JDavoModel(jcfg)
+    params = jmodel.init(
+        jax.random.key(0), jnp.asarray(target), jnp.asarray(sources),
+        seg=jnp.asarray(seg), train=False,
+    )
+    model = DavoModel(cfg, device="cpu", seed=1)
+    assert load_flax_params(model, params) == []
+    return jmodel, params, model
+
+
+def test_feature_pyramid_matches_reference():
+    img = _images(0, 2, H, W, 3)
+    jnet = JFeaturePyramid(J_TINY)
+    params = jnet.init(jax.random.key(1), jnp.asarray(img))
+    net = FeaturePyramid(TINY)
+    load_flax_params(net, params)
+    got = net(_t(img))
+    want = jnet.apply(params, jnp.asarray(img))
+    assert [tuple(g.shape) for g in got] == [(2, 24, 32, 16), (2, 12, 16, 32), (2, 6, 8, 64)]
+    for g, w in zip(got, want):
+        _close(g, w, 1e-4)
+
+
+@pytest.mark.parametrize("feat_channels, bottleneck", [(0, 0), (8, 0), (0, 16)])
+def test_flownet_matches_reference(feat_channels, bottleneck):
+    kw = dict(costvol_feat_channels=feat_channels, flow_est_bottleneck=bottleneck)
+    jcfg, cfg = dataclasses.replace(J_TINY, **kw), dataclasses.replace(TINY, **kw)
+    a, b = _images(2, 2, H, W, 3), _images(3, 2, H, W, 3)
+    jnet = JFlowNetLite(jcfg)
+    params = jnet.init(jax.random.key(2), jnp.asarray(a), jnp.asarray(b))
+    net = FlowNetLite(cfg)
+    load_flax_params(net, params)
+    with torch.no_grad():
+        got = net(_t(a), _t(b))
+    want = jnet.apply(params, jnp.asarray(a), jnp.asarray(b))
+    assert [tuple(g.shape) for g in got] == [(2, 12, 16, 2), (2, 6, 8, 2)]
+    for g, w in zip(got, want):
+        _close(g, w, 1e-4)
+    _close(
+        FlowNetLite.full_res_flow(got[0], H, W),
+        JFlowNetLite.full_res_flow(want[0], H, W),
+        1e-4,
+    )
+
+
+def test_region_attention_and_weight_map_match_reference():
+    flow = np.random.default_rng(4).normal(scale=2.0, size=(3, H, W, 2)).astype(np.float32)
+    jnet = JRegionAttention(J_TINY)
+    params = jnet.init(jax.random.key(3), jnp.asarray(flow))
+    net = RegionAttention(TINY, 2)
+    load_flax_params(net, params)
+    with torch.no_grad():
+        got = net(_t(flow))
+    want = jnet.apply(params, jnp.asarray(flow))
+    _close(got, want, 1e-4)
+    seg = _seg(5, 3, H, W)
+    seg[0, :3, :5] = -1  # out-of-range labels: an all-zero one-hot row
+    seg[1, -2:, -4:] = 19
+    onehot = j_seg_to_onehot(jnp.asarray(seg), 19)
+    for hw in [(6, 8), (12, 16), (1, 4), (H, W)]:
+        _close(
+            region_weight_map(got, _t(seg), 19, hw),
+            j_region_weight_map(want, onehot, hw),
+            1e-4,
+        )
+    with pytest.raises(NotImplementedError):
+        region_weight_map(got, _t(seg), 19, (5, 7))
+
+
+def test_posenet_matches_reference():
+    t, s = _images(6, 2, H, W, 3), _images(7, 2, H, W, 3)
+    extra = np.random.default_rng(8).normal(size=(2, H, W, 3)).astype(np.float32)
+    wmap = np.random.default_rng(9).uniform(size=(2, 6, 8, 1)).astype(np.float32)
+    jnet = JPoseNet(J_TINY)
+    args = (jnp.asarray(t), jnp.asarray(s), jnp.asarray(extra))
+    params = jnet.init(jax.random.key(4), *args)
+    net = PoseNet(TINY, extra_channels=3)
+    load_flax_params(net, params)
+    with torch.no_grad():
+        for fn, jfn in [(None, None), (lambda hw: _t(wmap), lambda hw: jnp.asarray(wmap))]:
+            got = net(_t(t), _t(s), _t(extra), region_weight_fn=fn)
+            want = jnet.apply(params, *args, region_weight_fn=jfn)
+            _close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("cue", ["flow", "flow_fb"])
+def test_davo_tiny_matches_reference(cue):
+    """The whole slice in f32 at `tiny`, two sources (batch folding and
+    the direction plane), with seg-driven region attention."""
+    jcfg = dataclasses.replace(J_TINY, attention_cue=cue)
+    cfg = dataclasses.replace(TINY, attention_cue=cue)
+    target, sources = _images(10, 2, H, W, 3), _images(11, 2, 2, H, W, 3)
+    seg = _seg(12, 2, H, W)
+    jmodel, params, model = _davo_pair(jcfg, cfg, target, sources, seg)
+    want = jmodel.apply(
+        params, jnp.asarray(target), jnp.asarray(sources), seg=jnp.asarray(seg), train=False
+    )
+    with torch.no_grad():
+        got = model(_t(target), _t(sources), seg=_t(seg))
+    assert got["poses"].shape == (2, 2, 6)
+    _close(got["poses"], want["poses"], 1e-4)
+    _close(got["attn"], want["attn"], 1e-4)
+    for src_got, src_want in zip(got["flows"], want["flows"]):
+        for g, w in zip(src_got, src_want):
+            _close(g, w, 1e-3)
+
+
+@pytest.mark.parametrize(
+    "kernel, stride, height, width, cin, cout",
+    [(7, 2, 32, 52, 9, 16), (5, 2, 16, 26, 16, 32), (3, 2, 14, 13, 32, 64),
+     (3, 1, 13, 26, 24, 32), (1, 1, 8, 13, 16, 8)],
+)
+def test_conv_block_bf16_rounds_as_reference(kernel, stride, height, width, cin, cout):
+    """bf16 placement: input and weights cast down, the conv's output
+    rounded to bf16, then the bias added in bf16, as Flax does. Both
+    sides accumulate in f32, so the outputs agree bit for bit except
+    where the summation order flips a rounding. The same block run in
+    f32 and rounded once at the end must fail the criterion."""
+    rng = np.random.default_rng(kernel * 10 + stride)
+    x = rng.uniform(-1, 1, size=(2, height, width, cin)).astype(np.float32)
+    jblock = JConvBlock(cout, kernel, stride, jnp.bfloat16)
+    params = jax.tree_util.tree_map(np.asarray, jblock.init(jax.random.key(0), jnp.asarray(x)))
+    params["params"]["Conv_0"]["bias"] = rng.normal(scale=0.5, size=cout).astype(np.float32)
+    want = np.asarray(jblock.apply(params, jnp.asarray(x)).astype(jnp.float32))
+    block = ConvBlock(cin, cout, kernel, stride, torch.bfloat16)
+    load_flax_params(block, params)
+    with torch.no_grad():
+        got = block(_t(x)).float().numpy()
+    assert got.shape == want.shape
+    assert np.mean(got != want) <= 1e-3
+    assert np.abs(got - want).max() <= 2.0**-7 * np.abs(want).max()  # one bf16 ulp
+    f32_block = ConvBlock(cin, cout, kernel, stride, torch.float32)
+    load_flax_params(f32_block, params)
+    with torch.no_grad():
+        rounded_once = f32_block(_t(x)).bfloat16().float().numpy()
+    assert np.mean(rounded_once != want) > 0.05
+
+
+def test_davo_tiny_bf16_follows_reference_rounding():
+    """The whole tiny forward in bf16: rounding flips make a bit-for-bit
+    match impossible past the first layers, so the criterion is
+    statistical. Summed over seeds, the port's gap to the reference's
+    bf16 poses must be well under the reference's own bf16-to-f32 gap
+    (measured: 0.15 of it); a port that rounded elsewhere, or ran in
+    f32, would sit near 1."""
+    j32 = J_TINY
+    j16 = dataclasses.replace(J_TINY, compute_dtype="bfloat16")
+    port16 = dataclasses.replace(TINY, compute_dtype="bfloat16")
+
+    def poses(cfg):
+        return jax.jit(
+            lambda p, t, s, g: JDavoModel(cfg).apply(p, t, s, seg=g, train=False)["poses"]
+        )
+
+    init = jax.jit(lambda k, t, s, g: JDavoModel(j32).init(k, t, s, seg=g, train=False))
+    apply16, apply32 = poses(j16), poses(j32)
+    gap, reference_gap = 0.0, 0.0
+    for seed in range(3):
+        target, sources = _images(20 + seed, 2, H, W, 3), _images(30 + seed, 2, 1, H, W, 3)
+        seg = _seg(40 + seed, 2, H, W)
+        args = (jnp.asarray(target), jnp.asarray(sources), jnp.asarray(seg))
+        params = init(jax.random.key(seed), *args)
+        want16, want32 = np.asarray(apply16(params, *args)), np.asarray(apply32(params, *args))
+        model = DavoModel(port16, device="cpu")
+        load_flax_params(model, params)
+        with torch.no_grad():
+            got = model(_t(target), _t(sources), seg=_t(seg))["poses"].numpy()
+        gap += np.abs(got - want16).max()
+        reference_gap += np.abs(want16 - want32).max()
+    assert reference_gap > 0
+    assert gap <= 0.5 * reference_gap
+
+
+FAST_KW = dict(img_height=64, img_width=128, compute_dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def davo_fast():
+    """davo-fast's widths at 64x128 in f32: inputs, reference model and
+    parameters, and the port with those parameters loaded."""
+    jcfg = jpresets.with_overrides("davo-fast", **FAST_KW).model
+    cfg = presets.with_overrides("davo-fast", **FAST_KW).model
+    target, sources = _images(13, 2, 64, 128, 3), _images(14, 2, 1, 64, 128, 3)
+    seg = _seg(15, 2, 64, 128)
+    return (target, sources, seg) + _davo_pair(jcfg, cfg, target, sources, seg)
+
+
+def test_davo_fast_widths_match_reference(davo_fast):
+    """davo-fast's widths (8-ch correlation projection, search 3, seven
+    pose layers) at 64x128 in f32: poses within 1e-4 of the largest."""
+    target, sources, seg, jmodel, params, model = davo_fast
+    want = np.asarray(
+        jmodel.apply(
+            params, jnp.asarray(target), jnp.asarray(sources), seg=jnp.asarray(seg),
+            train=False,
+        )["poses"]
+    )
+    with torch.no_grad():
+        got = model(_t(target), _t(sources), seg=_t(seg))["poses"].numpy()
+    scale = np.abs(want).max()
+    assert scale > 0
+    assert np.abs(got - want).max() <= 1e-4 * scale
+
+
+def test_davo_attention_none_and_flow_match_reference():
+    for attention in ("none", "flow"):
+        jcfg = dataclasses.replace(J_TINY, attention=attention)
+        cfg = dataclasses.replace(TINY, attention=attention)
+        target, sources = _images(16, 2, H, W, 3), _images(17, 2, 1, H, W, 3)
+        jmodel = JDavoModel(jcfg)
+        params = jmodel.init(
+            jax.random.key(5), jnp.asarray(target), jnp.asarray(sources), train=False
+        )
+        model = DavoModel(cfg, device="cpu")
+        load_flax_params(model, params)
+        want = jmodel.apply(params, jnp.asarray(target), jnp.asarray(sources), train=False)
+        with torch.no_grad():
+            got = model(_t(target), _t(sources))
+        _close(got["poses"], want["poses"], 1e-4)
+        assert ("flows" in got) == (attention == "flow")
+
+
+def test_converter_maps_every_leaf(davo_fast):
+    params = davo_fast[4]
+    leaves = jax.tree_util.tree_leaves(params)
+    state, skipped = flax_to_state_dict(params)
+    model = DavoModel(presets.with_overrides("davo-fast", **FAST_KW).model, device="cpu")
+    assert skipped == []
+    assert len(state) == len(leaves) == len(model.state_dict()) == 58
+    assert sum(v.numel() for v in state.values()) == sum(
+        p.numel() for p in model.parameters()
+    )
+    sd = model.state_dict()
+    for key, value in state.items():
+        assert value.shape == sd[key].shape, key
+    pose_head = params["params"]["posenet"]["head"]["pose_head"]["kernel"]
+    np.testing.assert_array_equal(
+        state["posenet.head.pose_head.weight"].numpy(),
+        np.asarray(pose_head).transpose(3, 2, 0, 1),
+    )
+    fc0 = params["params"]["attn"]["fc0"]["kernel"]
+    np.testing.assert_array_equal(state["attn.fc0.weight"].numpy(), np.asarray(fc0).T)
+    # Round trip: loading the converted tree gives back the same tensors.
+    load_flax_params(model, params)
+    for key, value in model.state_dict().items():
+        assert torch.equal(value, state[key]), key
+
+
+def test_converter_rejects_missing_and_extra_keys_and_skips_dispnet():
+    model = FeaturePyramid(TINY)
+    params = JFeaturePyramid(J_TINY).init(jax.random.key(7), jnp.zeros((1, H, W, 3)))
+    tree = jax.tree_util.tree_map(np.asarray, dict(params["params"]))
+    missing = {k: v for k, v in tree.items() if k != "feat2b"}
+    with pytest.raises(KeyError, match="feat2b"):
+        load_flax_params(model, missing)
+    extra = dict(tree, feat9a={"Conv_0": tree["feat0a"]["Conv_0"]})
+    with pytest.raises(KeyError, match="feat9a"):
+        load_flax_params(model, extra)
+    bad = dict(tree, feat0a={"Conv_0": tree["feat1a"]["Conv_0"]})
+    with pytest.raises(ValueError, match="feat0a"):
+        load_flax_params(model, bad)
+    with_disp = dict(tree, dispnet={"conv0": {"kernel": np.zeros((3, 3, 3, 8))}})
+    assert load_flax_params(model, with_disp) == ["dispnet/conv0/kernel"]
+
+
+def test_init_mirrors_flax_defaults():
+    model = DavoModel(TINY, device="cpu", seed=3)
+    w = model.posenet.encoder.enc1.Conv_0.weight.detach()  # fan_in = 8 * 5 * 5
+    std = float(w.std())
+    assert abs(std - (1 / 200) ** 0.5) < 0.2 * (1 / 200) ** 0.5
+    assert float(w.abs().max()) <= 2 * (1 / 200) ** 0.5 / 0.87962566103423978 + 1e-6
+    assert all(not b.any() for n, b in model.state_dict().items() if n.endswith("bias"))
+    again = DavoModel(TINY, device="cpu", seed=3)
+    assert all(torch.equal(a, b) for a, b in zip(model.parameters(), again.parameters()))
+
+
+@pytest.mark.parametrize(
+    "override",
+    [
+        {"fuse_estimator": True},
+        {"fuse_flow_level_train": True},
+        {"fuse_pose_encoder": True},
+        {"fuse_disp_encoder": True},
+        {"pose_head": "geo_hybrid"},
+        {"s2d_first_conv": True},
+    ],
+)
+def test_unported_options_are_refused(override):
+    with pytest.raises(NotImplementedError):
+        DavoModel(dataclasses.replace(TINY, **override), device="cpu")
+
+
+def test_train_forward_is_refused():
+    model = DavoModel(TINY, device="cpu")
+    x = torch.zeros(1, H, W, 3)
+    with pytest.raises(NotImplementedError, match="train"):
+        model(x, x[:, None], train=True)
