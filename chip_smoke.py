@@ -5,31 +5,51 @@
 
 Phases, in order; any failure exits non-zero:
   1. environment: card name and power limit, torch/CUDA versions, TF32 flags
-  2. build: compile the CUDA kernels from davo_tpu_torch/csrc (nvcc)
+  2. build: compile the CUDA kernels from davo_tpu_torch/csrc (one nvcc
+     per source, all started together)
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it, with times and the card's bound
-  4. the main path: davo-fast at 128x416 streams a 257-frame synthetic
+     shapes the main paths give it, with times, the card's bound and, for
+     the banded warp, F.grid_sample as the library yardstick
+  4. the serving path: davo-fast at 128x416 streams a 257-frame synthetic
      world through predict_sequence in 4 requests of 64 pairs, then
      assemble_trajectory and evaluate_sequence; plus one davo forward
   5. the port on the card against the port on the CPU (float32)
   6. davo-fast forward throughput at B=256 (recorded, not claimed)
   7. where the time goes: the steady-state stream, device time per model
      layer and per kernel of the B=256 forward, and the device's busy share
+  8. the train path: davo at 128x416, B=4, synthetic worlds, 5 steps
+     through train.loop.fit; launch counts per step, finite loss terms,
+     every parameter changed, no plain version run
+  9. one train step on the card against the port on the CPU (davo
+     widths, 64x128, float32): loss terms and every gradient leaf
+ 10. train-step time at B=4 and B=64, peak memory, and device time by
+     kernel of one B=64 step
 The line before the last names the card; the last line is the result.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 COSTVOL_TOL = 1e-5
 PORT_TOL = 1e-4
+# Banded warp: the kernels sum the same terms in the same order as the
+# plain versions (the d/dimg transpose is a gather, not atomics), so
+# they differ by fma contraction only: 1e-5 absolute for the forward
+# (values in [0, 1]), 1e-5 of the largest gradient for the backward.
+BANDWARP_TOL = 1e-5
+BAND = (4, 16)
+TRAIN_LOSS_TOL = 1e-4   # train step, card against CPU: loss terms, relative
+TRAIN_GRAD_TOL = 1e-3   # each gradient leaf, relative to its largest element
+KERNEL_SOURCES = ("costvol", "bandwarp")  # davo_tpu_torch/csrc/<name>.cu
 
 
 def _event_ms(fn, runs: int) -> float:
@@ -45,6 +65,34 @@ def _event_ms(fn, runs: int) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _graph_ms(fn, reps: int = 20) -> float:
+    """Device ms of one `fn()`: `reps` calls captured in a CUDA graph,
+    replayed 5 times between CUDA events (median). Unlike `_event_ms`,
+    no host time of the Python wrapper falls between the kernels."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -88,26 +136,18 @@ def check_cost_volume(torch, costvol):
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         ms = _event_ms(lambda: costvol.cost_volume(f1, f2, s), 30)
+        device_ms = _graph_ms(lambda: costvol.cost_volume(f1, f2, s))
         plain_ms = _event_ms(lambda: costvol.cost_volume_plain(f1, f2, s), 20)
         bound_ms, bound_by = _costvol_bound_ms(B, H, W, C, s)
         row = {
             "shape": label, "B": B, "H": H, "W": W, "C": C, "search": s,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         }
         print(json.dumps({"phase": "costvol", **row}), flush=True)
         if not err <= COSTVOL_TOL:
             raise AssertionError(f"cost volume {label}: max abs err {err} > {COSTVOL_TOL}")
         rows.append(row)
-
-    # The kernel has no backward yet: under autograd it must refuse.
-    needs_grad = f1.detach().requires_grad_()
-    try:
-        costvol.cost_volume(needs_grad, f2, 3)
-    except NotImplementedError:
-        pass
-    else:
-        raise AssertionError("cost_volume ran a CUDA tensor that requires grad")
 
     # The rows layout (B, H*W, C) is the same kernel behind a reshape;
     # timed at the main path's /4 shape.
@@ -338,6 +378,389 @@ def profile(torch, card, stream, inputs):
     }), flush=True)
 
 
+def _bound_ms(nbytes: float, flops: float):
+    """The least time for the work: bytes over the memory rate or f32
+    operations over the f32 rate, whichever is larger."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / F32_FLOPS * 1e3
+    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations")
+
+
+def check_cost_volume_backward(torch, costvol):
+    """Phase 3b: the backward kernel against `cost_volume_plain_bwd` at
+    `davo`'s train shapes (S*B = 8 and 128: B = 4 and 64, two sources)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    s, D = 4, 81
+    rows = []
+    for B in (8, 128):
+        for label, H, W, C in (("/16", 8, 26, 96), ("/8", 16, 52, 64), ("/4", 32, 104, 32)):
+            f1 = torch.randn(B, H, W, C, device="cuda", generator=gen)
+            f2 = torch.randn(B, H, W, C, device="cuda", generator=gen)
+            g = torch.randn(B, H, W, D, device="cuda", generator=gen)
+            got = costvol._launch_bwd(f1, f2, g, s, True, True)
+            want = costvol.cost_volume_plain_bwd(f1, f2, g, s)
+            torch.cuda.synchronize()
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            bound_ms, bound_by = _bound_ms(4.0 * B * H * W * (4 * C + D), 4.0 * B * H * W * D * C)
+            row = {
+                "shape": f"davo {label}", "B": B, "H": H, "W": W, "C": C, "search": s,
+                "max_abs_err": err,
+                "ms": _event_ms(lambda: costvol._launch_bwd(f1, f2, g, s, True, True), 20),
+                "device_ms": _graph_ms(lambda: costvol._launch_bwd(f1, f2, g, s, True, True)),
+                "plain_ms": _event_ms(lambda: costvol.cost_volume_plain_bwd(f1, f2, g, s), 5),
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            }
+            print(json.dumps({"phase": "costvol_bwd", **row}), flush=True)
+            if not err <= COSTVOL_TOL:
+                raise AssertionError(f"cost volume backward {label} B={B}: max abs err {err} > {COSTVOL_TOL}")
+            rows.append(row)
+    return rows
+
+
+def _band_coords(torch, gen, B, H, W):
+    """Sample coordinates that reach every case of the kernels: a third
+    of the displacements beyond the band on each axis, points out of
+    frame on every side, exact integers, and points exactly on the last
+    row and column."""
+    rv, rh = BAND
+    du = (torch.rand(B, H, W, device="cuda", generator=gen) * 2 - 1) * 1.5 * rh
+    dv = (torch.rand(B, H, W, device="cuda", generator=gen) * 2 - 1) * 1.5 * rv
+    du[:, ::7] = du[:, ::7].round()
+    dv[:, :, ::5] = dv[:, :, ::5].round()
+    u = torch.arange(W, device="cuda", dtype=torch.float32) + du
+    v = torch.arange(H, device="cuda", dtype=torch.float32)[:, None] + dv
+    u[:, :, -1], v[:, -1, :] = W - 1.0, H - 1.0
+    u[0, :, :2], v[-1, :2, :] = -1.5, H + 0.5
+    return torch.stack([u, v], -1).contiguous()
+
+
+# The banded warps of one `davo` train step at B=4: (C, H, W, fill) ->
+# launches per step. Photometric: 4 scales x 2 sources; geometry: 2
+# sources (C=1, zeros); flow: 2 sources x 3 levels (/4, /8, /16).
+TRAIN_WARPS = {
+    (3, 128, 416, "border"): 2, (3, 64, 208, "border"): 2, (3, 32, 104, "border"): 4,
+    (3, 16, 52, "border"): 4, (3, 8, 26, "border"): 2, (1, 128, 416, "zeros"): 2,
+}
+
+
+def check_banded_warp(torch, bandwarp):
+    """Phase 3c: the banded forward and backward kernels against their
+    plain versions at every shape of the train step (B=4, band (4, 16)),
+    with F.grid_sample on band-clamped coordinates as the library
+    yardstick (the same forward; its backward follows other edge rules)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rv, rh = BAND
+    B = 4
+    rows = []
+    for (C, H, W, fill), per_step in TRAIN_WARPS.items():
+        img = torch.rand(B, H, W, C, device="cuda", generator=gen)
+        coords = _band_coords(torch, gen, B, H, W)
+        g = torch.randn(B, H, W, C, device="cuda", generator=gen)
+        need_img = C == 1  # only the geometry term's sampled depth needs d/dimg
+        out = bandwarp._launch_fwd(img, coords, rv, rh)
+        dimg, dcoords = bandwarp._launch_bwd(img, coords, g, rv, rh, True)
+        want = bandwarp.banded_warp_plain_fwd(img, coords, rv, rh)
+        want_dimg, want_dcoords = bandwarp.banded_warp_plain_bwd(img, coords, g, rv, rh, True)
+        with torch.no_grad():
+            filled, valid = bandwarp.banded_warp(img, coords, rv, rh, fill=fill)
+        torch.cuda.synchronize()
+        fwd_err = max(float((out - want).abs().max()),
+                      float((filled - (want if fill == "border" else want * valid)).abs().max()))
+        bwd_err = max(float((dcoords - want_dcoords).abs().max()) / float(want_dcoords.abs().max()),
+                      float((dimg - want_dimg).abs().max()) / float(want_dimg.abs().max()))
+
+        _, _, _, _, uc, vc, _, _ = bandwarp._clamped(coords, rv, rh)
+        grid = torch.stack([uc / (W - 1) * 2 - 1, vc / (H - 1) * 2 - 1], -1)
+        nchw = img.permute(0, 3, 1, 2).contiguous()
+
+        def library_fwd():
+            return F.grid_sample(nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)
+
+        lib_err = float((library_fwd().permute(0, 2, 3, 1) - want).abs().max())
+        lib_in = [grid.detach().requires_grad_()] + ([nchw.detach().requires_grad_()] if need_img else [])
+        lib_out = F.grid_sample(lib_in[-1] if need_img else nchw, lib_in[0], mode="bilinear",
+                                padding_mode="border", align_corners=True)
+        g_nchw = g.permute(0, 3, 1, 2).contiguous()
+
+        def library_bwd():  # the one op autograd runs for grid_sample's backward
+            return torch.ops.aten.grid_sampler_2d_backward(
+                g_nchw, nchw, grid, 0, 1, True, [need_img, True])
+
+        fwd_bound = _bound_ms(4.0 * B * H * W * (2 + 2 * C), 8.0 * B * H * W * C)
+        bwd_bound = _bound_ms(4.0 * B * H * W * (4 + (3 if need_img else 2) * C), 16.0 * B * H * W * C)
+        row = {
+            "C": C, "H": H, "W": W, "B": B, "fill": fill, "per_step": per_step,
+            "fwd_max_abs_err": fwd_err, "bwd_max_rel_err": bwd_err, "library_fwd_max_abs_err": lib_err,
+            "fwd_ms": _event_ms(lambda: bandwarp._launch_fwd(img, coords, rv, rh), 30),
+            "fwd_device_ms": _graph_ms(lambda: bandwarp._launch_fwd(img, coords, rv, rh)),
+            "fwd_library_device_ms": _graph_ms(library_fwd),
+            "fwd_plain_ms": _event_ms(lambda: bandwarp.banded_warp_plain_fwd(img, coords, rv, rh), 5),
+            "fwd_library_ms": _event_ms(library_fwd, 30),
+            "fwd_bound_ms": fwd_bound[0], "fwd_bound_by": fwd_bound[1],
+            "bwd_need_img": need_img,
+            "bwd_ms": _event_ms(lambda: bandwarp._launch_bwd(img, coords, g, rv, rh, need_img), 30),
+            "bwd_device_ms": _graph_ms(lambda: bandwarp._launch_bwd(img, coords, g, rv, rh, need_img)),
+            "bwd_library_device_ms": _graph_ms(library_bwd),
+            "bwd_plain_ms": _event_ms(
+                lambda: bandwarp.banded_warp_plain_bwd(img, coords, g, rv, rh, need_img), 5),
+            "bwd_library_ms": _event_ms(
+                lambda: torch.autograd.grad(lib_out, lib_in, g_nchw, retain_graph=True), 30),
+            "bwd_bound_ms": bwd_bound[0], "bwd_bound_by": bwd_bound[1],
+        }
+        print(json.dumps({"phase": "bandwarp", **row}), flush=True)
+        if not (fwd_err <= BANDWARP_TOL and bwd_err <= BANDWARP_TOL):
+            raise AssertionError(f"banded warp C={C} {H}x{W}: fwd err {fwd_err}, bwd rel err {bwd_err}")
+        rows.append(row)
+    return rows
+
+
+def _counts(costvol, bandwarp):
+    return {
+        "cost_volume": costvol.launches, "cost_volume_backward": costvol.backward_launches,
+        "banded_warp": bandwarp.launches, "banded_warp_backward": bandwarp.backward_launches,
+    }
+
+
+def _reset_counts(costvol, bandwarp):
+    costvol.launches = costvol.backward_launches = 0
+    bandwarp.launches = bandwarp.backward_launches = 0
+
+
+def train_path(torch, costvol, bandwarp):
+    """Phase 8: the davo train path at 128x416 with the TrainConfig
+    defaults (B=4, bf16, warp_gather auto -> banded (4, 16)), synthetic
+    worlds, 5 steps through `fit`. No plain version may run."""
+    import dataclasses
+
+    import numpy as np
+
+    from davo_tpu_torch.data.prefetch import PrefetchStats, device_prefetch
+    from davo_tpu_torch.data.snippets import MultiSourceDataset
+    from davo_tpu_torch.data.synthetic import SyntheticSequence
+    from davo_tpu_torch.models import presets
+    from davo_tpu_torch.train import loop
+
+    steps = 5
+    cfg = presets.get("davo")
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, max_steps=steps, log_every=1))
+    m = cfg.model
+    t0 = time.perf_counter()
+    worlds = [SyntheticSequence(n_frames=8, height=m.img_height, width=m.img_width, seed=i) for i in range(2)]
+    ds = MultiSourceDataset(worlds, batch_size=cfg.train.batch_size, with_seg=True, augment=True, seed=0)
+    state = loop.create_state(cfg, "cuda")
+    before = [p.detach().clone() for p in state.model.parameters()]
+    setup_s = time.perf_counter() - t0
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a plain version ran on the train path")
+
+    plains = [(costvol, "cost_volume_plain"), (costvol, "cost_volume_plain_bwd"),
+              (bandwarp, "banded_warp_plain_fwd"), (bandwarp, "banded_warp_plain_bwd")]
+    saved = [getattr(mod, name) for mod, name in plains]
+    for mod, name in plains:
+        setattr(mod, name, refuse)
+    stats = PrefetchStats()
+    try:
+        _reset_counts(costvol, bandwarp)
+        t0 = time.perf_counter()
+        _, state, history = loop.fit(
+            cfg, device_prefetch(ds.batches(steps=steps), "cuda", stats=stats), state=state, device="cuda"
+        )
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = _counts(costvol, bandwarp)
+    finally:
+        for (mod, name), fn in zip(plains, saved):
+            setattr(mod, name, fn)
+    unchanged = [
+        n for (n, p), b in zip(state.model.named_parameters(), before) if torch.equal(p.detach(), b)
+    ]
+    want = {"cost_volume": 3 * steps, "cost_volume_backward": 3 * steps,
+            "banded_warp": 16 * steps, "banded_warp_backward": 16 * steps}
+    print(json.dumps({
+        "phase": "train_path", "preset": "davo", "hw": [m.img_height, m.img_width],
+        "batch": cfg.train.batch_size, "steps": steps, "compute_dtype": m.compute_dtype,
+        "warp_gather": "banded", "band": list(BAND), "launches": counts,
+        "launches_per_step": {k: v / steps for k, v in counts.items()},
+        "history": history, "setup_s": setup_s, "fit_s": fit_s, "prefetch": stats.summary(),
+        "unchanged_parameters": unchanged, "n_parameters": len(before),
+    }), flush=True)
+    if counts != want:
+        raise AssertionError(f"train path launches {counts}, want {want}")
+    if len(history) != steps or state.step != steps:
+        raise AssertionError(f"train path ran {state.step} steps, logged {len(history)}")
+    bad = [(i, k) for i, h in enumerate(history) for k, v in h.items() if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"non-finite loss terms {bad}")
+    if unchanged:
+        raise AssertionError(f"parameters unchanged after {steps} steps: {unchanged}")
+    return counts, next(ds.batches(steps=1))
+
+
+def _loss_and_grads(torch, model, batch, cfg, device, step):
+    from davo_tpu_torch.train import loop
+    from davo_tpu_torch.train.losses import total_loss
+
+    loop._apply_warp_config(cfg, torch.device(device))
+    tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    model.zero_grad(set_to_none=True)
+    out = model(tb["target"], tb["sources"], seg=tb["seg"], train=True, source_disp=True)
+    loss, metrics = total_loss(out, tb, cfg.model, cfg.train, step=step)
+    loss.backward()
+    return ({k: float(v.detach()) for k, v in metrics.items()},
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+
+
+def train_gpu_against_cpu(torch):
+    """Phase 9: one train step's loss terms and gradients on the card
+    against the port on the CPU: `davo` widths at 64x128 in float32,
+    TF32 off, the same seeded parameters and batch, banded warp (4, 16)
+    on both (kernels on the card, plain versions on the CPU).
+
+    Gated on a batch of independent noise images. On a synthetic-world
+    batch, whose frames are nearly alike, SSIM's (1 - s)/2 cancels: on
+    the CPU alone, summing its 3x3 pools in another order moves the loss
+    by 1e-4 and gradient leaves by up to 7e-3 of their largest (measured
+    at this configuration), so there the comparison is recorded, not
+    gated."""
+    import dataclasses
+
+    import numpy as np
+
+    from davo_tpu_torch.data.snippets import MultiSourceDataset
+    from davo_tpu_torch.data.synthetic import SyntheticSequence
+    from davo_tpu_torch.models import presets
+    from davo_tpu_torch.models.davo import DavoModel
+
+    cfg = presets.with_overrides("davo", img_height=64, img_width=128, compute_dtype="float32")
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, batch_size=2, warp_gather="banded", warp_band=BAND))
+    world = SyntheticSequence(n_frames=5, height=64, width=128, seed=7)
+    world_batch = next(
+        MultiSourceDataset([world], batch_size=2, with_seg=True, augment=True, seed=1).batches(steps=1)
+    )
+    rng = np.random.default_rng(8)
+    noise_batch = dict(world_batch)
+    for key in ("target", "sources"):
+        noise_batch[key] = rng.uniform(size=world_batch[key].shape).astype(np.float32)
+    cpu = DavoModel(cfg.model, device="cpu", seed=0, dispnet=True)
+    gpu = DavoModel(cfg.model, device="cuda", seed=0, dispnet=True)
+    gpu.load_state_dict(cpu.state_dict())
+    step = 125  # the depth warm-up gate half open
+    for name, batch, gated in (("noise", noise_batch, True), ("world", world_batch, False)):
+        want_m, want_g = _loss_and_grads(torch, cpu, batch, cfg, "cpu", step)
+        got_m, got_g = _loss_and_grads(torch, gpu, batch, cfg, "cuda", step)
+        loss_err = {k: abs(got_m[k] - want_m[k]) / abs(want_m[k]) for k in want_m}
+        grad_err = {n: float((got_g[n] - want_g[n]).abs().max()) / max(float(want_g[n].abs().max()), 1e-30)
+                    for n in want_g}
+        worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:5]
+        print(json.dumps({
+            "phase": "train_gpu_vs_cpu", "batch": name, "gated": gated,
+            "preset": "davo widths, 64x128, float32, B=2", "loss_terms": want_m,
+            "loss_rel_err": loss_err, "grad_leaves": len(grad_err), "worst_grad_rel_err": worst,
+            "tf32": [torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32],
+        }), flush=True)
+        if gated and (max(loss_err.values()) > TRAIN_LOSS_TOL or worst[0][1] > TRAIN_GRAD_TOL):
+            raise AssertionError(f"train step card vs CPU: loss {loss_err}, worst grads {worst}")
+
+
+def _device_batch(torch, batch, reps):
+    """A host batch tiled `reps` times along the batch axis, on the card."""
+    import numpy as np
+
+    return {k: torch.from_numpy(np.concatenate([v] * reps)).cuda() for k, v in batch.items()}
+
+
+def _time_steps(torch, cfg, batch4, B):
+    """(state, step_fn, batch, CUDA-event ms of 10 steps after 3 warm-ups)."""
+    from davo_tpu_torch.train import loop
+
+    state = loop.create_state(cfg, "cuda")
+    step_fn = loop.make_train_step(cfg, "cuda")
+    batch = _device_batch(torch, batch4, B // 4)
+    for _ in range(3):
+        step_fn(state, batch)
+    times = []
+    for _ in range(10):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, metrics = step_fn(state, batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return state, step_fn, batch, times, float(metrics["total"])
+
+
+def train_step_time(torch, card, batch4):
+    """Phase 10: davo train-step time at B=4 and B=64 (median of 10 steps
+    after 3 warm-up steps, CUDA events), peak memory, and device time by
+    kernel of one B=64 step (torch.profiler)."""
+    import dataclasses
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from davo_tpu_torch.models import presets
+    from davo_tpu_torch.train import loop
+
+    base = presets.get("davo")
+    results = {}
+    for want_B in (4, 64):
+        B = want_B
+        while True:  # the largest power of two up to want_B that fits
+            cfg = dataclasses.replace(base, train=dataclasses.replace(base.train, batch_size=B))
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                state, step_fn, batch, times, loss = _time_steps(torch, cfg, batch4, B)
+                break
+            except torch.cuda.OutOfMemoryError:
+                B //= 2
+                if B < 4:
+                    raise
+        results[want_B] = {
+            "batch": B, "step_ms_median": statistics.median(times), "step_ms": times,
+            "frames_per_s": B / statistics.median(times) * 1e3,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30, "loss": loss,
+        }
+        print(json.dumps({"phase": "train_step_time", "requested_batch": want_B, **results[want_B],
+                          "card": card}), flush=True)
+        if not math.isfinite(loss):
+            raise AssertionError(f"train step at B={B} gave a non-finite loss")
+        if want_B == 4:
+            del state, step_fn, batch
+
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = sorted((
+        (e.key, e.self_device_time_total / 1e3, e.count)
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+    ), key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    ours = {
+        name: sum(ms for k, ms, _ in rows if part in k)
+        for name, part in (("banded_warp", "banded_warp_fwd_kernel"),
+                           ("banded_warp_backward", "banded_warp_bwd_"),
+                           ("cost_volume_backward", "cost_volume_bwd_kernel"),
+                           ("cost_volume", "cost_volume_kernel<"))
+    }
+    ours = {k: {"ms": v, "share": v / device_ms} for k, v in ours.items()}
+    print(json.dumps({
+        "phase": "train_profile", "batch": results[64]["batch"], "device_ms": device_ms,
+        "wall_ms": wall_ms, "device_busy_share": device_ms / wall_ms, "kernels_of_this_port": ours,
+        "top": [{"kernel": k[:100], "ms": ms, "calls": n} for k, ms, n in rows[:30]], "card": card,
+    }), flush=True)
+    return results, ours
+
+
+
 def main() -> int:
     import torch
 
@@ -345,7 +768,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
         return 1
     from davo_tpu_torch import exact_f32
-    from davo_tpu_torch.kernels import costvol, cuda_build
+    from davo_tpu_torch.kernels import bandwarp, costvol, cuda_build
 
     # Phase 1: environment.
     card = subprocess.run(
@@ -360,34 +783,94 @@ def main() -> int:
                        "cudnn": torch.backends.cudnn.allow_tf32},
     }), flush=True)
 
-    # Phase 2: build the kernel library from its source in the checkout.
+    # Phase 2: build every kernel library from its source in the
+    # checkout, one nvcc per source, all started together.
     t0 = time.perf_counter()
-    cuda_build.load("costvol")
+    with ThreadPoolExecutor(max_workers=len(KERNEL_SOURCES)) as pool:
+        for future in [pool.submit(cuda_build.load, name) for name in KERNEL_SOURCES]:
+            future.result()
     build_s = time.perf_counter() - t0
     print(json.dumps({"phase": "build", "seconds": build_s, "log": cuda_build.BUILD_LOG}), flush=True)
 
     rows = check_cost_volume(torch, costvol)
+    bwd_rows = check_cost_volume_backward(torch, costvol)
+    band_rows = check_banded_warp(torch, bandwarp)
     launches, stream = main_path(torch, costvol)
     gpu_against_cpu(torch, costvol)
     inputs = throughput(torch, card, stream[0])
     profile(torch, card, stream, inputs)
+    del stream, inputs
+    train_counts, batch4 = train_path(torch, costvol, bandwarp)
+    train_gpu_against_cpu(torch)
+    train_step_time(torch, card, batch4)
 
-    # The kernel's line: times for the work of one main-path request
-    # (its two flow levels at B=64), error over every shape checked.
+    # The kernels' line. cost_volume: the work of one serving request (its
+    # two flow levels at B=64), launches on both main paths (serving:
+    # 4 requests; train: 5 steps). The train kernels: the work of one
+    # davo train step at B=4 (its 3 cost-volume levels at S*B=8; its 16
+    # banded warps, TRAIN_WARPS), launches over the 5 train steps. "ms"
+    # and "library_ms" are device times (CUDA-graph replay); "call_ms"
+    # times one call from Python, host overhead included.
     per_request = [r for r in rows if r["shape"].startswith("main path")]
-    print(json.dumps({"kernels": [{
-        "name": "cost_volume",
-        "route": "cuda",
-        "source": "davo_tpu_torch/csrc/costvol.cu",
-        "replaces": "davo_tpu/kernels/costvol.py:41",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": sum(r["ms"] for r in per_request),
-        "plain_ms": sum(r["plain_ms"] for r in per_request),
-        "bound_ms": sum(r["bound_ms"] for r in per_request),
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in per_request) else "operations",
-        "library_ms": None,
-    }]}), flush=True)
+    per_step_cv = [r for r in bwd_rows if r["B"] == 8]
+
+    def step_sum(key):
+        return sum(r[key] * r["per_step"] for r in band_rows)
+
+    def bound_by(values):
+        return "bytes" if all(v == "bytes" for v in values) else "operations"
+
+    kernels = [
+        {
+            "name": "cost_volume", "route": "cuda", "source": "davo_tpu_torch/csrc/costvol.cu",
+            "replaces": "davo_tpu/kernels/costvol.py:41",
+            "launches": launches + train_counts["cost_volume"],
+            "launches_by_path": {"serving": launches, "train": train_counts["cost_volume"]},
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": sum(r["device_ms"] for r in per_request),
+            "call_ms": sum(r["ms"] for r in per_request),
+            "plain_ms": sum(r["plain_ms"] for r in per_request),
+            "bound_ms": sum(r["bound_ms"] for r in per_request),
+            "bound_by": bound_by(r["bound_by"] for r in per_request),
+            "library_ms": None,
+        },
+        {
+            "name": "cost_volume_backward", "route": "cuda", "source": "davo_tpu_torch/csrc/costvol.cu",
+            "replaces": "davo_tpu/models/flownet.py:30 (XLA form; no TPU kernel)",
+            "launches": train_counts["cost_volume_backward"],
+            "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
+            "ms": sum(r["device_ms"] for r in per_step_cv),
+            "call_ms": sum(r["ms"] for r in per_step_cv),
+            "plain_ms": sum(r["plain_ms"] for r in per_step_cv),
+            "bound_ms": sum(r["bound_ms"] for r in per_step_cv),
+            "bound_by": bound_by(r["bound_by"] for r in per_step_cv),
+            "library_ms": None,
+        },
+        {
+            "name": "banded_warp", "route": "cuda", "source": "davo_tpu_torch/csrc/bandwarp.cu",
+            "replaces": "davo_tpu/kernels/bandwarp.py:161",
+            "launches": train_counts["banded_warp"],
+            "max_abs_err": max(r["fwd_max_abs_err"] for r in band_rows),
+            "ms": step_sum("fwd_device_ms"), "call_ms": step_sum("fwd_ms"),
+            "plain_ms": step_sum("fwd_plain_ms"), "bound_ms": step_sum("fwd_bound_ms"),
+            "bound_by": bound_by(r["fwd_bound_by"] for r in band_rows),
+            "library_ms": step_sum("fwd_library_device_ms"),
+            "library_call_ms": step_sum("fwd_library_ms"),
+        },
+        {
+            "name": "banded_warp_backward", "route": "cuda", "source": "davo_tpu_torch/csrc/bandwarp.cu",
+            "replaces": "davo_tpu/kernels/bandwarp.py:188",
+            "launches": train_counts["banded_warp_backward"],
+            "max_abs_err": max(r["bwd_max_rel_err"] for r in band_rows),
+            "max_err_is": "relative to the largest gradient",
+            "ms": step_sum("bwd_device_ms"), "call_ms": step_sum("bwd_ms"),
+            "plain_ms": step_sum("bwd_plain_ms"), "bound_ms": step_sum("bwd_bound_ms"),
+            "bound_by": bound_by(r["bwd_bound_by"] for r in band_rows),
+            "library_ms": step_sum("bwd_library_device_ms"),
+            "library_call_ms": step_sum("bwd_library_ms"),
+        },
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

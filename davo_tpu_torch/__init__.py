@@ -4,15 +4,19 @@ The JAX package `davo_tpu` stays the reference; this package mirrors
 its layout and module names and is held against it by the tests in
 `tests/test_torch_*.py`. It never imports JAX, Flax or `davo_tpu`.
 
-Layer map (the slice ported so far — streaming pose inference):
+Layer map (the slices ported so far — streaming pose inference and
+the photometric train step):
   config.py, models/presets.py   typed config tree and version presets
   convert.py                     Flax parameter tree -> state_dict
-  core/      geometry (pose vectors, trajectories), separable flow warp
-  kernels/   hand-written CUDA kernels (sources in csrc/) + plain versions
-  models/    FlowNetLite, RegionAttention, PoseNet, DavoModel (nn.Module)
+  core/      geometry (pose vectors, projection, trajectories), pyramid,
+             SSIM, warps (bilinear_sample, projective, flow, separable)
+  kernels/   hand-written CUDA kernels (sources in csrc/): cost volume
+             forward/backward, banded warp forward/backward; + plain versions
+  models/    FlowNetLite, RegionAttention, PoseNet, DispNet, DavoModel
+  train/     losses, train step (optax's Adam), fit loop, checkpoints
   eval/      streaming runner and trajectory metrics
-  data/      synthetic sequences, KITTI pose files
-  cli/       `python -m davo_tpu_torch.cli.main infer ...`
+  data/      synthetic sequences, snippet batches, device prefetch, KITTI poses
+  cli/       `python -m davo_tpu_torch.cli.main {train,infer} ...`
 
 Tensors are NHWC at every public boundary, as in the JAX package.
 Entry points run on the GPU unless the caller passes device="cpu".

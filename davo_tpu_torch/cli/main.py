@@ -1,11 +1,15 @@
-"""davo_tpu_torch CLI (the ported subset): infer.
+"""davo_tpu_torch CLI (the ported subset): train and infer.
 
+  python -m davo_tpu_torch.cli.main train --version davo --data synthetic \
+      --steps 1000 [--checkpoint-dir runs/davo] [--set train.k=v ...]
   python -m davo_tpu_torch.cli.main infer --version davo-fast \
       --data synthetic --seq 0 --out poses.txt [--set model.k=v ...]
 
 Runs on the GPU unless `--device cpu`. `--version` selects a preset;
-dotted `--set key=value` overrides reach any config field. Checkpoints,
-KITTI input and scan-chunked serving are not ported yet and are refused.
+dotted `--set key=value` overrides reach any config field. Prepared or
+KITTI training data, `--log-dir`, image summaries, inference from
+checkpoints, KITTI input and scan-chunked serving are not ported yet and
+are refused.
 """
 
 from __future__ import annotations
@@ -37,6 +41,74 @@ def _load_sequence(seq: str, cfg, with_seg: bool):
     return frames, seg, s.poses
 
 
+def _refuse(cmd: str, refused: list[str]) -> int:
+    print(f"{cmd}: not ported to davo_tpu_torch yet: " + ", ".join(refused), file=sys.stderr)
+    return 2
+
+
+def cmd_train(args) -> int:
+    import dataclasses
+
+    from davo_tpu_torch.models import presets
+
+    cfg = _apply_sets(presets.get(args.version), args.set)
+    if args.steps:
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, max_steps=args.steps))
+    refused = []
+    if args.data != "synthetic":
+        refused.append(f"--data {args.data} (prepared layouts and KITTI roots)")
+    if args.log_dir:
+        refused.append("--log-dir (metrics and image summaries)")
+    if cfg.train.image_every > 0:
+        refused.append("train.image_every > 0 (image summaries)")
+    if refused:
+        return _refuse("train", refused)
+
+    from davo_tpu_torch import resolve_device
+    from davo_tpu_torch.data.prefetch import PrefetchStats, device_prefetch
+    from davo_tpu_torch.data.snippets import MultiSourceDataset
+    from davo_tpu_torch.data.synthetic import DriveSequence, SyntheticSequence
+    from davo_tpu_torch.train.loop import fit
+
+    device = resolve_device(args.device)
+    wcls = {
+        "drive": lambda **kw: DriveSequence(**kw),
+        "wander": lambda **kw: SyntheticSequence(
+            trajectory="wander", rot_amp=0.06, tilt_amp=0.05, **kw
+        ),
+        "loop": lambda **kw: SyntheticSequence(**kw),
+    }[args.world_class]
+    worlds = [
+        wcls(n_frames=args.world_frames, height=cfg.model.img_height,
+             width=cfg.model.img_width, seed=cfg.train.seed + i)
+        for i in range(max(args.worlds, 1))
+    ]
+    ds = MultiSourceDataset(
+        worlds,
+        batch_size=cfg.train.batch_size,
+        with_seg=cfg.model.attention == "flow_seg",
+        with_gt=cfg.train.pose_supervision_weight > 0,
+        with_flow=cfg.train.flow_supervision_weight > 0,
+        # Zoom/crop makes GT translation unobservable: color only when supervised.
+        augment="color" if cfg.train.pose_supervision_weight > 0 else True,
+        seed=cfg.train.seed,
+    )
+
+    def log_fn(step, metrics):
+        print(f"step {step}: " + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()), flush=True)
+
+    stats = PrefetchStats()
+    fit(
+        cfg,
+        device_prefetch(ds.batches(steps=cfg.train.max_steps), device, stats=stats),
+        checkpoint_dir=args.checkpoint_dir,
+        log_fn=log_fn,
+        device=device,
+    )
+    print(f"prefetch: {stats.summary()}", flush=True)
+    return 0
+
+
 def cmd_infer(args) -> int:
     refused = []
     if args.ckpt:
@@ -46,11 +118,7 @@ def cmd_infer(args) -> int:
     if args.scan_chunks != 1:
         refused.append("--scan-chunks")
     if refused:
-        print(
-            "infer: not ported to davo_tpu_torch yet: " + ", ".join(refused),
-            file=sys.stderr,
-        )
-        return 2
+        return _refuse("infer", refused)
 
     import numpy as np
 
@@ -82,6 +150,20 @@ def cmd_infer(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="davo_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+    device_help = "torch device (default: the GPU; 'cpu' to run on the CPU)"
+
+    t = sub.add_parser("train", help="train a model")
+    t.add_argument("--version", default="davo")
+    t.add_argument("--data", default="synthetic", help="only 'synthetic' is ported")
+    t.add_argument("--world-class", default="loop", choices=("loop", "wander", "drive"))
+    t.add_argument("--worlds", type=int, default=16, help="number of synthetic train worlds")
+    t.add_argument("--world-frames", type=int, default=24, help="frames per train world")
+    t.add_argument("--steps", type=int, default=None)
+    t.add_argument("--checkpoint-dir", default=None)
+    t.add_argument("--log-dir", default=None, help="not ported yet (refused)")
+    t.add_argument("--set", action="append", help="dotted override k=v")
+    t.add_argument("--device", default=None, help=device_help)
+    t.set_defaults(fn=cmd_train)
     i = sub.add_parser("infer", help="predict a trajectory")
     i.add_argument("--version", default="davo")
     i.add_argument("--data", default="synthetic")
@@ -97,10 +179,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--scan-chunks", type=int, default=1, help="not ported yet (only 1)"
     )
     i.add_argument("--set", action="append", help="dotted override k=v")
-    i.add_argument(
-        "--device", default=None,
-        help="torch device (default: the GPU; 'cpu' to run on the CPU)",
-    )
+    i.add_argument("--device", default=None, help=device_help)
     i.set_defaults(fn=cmd_infer)
     return p
 

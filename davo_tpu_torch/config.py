@@ -1,4 +1,5 @@
-"""Typed configuration tree for davo_tpu_torch (a copy of davo_tpu.config).
+"""Typed configuration tree for davo_tpu_torch: davo_tpu.config's fields
+and defaults, with comments that leave out the reference's TPU timings.
 
 Replaces the reference's stringly-typed `tf.app.flags` + `--version`
 architecture selector (`<ref>/train.py`, SURVEY.md §5 "Config / flag
@@ -53,13 +54,9 @@ class ModelConfig:
     # Evaluate the channel-starved FIRST stride-2 convs (posenet enc0:
     # 9ch 7x7; flownet feat0a: 3ch 3x3) through the exact
     # space-to-depth rewrite (models/common.conv_same_stride2_s2d) —
-    # same params, same math, 4x the MXU contraction depth. The r4
-    # profile puts the largest single device op at posenet enc0
-    # (700 us/call, results_r4_serving_bites.json). CLOSED NEGATIVE
-    # on chip (results_r4_s2d.json): equality holds but the rewrite
-    # measures 0.74-0.81x of XLA's native lowering at B=128/256 —
-    # the pad/reshape/layout costs outweigh the MXU gain on this
-    # stack. Stays available for other shapes; default off.
+    # same params, same math, 4x the contraction depth. The reference
+    # found it slower than its native lowering on its TPU
+    # (results_r4_s2d.json); default off. Not ported.
     s2d_first_conv: bool = False
     # Pose head: "conv" = the reference's learned regression head;
     # "geo_hybrid" = dense GN solve of pose from the finest pyramid
@@ -88,10 +85,8 @@ class ModelConfig:
     # bf16 — the candidate rewrite for Mosaic's "Bad lhs type"
     # rejection of the bf16 chains (kernels/rowconv._DTYPE_MODES).
     fuse_compute: str = ""
-    # Standalone the Pallas cost volume beats the XLA lowering, but
-    # in-context it blocks XLA fusion around it (measured r1: 3831 ->
-    # 2717 fps e2e). Off by default until the fused estimator kernel
-    # absorbs it (r2).
+    # The reference's switch to its Pallas cost volume (off by default
+    # there). The port always runs its CUDA cost-volume kernel.
     use_pallas: bool = False
     # Serving-only: run each flow estimator's 4-conv chain as ONE
     # fused Pallas kernel in rows layout (kernels/rowconv.py) instead
@@ -123,9 +118,7 @@ class ModelConfig:
     # Serving-only: run the PoseEncoder's stride-2 stack (the even-dim
     # fusable prefix — 5 of 7 layers at 128x416) as ONE Pallas kernel
     # (kernels/rowconv.conv_chain_strided, in-kernel space-to-depth);
-    # the odd-dim tail runs via XLA. Same param tree; no VJP. The
-    # attention=none floor is 4.26 ms for 0.35 GF (r2c profile) —
-    # dispatch-bound, which is exactly what this collapses.
+    # the odd-dim tail runs via XLA. Same param tree; no VJP.
     fuse_pose_encoder: bool = False
     # Serving-only: RegionAttention's 3x stride-2 conv stack as one
     # Pallas kernel (same mechanism; fully fusable at even inputs).
@@ -157,8 +150,8 @@ class ModelConfig:
     # extraction; "patches" = one conv_general_dilated_patches op +
     # one einsum contraction; "pallas_rows" = ALL slices in one Pallas
     # kernel in 2-D rows layout (no transpose/matmul inside — see
-    # kernels/costvol.py), the r3 candidate for the ~33 us/slice-kernel
-    # dispatch cost. All produce identical outputs.
+    # kernels/costvol.py). All produce identical outputs; the port
+    # runs its CUDA kernel for every value.
     costvol_impl: str = "slices"
     # >0: shared learned 1x1 projection of both feature maps to this
     # many channels before correlation (LiteFlowNet-style). The
@@ -240,12 +233,9 @@ class TrainConfig:
     # Resolution at which each flow level's photometric term is
     # evaluated: "full" upsamples every level's flow and warps the
     # full-res source (r1-r3 behavior); "level" warps an avg-pooled
-    # source at the level's own resolution (PWC-family convention).
-    # PERF: the full-res bilinear gather warp is the train step's
-    # dominant cost — flow_losses own 742 of 1,170 ms/step at B=64
-    # 128x416 (results_r4_train_prof3.json); "level" removes ~63 % of
-    # the step (1,170 -> 447 ms measured). Default flipped to "level"
-    # after the on-chip quality gate passed (exp_quality_ladder4
+    # source at the level's own resolution (PWC-family convention),
+    # which warps 16-64x fewer pixels per level. Default flipped to
+    # "level" after the reference's quality gate passed (exp_quality_ladder4
     # wander_tiny_flowlevel == wander_tiny: t_err 30.93 vs 30.50,
     # r_err 12.84 vs 12.64, snippet 0.854 vs 0.845 — within the
     # arm-to-arm noise band; results_r4_quality.json).
@@ -259,18 +249,15 @@ class TrainConfig:
     # through the geometric head.
     flow_supervision_weight: float = 0.0
     # Bilinear-gather implementation for the loss-path warps
-    # (core/warp.bilinear_sample): "take4" (exact, XLA gathers),
-    # "block" ((2,2,C) lax.gather — loses in context, ablation only),
-    # "banded" (gather-free Pallas shift-accumulate kernel,
-    # kernels/bandwarp.py — exact within warp_band, band-edge-clamped
-    # beyond; 458 -> 194 ms/step at the flagship train shape). "auto"
-    # resolves at make_train_step time: an explicit DAVO_WARP_GATHER
-    # env wins, else per backend — "banded" on TPU since the r5
-    # quality gate passed (results_r5_warp_gate.json: banded beats
-    # take4 on t_err/r_err/snippet in same-window twin arms; see
-    # train/loop._AUTO_TPU_GATHER for the batch-dependent speed
-    # note), "take4" on CPU (the interpret-mode Pallas path is for
-    # kernel tests, not training).
+    # (core/warp.bilinear_sample): "take4" (exact gather), "block" (the
+    # reference's (2,2,C) gather; runs take4 in the port), "banded"
+    # (kernels/bandwarp.py: exact within warp_band, band-edge-clamped
+    # beyond; a hand-written CUDA kernel in the port). "auto" resolves
+    # at make_train_step time: an explicit DAVO_WARP_GATHER env wins,
+    # else per device — "banded" on the accelerator (the reference
+    # adopted it after its quality gate, results_r5_warp_gate.json:
+    # banded beats take4 on t_err/r_err/snippet in same-window twin
+    # arms), "take4" on the CPU.
     warp_gather: str = "auto"
     warp_band: tuple = (4, 16)
     pose_supervision_weight: float = 0.0  # >0 enables GT-pose auxiliary loss
@@ -279,7 +266,8 @@ class TrainConfig:
     # smaller than translation's; 10.0 is the historical value (r2
     # artifacts), the r3 quality ladder sweeps it (losses.pose_vec_l2).
     rot_weight: float = 10.0
-    # Rematerialize the forward in the backward pass (jax.checkpoint):
+    # Rematerialize the forward in the backward pass
+    # (torch.utils.checkpoint in the port, jax.checkpoint in the reference):
     # trades ~1/3 more FLOPs for dropping all forward activations from
     # HBM, so batch size can grow at fixed memory. Same gradients.
     remat: bool = False

@@ -17,9 +17,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-# Subtrees the ported slice does not run (DispNet is training-only):
-# reported and skipped, not loaded.
-SKIPPED_SUBTREES = ("dispnet",)
+# Top-level subtrees that would be reported and skipped, not loaded.
+# Every subtree of the `davo` tree (DispNet included) is ported now.
+SKIPPED_SUBTREES: tuple[str, ...] = ()
 
 
 def _flatten(tree: Mapping, prefix: tuple = ()):

@@ -30,6 +30,17 @@
 // the more so the larger C (PERF.md). Staging a tile's f2 window in
 // shared memory, or keeping several outputs per thread in registers,
 // is the next step.
+//
+// Backward (no TPU kernel: the JAX train step differentiates the XLA
+// form, davo_tpu/models/flownet.py::cost_volume). Both gradients are
+// gathers over the same shifts, so no atomics:
+//   d f1[p, c] = (1/C) sum_k g[p, k] * f2[p + delta_k, c]
+//   d f2[q, c] = (1/C) sum_k g[q - delta_k, k] * f1[q - delta_k, c]
+// (terms whose shifted pixel leaves the frame drop out). One thread per
+// (pixel, channel), channels fastest: a warp reads consecutive channels
+// of f1/f2 (coalesced) and the same g[p, k] (a broadcast). Bound on
+// this card: memory, 4*(4C+D) bytes per pixel read or written once; the
+// D-fold re-reads of the other map come from L1/L2, as in the forward.
 
 #include <climits>
 
@@ -92,6 +103,42 @@ cost_volume_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
   }
 }
 
+// kDf1: out = d f1 from (f2, g); else out = d f2 from (f1, g).
+template <bool kDf1>
+__global__ void __launch_bounds__(kThreads)
+cost_volume_bwd_kernel(const float* __restrict__ other, const float* __restrict__ g,
+                       float* __restrict__ out, int H, int W, int C, int search,
+                       long long elements) {
+  const int d = 2 * search + 1;
+  const int D = d * d;
+  const float inv_c = 1.0f / static_cast<float>(C);
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < elements;
+       i += stride) {
+    const int c = static_cast<int>(i % C);
+    const long long p = i / C;
+    const int w = static_cast<int>(p % W);
+    const long long q = p / W;  // b*H + h
+    const int h = static_cast<int>(q % H);
+    float acc = 0.0f;
+    for (int dy = 0; dy < d; ++dy) {
+      // Shifted row: p + delta for d f1, p - delta for d f2.
+      const int y2 = kDf1 ? h + dy - search : h - dy + search;
+      if (y2 < 0 || y2 >= H) continue;
+      const long long row = (q - h + y2) * W;
+      for (int dx = 0; dx < d; ++dx) {
+        const int x2 = kDf1 ? w + dx - search : w - dx + search;
+        if (x2 < 0 || x2 >= W) continue;
+        const long long p2 = row + x2;
+        const int k = dy * d + dx;
+        const float gk = kDf1 ? __ldg(g + p * D + k) : __ldg(g + p2 * D + k);
+        acc = fmaf(gk, __ldg(other + p2 * C + c), acc);
+      }
+    }
+    out[i] = acc * inv_c;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -122,6 +169,35 @@ int davo_cost_volume_f32(const void* f1, const void* f2, void* out, int B,
     cost_volume_kernel<true><<<blocks, kThreads, 0, s>>>(a, b, o, H, W, C, search, n);
   } else {
     cost_volume_kernel<false><<<blocks, kThreads, 0, s>>>(a, b, o, H, W, C, search, n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// g: (B, H, W, (2*search+1)^2) cotangent of the forward's output;
+// df1, df2: (B, H, W, C) float32 or null for a map that needs no
+// gradient. Launches one kernel per requested map on `stream`; same
+// return contract as davo_cost_volume_f32.
+int davo_cost_volume_bwd_f32(const void* f1, const void* f2, const void* g, void* df1,
+                             void* df2, int B, int H, int W, int C, int search, void* stream) {
+  const long long elements = static_cast<long long>(B) * H * W * C;
+  if (B < 0 || H < 0 || W < 0 || C < 1 || search < 0 ||
+      static_cast<long long>(B) * H * W > INT_MAX / 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (elements == 0) return static_cast<int>(cudaGetLastError());
+  const long long want = (elements + kThreads - 1) / kThreads;
+  const int blocks = static_cast<int>(want < (1LL << 20) ? want : (1LL << 20));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* gp = static_cast<const float*>(g);
+  if (df1 != nullptr) {
+    cost_volume_bwd_kernel<true><<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(f2), gp, static_cast<float*>(df1), H, W, C, search, elements);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (df2 != nullptr) {
+    cost_volume_bwd_kernel<false><<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(f1), gp, static_cast<float*>(df2), H, W, C, search, elements);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,13 +1,16 @@
-"""Correlation cost volume: the hand-written CUDA kernel and its plain version.
+"""Correlation cost volume: the hand-written CUDA kernels and their plain versions.
 
 out[b, h, w, k] = mean_c f1[b, h, w, c] * f2[b, h+dy_k, w+dx_k, c]
 
 k runs over the (2s+1)^2 shifts, dy-major; f2 outside the frame counts
-as 0. The kernel (`csrc/costvol.cu`) replaces the TPU kernels
+as 0. The forward kernel (`csrc/costvol.cu`) replaces the TPU kernels
 `davo_tpu/kernels/costvol.py::cost_volume_pallas` and
-`::cost_volume_pallas_rows`. On a CUDA tensor `cost_volume` launches it
-or raises; `cost_volume_plain` runs only for tensors on the CPU, and
-`chip_smoke.py` holds the kernel against it on the card.
+`::cost_volume_pallas_rows`; the backward kernel computes d f1 and d f2
+of the same function (the JAX train step differentiates its XLA form).
+`cost_volume` goes through `_CostVolume`, which launches the kernels for
+CUDA tensors (or raises) and runs `cost_volume_plain` /
+`cost_volume_plain_bwd` for CPU tensors; `chip_smoke.py` holds each
+kernel against its plain version on the card.
 """
 
 from __future__ import annotations
@@ -20,8 +23,10 @@ import torch.nn.functional as F
 
 from davo_tpu_torch.kernels import cuda_build
 
-# Kernel launches since the last reset (the plain version never counts).
+# Kernel launches since the last reset, forward and backward (one per
+# wrapper call; the plain versions never count).
 launches = 0
+backward_launches = 0
 
 
 def cost_volume_plain(f1: torch.Tensor, f2: torch.Tensor, search: int) -> torch.Tensor:
@@ -40,6 +45,29 @@ def cost_volume_plain(f1: torch.Tensor, f2: torch.Tensor, search: int) -> torch.
     )
 
 
+def cost_volume_plain_bwd(
+    f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor, search: int,
+    need_f1: bool = True, need_f2: bool = True,
+) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """The transpose of `cost_volume_plain`: g (B, H, W, D) ->
+    (d f1, d f2), each None when not asked for."""
+    B, H, W, C = f1.shape
+    d = 2 * search + 1
+    gs = g / C
+    f2p = F.pad(f2, (0, 0, search, search, search, search))
+    df1 = torch.zeros_like(f1) if need_f1 else None
+    df2p = torch.zeros_like(f2p) if need_f2 else None
+    for dy in range(d):
+        for dx in range(d):
+            gk = gs[..., dy * d + dx, None]
+            if need_f1:
+                df1 = df1 + gk * f2p[:, dy : dy + H, dx : dx + W]
+            if need_f2:
+                df2p[:, dy : dy + H, dx : dx + W] += gk * f1
+    df2 = df2p[:, search : search + H, search : search + W] if need_f2 else None
+    return df1, df2
+
+
 def _check(f1: torch.Tensor, f2: torch.Tensor, search: int) -> None:
     if f1.device != f2.device:
         raise ValueError(f"f1 on {f1.device}, f2 on {f2.device}")
@@ -55,11 +83,6 @@ def _check(f1: torch.Tensor, f2: torch.Tensor, search: int) -> None:
 
 def _launch(f1: torch.Tensor, f2: torch.Tensor, search: int) -> torch.Tensor:
     global launches
-    if torch.is_grad_enabled() and (f1.requires_grad or f2.requires_grad):
-        raise NotImplementedError(
-            "the cost volume kernel has no backward yet (it comes with the "
-            "training slice); run inference under torch.inference_mode()"
-        )
     _check(f1, f2, search)
     lib = _library()
     B, H, W, C = f1.shape
@@ -77,6 +100,33 @@ def _launch(f1: torch.Tensor, f2: torch.Tensor, search: int) -> torch.Tensor:
     return out
 
 
+def _launch_bwd(
+    f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor, search: int,
+    need_f1: bool, need_f2: bool,
+) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    global backward_launches
+    _check(f1, f2, search)
+    B, H, W, C = f1.shape
+    if g.shape != (B, H, W, (2 * search + 1) ** 2) or g.dtype != torch.float32 or not g.is_contiguous():
+        raise ValueError(f"cotangent {tuple(g.shape)} {g.dtype} does not match the volume")
+    lib = _library()
+    df1 = torch.empty_like(f1) if need_f1 else None
+    df2 = torch.empty_like(f2) if need_f2 else None
+    with torch.cuda.device(f1.device):
+        stream = torch.cuda.current_stream(f1.device).cuda_stream
+        err = lib.davo_cost_volume_bwd_f32(
+            f1.data_ptr(), f2.data_ptr(), g.data_ptr(),
+            df1.data_ptr() if need_f1 else None, df2.data_ptr() if need_f2 else None,
+            B, H, W, C, search, stream,
+        )
+    if err:
+        raise RuntimeError(
+            f"cost volume backward kernel launch failed: {lib.davo_cuda_error_string(err).decode()}"
+        )
+    backward_launches += 1
+    return df1, df2
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("costvol")
@@ -84,21 +134,50 @@ def _library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     )
     lib.davo_cost_volume_f32.restype = ctypes.c_int
+    lib.davo_cost_volume_bwd_f32.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    )
+    lib.davo_cost_volume_bwd_f32.restype = ctypes.c_int
     lib.davo_cuda_error_string.argtypes = [ctypes.c_int]
     lib.davo_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def cost_volume(f1: torch.Tensor, f2: torch.Tensor, search: int) -> torch.Tensor:
-    """(B, H, W, C) float32 x2 -> (B, H, W, (2*search+1)^2) float32.
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type not in ("cpu", "cuda"):
+        raise NotImplementedError(f"no cost volume for device {t.device}")
+    return t.device.type == "cuda"
 
-    CUDA tensors go through the kernel (or raise); CPU tensors through
-    `cost_volume_plain`, which stays differentiable."""
-    if f1.device.type == "cpu":
+
+class _CostVolume(torch.autograd.Function):
+    """Kernels for CUDA tensors, plain versions for CPU tensors; the
+    backward computes only the maps that need a gradient."""
+
+    @staticmethod
+    def forward(ctx, f1, f2, search):
+        ctx.save_for_backward(f1, f2)
+        ctx.search = search
+        if _on_cuda(f1):
+            return _launch(f1, f2, search)
         return cost_volume_plain(f1, f2, search)
-    if f1.device.type != "cuda":
-        raise NotImplementedError(f"no cost volume for device {f1.device}")
-    return _launch(f1, f2, search)
+
+    @staticmethod
+    def backward(ctx, g):
+        f1, f2 = ctx.saved_tensors
+        need_f1, need_f2 = ctx.needs_input_grad[:2]
+        g = g.contiguous()
+        if _on_cuda(f1):
+            df1, df2 = _launch_bwd(f1, f2, g, ctx.search, need_f1, need_f2)
+        else:
+            df1, df2 = cost_volume_plain_bwd(f1, f2, g, ctx.search, need_f1, need_f2)
+        return df1, df2, None
+
+
+def cost_volume(f1: torch.Tensor, f2: torch.Tensor, search: int) -> torch.Tensor:
+    """(B, H, W, C) float32 x2 -> (B, H, W, (2*search+1)^2) float32,
+    differentiable in both maps (CUDA tensors through the kernels, CPU
+    tensors through the plain versions)."""
+    return _CostVolume.apply(f1, f2, search)
 
 
 def cost_volume_rows(

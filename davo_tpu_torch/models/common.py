@@ -74,6 +74,21 @@ class ConvBlock(nn.Module):
         return torch.relu(self.Conv_0(x))
 
 
+def upsample2(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x upsample of NHWC."""
+    B, H, W, C = x.shape
+    return x[:, :, None, :, None, :].expand(B, H, 2, W, 2, C).reshape(B, 2 * H, 2 * W, C)
+
+
+def resize_nearest(x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
+    """Nearest 2x upsample, then crop to (h, w): each DispNet decoder
+    target is ceil(2x/2) of its source, which 2x-then-crop reaches."""
+    h, w = hw
+    if h > 2 * x.shape[1] or w > 2 * x.shape[2]:
+        raise ValueError(f"resize_nearest {tuple(x.shape[1:3])} -> {hw} is more than 2x")
+    return upsample2(x)[:, :h, :w]
+
+
 def lecun_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Flax's default init for every Conv and Linear under `module`, in
     module order: truncated-normal kernels (bounds +-2 sigma, variance

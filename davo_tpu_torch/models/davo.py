@@ -1,12 +1,12 @@
-"""DavoModel: the DAVO forward pass for pose inference (port of
-davo_tpu.models.davo with train=False).
+"""DavoModel: the DAVO forward pass (port of davo_tpu.models.davo).
 
     (I_src, I_tgt) -> FlowNetLite -> flow pyramid
     flow (+seg) -> RegionAttention -> 19 region weights
     (I_tgt, I_src, direction, flow) -> PoseNet -> 6-DoF xi * pose_scale
+    I_tgt (+ I_src) -> DispNet -> multi-scale disparity   (train=True)
 
-DispNet runs only in training and is not part of this port yet; every
-option that selects something not ported raises NotImplementedError
+Every option that selects something not ported (`fuse_*`, `geo_hybrid`,
+`s2d_first_conv`, the resnet DispNet encoder) raises NotImplementedError
 rather than running a different path.
 """
 
@@ -24,6 +24,7 @@ from davo_tpu_torch.core.warp import flow_warp_separable
 from davo_tpu_torch.kernels.resize import resize_bilinear_aligned
 from davo_tpu_torch.models.attention import RegionAttention, region_weight_map
 from davo_tpu_torch.models.common import lecun_init_
+from davo_tpu_torch.models.dispnet import DispNet
 from davo_tpu_torch.models.flownet import FlowNetLite
 from davo_tpu_torch.models.posenet import PoseNet
 
@@ -51,10 +52,12 @@ def check_supported(cfg: ModelConfig) -> None:
 class DavoModel(nn.Module):
     """Built with Flax's default init from `seed` on `device` (the GPU
     unless device="cpu"); `convert.load_flax_params` loads a reference
-    parameter tree instead."""
+    parameter tree instead. `dispnet=True` adds the DispNet that the
+    training forward runs: its parameters are in a reference tree made
+    by a training init, not in one made with train=False."""
 
     def __init__(self, cfg: ModelConfig, *, device: str | torch.device | None = None,
-                 seed: int = 0):
+                 seed: int = 0, dispnet: bool = False):
         super().__init__()
         check_supported(cfg)
         device = resolve_device(device)
@@ -66,6 +69,8 @@ class DavoModel(nn.Module):
             self.flownet = FlowNetLite(cfg)
         if cfg.attention == "flow_seg":
             self.attn = RegionAttention(cfg, 3 if cfg.attention_cue == "flow_fb" else 2)
+        if dispnet:
+            self.dispnet = DispNet(cfg)
         lecun_init_(self, torch.Generator().manual_seed(seed))
         self.to(device)
 
@@ -75,17 +80,19 @@ class DavoModel(nn.Module):
         sources: torch.Tensor,
         seg: torch.Tensor | None = None,
         train: bool = False,
+        source_disp: bool = False,
     ) -> dict[str, Any]:
         """target: (B, H, W, 3); sources: (B, S, H, W, 3); seg: (B, H, W)
         int labels (used with attention="flow_seg").
 
         Returns poses (B, S, 6), flows (per-source flow pyramids, when
-        attention != "none") and attn ((B, S, K), attention="flow_seg").
+        attention != "none"), attn ((B, S, K), attention="flow_seg") and,
+        with train=True, disp (num_scales x (B, H/2^s, W/2^s, 1)); with
+        source_disp also disp_src (S*B rows, source s at [s*B, (s+1)*B)),
+        from one DispNet pass over target and sources.
         """
-        if train:
-            raise NotImplementedError(
-                "train=True (DispNet and the training forward) is not ported yet"
-            )
+        if train and not hasattr(self, "dispnet"):
+            raise ValueError("train=True needs a DavoModel built with dispnet=True")
         cfg = self.cfg
         B, S = sources.shape[0], sources.shape[1]
         H, W = target.shape[1], target.shape[2]
@@ -123,6 +130,14 @@ class DavoModel(nn.Module):
                     region_weight_fn = lambda hw: region_weight_map(  # noqa: E731
                         weights, seg_rep, cfg.num_seg_classes, hw
                     )
+
+        if train:
+            if source_disp:
+                disps_all = self.dispnet(torch.cat([target, flat_src], 0))
+                out["disp"] = [d[:B] for d in disps_all]
+                out["disp_src"] = [d[B:] for d in disps_all]
+            else:
+                out["disp"] = self.dispnet(target)
 
         pose_flat = self.posenet(rep_tgt, flat_src, extra=extra, region_weight_fn=region_weight_fn)
         out["poses"] = pose_flat.reshape(S, B, 6).movedim(0, 1)

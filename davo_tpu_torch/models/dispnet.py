@@ -1,0 +1,86 @@
+"""DispNet: encoder-decoder monocular disparity network (port of
+davo_tpu.models.dispnet, conv encoder).
+
+Stride-2 conv pairs down (7x7, 5x5, then 3x3 first kernels), a
+nearest-upsample + conv decoder with skips, and sigmoid disparity heads
+on the last `num_scales` levels, in f32. depth = min_depth *
+(max_depth / min_depth) ** disp. The resnet encoder is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+
+from davo_tpu_torch.config import ModelConfig
+from davo_tpu_torch.models.common import Conv, ConvBlock, dtype_of, resize_nearest
+
+MIN_DEPTH = 0.5
+MAX_DEPTH = 100.0
+
+
+def disp_to_depth(
+    disp: torch.Tensor, min_depth: float = MIN_DEPTH, max_depth: float = MAX_DEPTH
+) -> torch.Tensor:
+    """Sigmoid disparity in (0, 1) -> depth, log-space parametrization."""
+    return min_depth * torch.pow(max_depth / min_depth, disp)
+
+
+def depth_to_disp(
+    depth: torch.Tensor, min_depth: float = MIN_DEPTH, max_depth: float = MAX_DEPTH
+) -> torch.Tensor:
+    """Inverse of `disp_to_depth`."""
+    return torch.log(depth / min_depth) / math.log(max_depth / min_depth)
+
+
+class DispNet(nn.Module):
+    """(B, H, W, 3) -> `num_scales` disparity maps (B, H/2^s, W/2^s, 1)
+    in f32, full resolution first."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.disp_encoder != "conv":
+            raise NotImplementedError(f"disp_encoder={cfg.disp_encoder!r} is not ported yet")
+        dt = dtype_of(cfg.compute_dtype)
+        self.dtype = dt
+        self.num_scales = cfg.num_scales
+        chans = tuple(cfg.disp_channels)
+        self.depth = len(chans)
+        cin = 3
+        for i, ch in enumerate(chans):
+            k = 7 if i == 0 else (5 if i == 1 else 3)
+            self.add_module(f"enc{i}", ConvBlock(cin, ch, k, 2, dt))
+            self.add_module(f"enc{i}b", ConvBlock(ch, ch, 3, 1, dt))
+            cin = ch
+        self.up_channels = list(chans[::-1][1:]) + [16]
+        for i, ch in enumerate(self.up_channels):
+            skip_idx = self.depth - 2 - i
+            self.add_module(f"dec{i}", ConvBlock(cin, ch, 3, 1, dt))
+            skip_ch = chans[skip_idx] if skip_idx >= 0 else 0
+            self.add_module(f"dec{i}b", ConvBlock(ch + skip_ch, ch, 3, 1, dt))
+            level = len(self.up_channels) - 1 - i  # 0 = full res
+            if level < self.num_scales:
+                self.add_module(f"disp{level}", Conv(ch, 1, 3, 1, dt))
+            cin = ch
+
+    def forward(self, img: torch.Tensor) -> list[torch.Tensor]:
+        x = img.to(self.dtype)
+        skips = []
+        for i in range(self.depth):
+            x = getattr(self, f"enc{i}b")(getattr(self, f"enc{i}")(x))
+            skips.append(x)
+        disps = []
+        full_hw = (img.shape[1], img.shape[2])
+        for i in range(len(self.up_channels)):
+            skip_idx = self.depth - 2 - i
+            target_hw = tuple(skips[skip_idx].shape[1:3]) if skip_idx >= 0 else full_hw
+            x = getattr(self, f"dec{i}")(resize_nearest(x, target_hw))
+            if skip_idx >= 0:
+                x = torch.cat([x, skips[skip_idx]], -1)
+            x = getattr(self, f"dec{i}b")(x)
+            level = len(self.up_channels) - 1 - i
+            if level < self.num_scales:
+                disps.append(torch.sigmoid(getattr(self, f"disp{level}")(x).float()))
+        return disps[::-1]  # built coarse -> fine; scale 0 first

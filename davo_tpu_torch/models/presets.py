@@ -47,11 +47,10 @@ register(  # ResNet disp encoder (reference's disp_net_res variant)
 )
 register(
     # Production-serving config: full attention pipeline with three
-    # measured-quality-neutral perf knobs. r2e sweep (14.4 -> 10.1 ms
-    # at B=128): learned 8-ch correlation projection + search range 3
-    # — r3 ablation shows they also IMPROVE quality (snippet 0.59 vs
-    # 0.78, r_err inversion fixed; attention_ablation_r3.json). r3:
-    # flow_levels=3 (+10.1 % serving fps), gated quality-neutral at
+    # quality-neutral speed knobs: learned 8-ch correlation projection
+    # + search range 3 — the reference's r3 ablation shows they also
+    # IMPROVE quality (snippet 0.59 vs 0.78, r_err inversion fixed;
+    # attention_ablation_r3.json) — and flow_levels=3, gated quality-neutral at
     # full res (ladder2 res128 L3 37.02 %/0.706 vs L4 37.50 %/0.686,
     # results_r3_quality2.json) and already the davo-small/tiny
     # default.

@@ -6,6 +6,7 @@ chip_smoke.py. Inputs come from numpy with a fixed seed and go to both
 packages.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -50,6 +51,31 @@ def test_cost_volume_matches_reference(search, channels):
         j_cost_volume(ja, jb, search),
     ):
         np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("search", [2, 3, 4])
+@pytest.mark.parametrize("channels", [8, 32])
+def test_cost_volume_backward_matches_reference(search, channels):
+    """The plain backward against jax.vjp of the XLA cost volume that the
+    JAX train step differentiates (1e-5: the same sums in another
+    order), and the CPU autograd Function against the plain pair."""
+    a, b = _maps(search * 10 + channels, (2, 7, 13, channels))
+    d = (2 * search + 1) ** 2
+    g = np.random.default_rng(search).normal(size=(2, 7, 13, d)).astype(np.float32)
+    _, vjp = jax.vjp(lambda x, y: j_cost_volume(x, y, search), jnp.asarray(a), jnp.asarray(b))
+    want1, want2 = vjp(jnp.asarray(g))
+    ta, tb, tg = (torch.from_numpy(x) for x in (a, b, g))
+    got1, got2 = costvol.cost_volume_plain_bwd(ta, tb, tg, search)
+    np.testing.assert_allclose(got1.numpy(), np.asarray(want1), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got2.numpy(), np.asarray(want2), rtol=0, atol=1e-5)
+    x, y = ta.clone().requires_grad_(), tb.clone().requires_grad_()
+    before = (costvol.launches, costvol.backward_launches)
+    dx, dy = torch.autograd.grad(costvol.cost_volume(x, y, search), (x, y), tg)
+    assert torch.equal(dx, got1) and torch.equal(dy, got2)
+    assert (costvol.launches, costvol.backward_launches) == before
+    # Only the map that needs a gradient is computed.
+    only2 = costvol.cost_volume_plain_bwd(ta, tb, tg, search, need_f1=False)
+    assert only2[0] is None and torch.equal(only2[1], got2)
 
 
 def test_cost_volume_wrapper_on_cpu_is_plain_and_uncounted():

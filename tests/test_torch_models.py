@@ -19,6 +19,9 @@ from davo_tpu.models.attention import region_weight_map as j_region_weight_map
 from davo_tpu.models.attention import seg_to_onehot as j_seg_to_onehot
 from davo_tpu.models.common import ConvBlock as JConvBlock
 from davo_tpu.models.davo import DavoModel as JDavoModel
+from davo_tpu.models.dispnet import DispNet as JDispNet
+from davo_tpu.models.dispnet import depth_to_disp as j_depth_to_disp
+from davo_tpu.models.dispnet import disp_to_depth as j_disp_to_depth
 from davo_tpu.models.flownet import FeaturePyramid as JFeaturePyramid
 from davo_tpu.models.flownet import FlowNetLite as JFlowNetLite
 from davo_tpu.models.posenet import PoseNet as JPoseNet
@@ -27,6 +30,7 @@ from davo_tpu_torch.models import presets
 from davo_tpu_torch.models.attention import RegionAttention, region_weight_map
 from davo_tpu_torch.models.common import ConvBlock
 from davo_tpu_torch.models.davo import DavoModel
+from davo_tpu_torch.models.dispnet import DispNet, depth_to_disp, disp_to_depth
 from davo_tpu_torch.models.flownet import FeaturePyramid, FlowNetLite
 from davo_tpu_torch.models.posenet import PoseNet
 
@@ -306,6 +310,9 @@ def test_converter_maps_every_leaf(davo_fast):
 
 
 def test_converter_rejects_missing_and_extra_keys_and_skips_dispnet():
+    """Missing, unexpected and misshapen keys raise. DispNet is no longer
+    skipped: a `dispnet` subtree is loaded like any other, so one that
+    the module has no place for is an unexpected key."""
     model = FeaturePyramid(TINY)
     params = JFeaturePyramid(J_TINY).init(jax.random.key(7), jnp.zeros((1, H, W, 3)))
     tree = jax.tree_util.tree_map(np.asarray, dict(params["params"]))
@@ -318,8 +325,79 @@ def test_converter_rejects_missing_and_extra_keys_and_skips_dispnet():
     bad = dict(tree, feat0a={"Conv_0": tree["feat1a"]["Conv_0"]})
     with pytest.raises(ValueError, match="feat0a"):
         load_flax_params(model, bad)
-    with_disp = dict(tree, dispnet={"conv0": {"kernel": np.zeros((3, 3, 3, 8))}})
-    assert load_flax_params(model, with_disp) == ["dispnet/conv0/kernel"]
+    with_disp = dict(tree, dispnet={"enc0": {"Conv_0": {"kernel": np.zeros((7, 7, 3, 8))}}})
+    with pytest.raises(KeyError, match="dispnet.enc0"):
+        load_flax_params(model, with_disp)
+
+
+def _train_init(jcfg, target, sources, seg):
+    """The reference's training init (train=True, source disparities):
+    its tree holds the DispNet subtree."""
+    return JDavoModel(jcfg).init(
+        jax.random.key(0), jnp.asarray(target), jnp.asarray(sources), seg=jnp.asarray(seg),
+        train=True, source_disp=True,
+    )
+
+
+def test_converter_loads_the_dispnet_subtree_and_rejects_a_stray_key():
+    target, sources, seg = _images(50, 2, H, W, 3), _images(51, 2, 2, H, W, 3), _seg(52, 2, H, W)
+    params = jax.tree_util.tree_map(np.asarray, _train_init(J_TINY, target, sources, seg))
+    model = DavoModel(TINY, device="cpu", dispnet=True)
+    assert load_flax_params(model, params) == []
+    state, _ = flax_to_state_dict(params)
+    assert any(k.startswith("dispnet.disp0.") for k in state)
+    assert len(state) == len(model.state_dict())
+    stray = jax.tree_util.tree_map(lambda x: x, params)
+    stray["params"]["dispnet"]["disp9"] = {"kernel": np.zeros((3, 3, 16, 1)), "bias": np.zeros(1)}
+    with pytest.raises(KeyError, match="dispnet.disp9"):
+        load_flax_params(model, stray)
+    with pytest.raises(KeyError, match="dispnet"):
+        load_flax_params(DavoModel(TINY, device="cpu"), params)
+
+
+@pytest.mark.parametrize("preset", ["tiny", "davo"])
+def test_dispnet_matches_reference(preset):
+    """DispNet at `tiny` and at `davo`'s widths (seven levels, 32..512
+    channels) on 64x96 in f32: disparities within 1e-5."""
+    jcfg = jpresets.with_overrides(preset, compute_dtype="float32").model
+    cfg = presets.with_overrides(preset, compute_dtype="float32").model
+    img = _images(53, 2, 64, 96, 3)
+    jnet = JDispNet(jcfg)
+    params = jnet.init(jax.random.key(8), jnp.asarray(img))
+    net = DispNet(cfg)
+    load_flax_params(net, params)
+    with torch.no_grad():
+        got = net(_t(img))
+    want = jnet.apply(params, jnp.asarray(img))
+    assert [tuple(g.shape) for g in got] == [tuple(w.shape) for w in want]
+    assert tuple(got[0].shape) == (2, 64, 96, 1)
+    for g, w in zip(got, want):
+        _close(g, w, 1e-5)
+    depth = np.linspace(0.6, 90.0, 7, dtype=np.float32)
+    _close(disp_to_depth(_t(depth / 100.0)), j_disp_to_depth(jnp.asarray(depth / 100.0)), 1e-4)
+    _close(depth_to_disp(_t(depth)), j_depth_to_disp(jnp.asarray(depth)), 1e-6)
+
+
+def test_davo_train_forward_matches_reference():
+    """train=True with source disparities at `tiny`: one DispNet pass
+    over target and sources, split at row B, as the reference."""
+    target, sources, seg = _images(54, 2, H, W, 3), _images(55, 2, 2, H, W, 3), _seg(56, 2, H, W)
+    params = _train_init(J_TINY, target, sources, seg)
+    model = DavoModel(TINY, device="cpu", dispnet=True)
+    load_flax_params(model, params)
+    want = JDavoModel(J_TINY).apply(
+        params, jnp.asarray(target), jnp.asarray(sources), seg=jnp.asarray(seg),
+        train=True, source_disp=True,
+    )
+    with torch.no_grad():
+        got = model(_t(target), _t(sources), seg=_t(seg), train=True, source_disp=True)
+    assert set(got) == set(want)
+    _close(got["poses"], want["poses"], 1e-4)
+    for key in ("disp", "disp_src"):
+        assert len(got[key]) == len(want[key]) == 3  # tiny's three decoder levels
+        for g, w in zip(got[key], want[key]):
+            _close(g, w, 1e-5)
+    assert got["disp_src"][0].shape == (4, H, W, 1)
 
 
 def test_init_mirrors_flax_defaults():
@@ -350,7 +428,11 @@ def test_unported_options_are_refused(override):
 
 
 def test_train_forward_is_refused():
+    """The training forward needs DispNet: a model built without it
+    refuses train=True, and the unported resnet encoder is refused."""
     model = DavoModel(TINY, device="cpu")
     x = torch.zeros(1, H, W, 3)
-    with pytest.raises(NotImplementedError, match="train"):
+    with pytest.raises(ValueError, match="train"):
         model(x, x[:, None], train=True)
+    with pytest.raises(NotImplementedError, match="resnet"):
+        DavoModel(dataclasses.replace(TINY, disp_encoder="resnet"), device="cpu", dispnet=True)
