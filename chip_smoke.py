@@ -9,14 +9,22 @@ Phases, in order; any failure exits non-zero:
      per source, all started together)
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it, with times, the card's bound and, for
-     the banded warp, F.grid_sample as the library yardstick
+     the banded warp, F.grid_sample as the library yardstick; (3d) the
+     fused serving kernels at one fused request's shapes in bf16, f32 and
+     bf16_dot, with the port's unfused route as the yardstick
   4. the serving path: davo-fast at 128x416 streams a 257-frame synthetic
      world through predict_sequence in 4 requests of 64 pairs, then
-     assemble_trajectory and evaluate_sequence; plus one davo forward
-  5. the port on the card against the port on the CPU (float32)
+     assemble_trajectory and evaluate_sequence; plus one davo forward;
+     (4b) the same stream on the fused serving path (fuse_pyramid,
+     fuse_flow_level, fuse_attention, fuse_pose_encoder) and `cli infer`
+     with those flags; (4c) one fuse_estimator forward
+  5. the port on the card against the port on the CPU (float32); (5b)
+     the same for the fused serving path (64x208)
   6. davo-fast forward throughput at B=256 (recorded, not claimed)
   7. where the time goes: the steady-state stream, device time per model
-     layer and per kernel of the B=256 forward, and the device's busy share
+     layer and per kernel of the B=256 forward, and the device's busy
+     share; (6b) fused against unfused forward frames/s at B=64 and
+     B=256, and the fused B=64 forward's device time by kernel
   8. the train path: davo at 128x416, B=4, synthetic worlds, 5 steps
      through train.loop.fit; launch counts per step, finite loss terms,
      every parameter changed, no plain version run
@@ -36,6 +44,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
@@ -49,7 +58,7 @@ BANDWARP_TOL = 1e-5
 BAND = (4, 16)
 TRAIN_LOSS_TOL = 1e-4   # train step, card against CPU: loss terms, relative
 TRAIN_GRAD_TOL = 1e-3   # each gradient leaf, relative to its largest element
-KERNEL_SOURCES = ("costvol", "bandwarp")  # davo_tpu_torch/csrc/<name>.cu
+KERNEL_SOURCES = ("costvol", "bandwarp", "rowconv")  # davo_tpu_torch/csrc/<name>.cu
 
 
 def _event_ms(fn, runs: int) -> float:
@@ -163,6 +172,7 @@ def check_cost_volume(torch, costvol):
         "phase": "costvol_rows", "B": B, "H": H, "W": W, "C": C, "search": s,
         "max_abs_err": err,
         "ms": _event_ms(lambda: costvol.cost_volume_rows(f1, f2, H, W, s), 30),
+        "device_ms": _graph_ms(lambda: costvol.cost_volume_rows(f1, f2, H, W, s)),
         "bound_ms": bound_ms, "bound_by": bound_by,
     }), flush=True)
     if not err <= COSTVOL_TOL:
@@ -193,7 +203,7 @@ def main_path(torch, costvol):
     model = DavoModel(cfg, device="cuda", seed=0).eval()
     apply_fn = make_pose_apply_fn(model)
 
-    costvol.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     rels = predict_sequence(apply_fn, frames, seg=seg, batch_size=64)
     torch.cuda.synchronize()
@@ -223,7 +233,7 @@ def main_path(torch, costvol):
     x = torch.rand(16, dcfg.img_height, dcfg.img_width, 3, device="cuda", generator=gen)
     y = torch.rand(16, 1, dcfg.img_height, dcfg.img_width, 3, device="cuda", generator=gen)
     s = torch.randint(0, 19, (16, dcfg.img_height, dcfg.img_width), device="cuda", generator=gen)
-    costvol.launches = 0
+    _reset_counts()
     with torch.inference_mode():
         poses = davo(x, y, seg=s)["poses"]
     torch.cuda.synchronize()
@@ -252,7 +262,7 @@ def gpu_against_cpu(torch, costvol):
     x = torch.rand(4, 64, 128, 3, generator=gen)
     y = torch.rand(4, 1, 64, 128, 3, generator=gen)
     s = torch.randint(0, 19, (4, 64, 128), generator=gen)
-    costvol.launches = 0
+    _reset_counts()
     with torch.inference_mode():
         want = cpu(x, y, seg=s)["poses"]
         got = gpu(x.cuda(), y.cuda(), seg=s.cuda())["poses"].cpu()
@@ -302,16 +312,35 @@ def throughput(torch, card, model):
     return x, y, s
 
 
+def _kernel_profile(torch, run, iters):
+    """torch.profiler over `iters` calls of `run` under inference mode:
+    ([(kernel, device ms per call, launches per call)] by time, device ms
+    and wall ms per call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    with torch.inference_mode():
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                run()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0) / iters
+    rows = sorted((  # device kernels only: operator rows repeat their kernels' time
+        (e.key, e.self_device_time_total / 1e3 / iters, e.count // iters)
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+    ), key=lambda r: -r[1])
+    return rows, sum(r[1] for r in rows), wall_ms
+
+
 def profile(torch, card, stream, inputs):
     """Phase 7: where the davo-fast forward spends its time. Prints the
     steady-state stream (3 passes after the main path's, host clock),
     CUDA-event time of each layer in one B=256 forward (forward hooks;
     nested layers lie inside their parents), and torch.profiler device
     time by kernel over 3 forwards with the device's busy share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
     from davo_tpu_torch.eval.runner import predict_sequence
 
     model, apply_fn, frames, seg = stream
@@ -356,20 +385,7 @@ def profile(torch, card, stream, inputs):
     layers.update({n: sum(a.elapsed_time(b) for a, b in p) for n, p in marks.items()})
     print(json.dumps({"phase": "profile_layers_ms", "batch": len(x), **layers}), flush=True)
 
-    iters = 3
-    with torch.inference_mode():
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                model(x, y, seg=s)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0) / iters
-    rows = sorted((  # device kernels only: operator rows repeat their kernels' time
-        (e.key, e.self_device_time_total / 1e3 / iters, e.count // iters)
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-    ), key=lambda r: -r[1])
-    device_ms = sum(r[1] for r in rows)
+    rows, device_ms, wall_ms = _kernel_profile(torch, lambda: model(x, y, seg=s), 3)
     print(json.dumps({
         "phase": "profile_kernels", "batch": len(x),
         "device_ms_per_forward": device_ms, "wall_ms_per_forward": wall_ms,
@@ -378,11 +394,11 @@ def profile(torch, card, stream, inputs):
     }), flush=True)
 
 
-def _bound_ms(nbytes: float, flops: float):
-    """The least time for the work: bytes over the memory rate or f32
-    operations over the f32 rate, whichever is larger."""
+def _bound_ms(nbytes: float, flops: float, peak: float = F32_FLOPS):
+    """The least time for the work: bytes over the memory rate or the
+    operations over `peak` (the f32 rate unless given), whichever is larger."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    flops_ms = flops / F32_FLOPS * 1e3
+    flops_ms = flops / peak * 1e3
     return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations")
 
 
@@ -523,9 +539,405 @@ def _counts(costvol, bandwarp):
     }
 
 
-def _reset_counts(costvol, bandwarp):
+def _reset_counts():
+    """Every launch count of every kernel module to 0."""
+    from davo_tpu_torch.kernels import bandwarp, costvol, rowconv
+
     costvol.launches = costvol.backward_launches = 0
     bandwarp.launches = bandwarp.backward_launches = 0
+    rowconv.reset_counts()
+
+
+# ---------------------------------------------------------------- fused serving kernels
+
+# Fused chains (kernels/rowconv.py), on the card against their plain
+# versions. float32: within 1e-5 of the largest output (the same products
+# summed in another order). bfloat16: per layer, at most 1e-3 of the
+# elements differ, by at most one bf16 ulp at the output's scale; per
+# chain, the mean gap to the plain version is at most half of the plain
+# version's own mean gap between the mode and float32 (rounding flips
+# that spread through later layers must stay well inside the mode's
+# noise). The mean, not the max: over millions of elements a single flip
+# already makes the max one ulp, as large as the mode's own max gap.
+ROWCONV_F32_TOL = 1e-5
+ROWCONV_BF16_SHARE = 1e-3
+ROWCONV_GAP_RATIO = 0.5
+BF16_FLOPS = 989e12        # H100 SXM bf16 tensor-core rate, dense
+EST_RELUS = (True, True, True, False)
+FUSED_FLAGS = dict(fuse_pyramid=True, fuse_flow_level=True, fuse_attention=True, fuse_pose_encoder=True)
+FUSED_SETS = [arg for k in FUSED_FLAGS for arg in ("--set", f"model.{k}=true")]
+
+
+def _conv_params(mods):
+    convs = [getattr(m, "Conv_0", m) for m in mods]
+    return [c.weight.detach() for c in convs], [c.bias.detach() for c in convs]
+
+
+def _rowconv_units(torch, model, N):
+    """The fused kernels' calls of one davo-fast request of N pairs at
+    128x416 (the pyramid sees both images of a pair, 2N), with weights
+    from `model` (a seeded DavoModel) and random inputs of the path's
+    ranges. Each unit: what the wrapper takes, its unfused route in the
+    port (cuDNN ConvBlocks; for a flow level, the cost-volume kernel, ReLU,
+    concatenation and estimator ConvBlocks), and its bytes and FLOPs."""
+    from davo_tpu_torch.kernels import costvol
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    Hh, Ww = model.cfg.img_height, model.cfg.img_width
+    fn, pyr, enc = model.flownet, model.flownet.pyramid, model.posenet.encoder
+
+    def rand(*shape, scale=None):
+        if scale is None:
+            return torch.rand(*shape, device="cuda", generator=gen)
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+
+    def strided(name, label, x, mods, strides, relus, taps):
+        ws, bs = _conv_params(mods)
+        flops, h, w, cin = 0, x.shape[1], x.shape[2], x.shape[3]
+        for wt, s in zip(ws, strides):
+            h, w = -(-h // s), -(-w // s)
+            flops += 2 * x.shape[0] * h * w * wt.shape[0] * wt[0].numel()
+        seq = torch.nn.Sequential(*mods)
+        return dict(kernel="conv_chain_strided", unit=label, kind="strided", x=x, ws=ws, bs=bs,
+                    strides=strides, relus=relus, taps=taps, library=lambda: seq(x.to(torch.bfloat16)),
+                    flops=flops, weight_bytes=4 * sum(t.numel() for t in ws + bs))
+
+    units = [
+        strided("pyramid", "pyramid (2N, 128, 416, 3), taps 1/3/5", rand(2 * N, Hh, Ww, 3),
+                [getattr(pyr, f"feat{i}{s}") for i in range(3) for s in "ab"], (2, 1) * 3,
+                (True,) * 6, (1, 3, 5)),
+        strided("attention", "attention (N, 128, 416, 2), 3 x 3x3/s2", rand(N, Hh, Ww, 2, scale=2.0),
+                [getattr(model.attn, f"conv{i}") for i in range(3)], (2,) * 3, (True,) * 3, None),
+        strided("pose", "pose prefix (N, 128, 416, 9), k 7/5/3/3/3",
+                torch.cat([rand(N, Hh, Ww, 6), rand(N, Hh, Ww, 1) * 0 - 1, rand(N, Hh, Ww, 2, scale=2.0)], -1),
+                [getattr(enc, f"enc{i}") for i in range(5)], (2,) * 5, (True,) * 5, None),
+    ]
+    for level, (h, w, cf, up_scale) in ((2, (16, 52, 64, 0.0)), (1, (32, 104, 32, 2.0))):
+        est = getattr(fn, f"estimator{level}")
+        ws, bs = _conv_params([est.est0, est.est1, est.est2, est.flow])
+        f1, f2 = rand(N, h, w, 8, scale=1.0), rand(N, h, w, 8, scale=1.0)
+        feat, flow_up = rand(N, h, w, cf), rand(N, h, w, 2, scale=up_scale)
+        P, D = N * h * w, 49
+        chain_flops = sum(2 * P * wt[0].numel() * wt.shape[0] for wt in ws)
+        weight_bytes = 4 * sum(t.numel() for t in ws + bs)
+
+        def level_library(est=est, f1=f1, f2=f2, feat=feat, flow_up=flow_up):
+            cv = torch.relu(costvol.cost_volume(f1.float().contiguous(), f2.float().contiguous(), 3))
+            return est(cv, feat.to(torch.bfloat16), flow_up)
+
+        units.append(dict(
+            kernel="flow_level_fused", unit=f"flow level /{2 ** (level + 1)} ({N}, {h}, {w}), C=8, Cf={cf}",
+            kind="level", f1=f1, f2=f2, feat=feat, flow_up=flow_up, ws=ws, bs=bs, relus=EST_RELUS,
+            library=level_library, flops=2 * P * D * 8 + chain_flops, weight_bytes=weight_bytes,
+        ))
+        x = torch.cat([torch.relu(costvol.cost_volume_plain(f1, f2, 3)), feat, flow_up], -1)
+
+        def chain_library(est=est, x=x):
+            return est.flow(est.est2(est.est1(est.est0(x.to(torch.bfloat16))))).float()
+
+        units.append(dict(
+            kernel="conv_chain_nhwc", unit=f"estimator /{2 ** (level + 1)} ({N}, {h}, {w}, {x.shape[3]})",
+            kind="nhwc", x=x, ws=ws, bs=bs, relus=EST_RELUS, library=chain_library,
+            flops=chain_flops, weight_bytes=weight_bytes,
+        ))
+    return units
+
+
+def _unit_inputs(torch, unit, mode):
+    """The unit's tensors as the path hands them over in `mode`: the
+    compute dtype's maps (bf16 for "bfloat16"), float32 flow_up."""
+    dt = torch.bfloat16 if mode == "bfloat16" else torch.float32
+    if unit["kind"] == "level":
+        return [unit["f1"].to(dt), unit["f2"].to(dt), unit["feat"].to(dt), unit["flow_up"]]
+    return [unit["x"].to(dt)]
+
+
+def _unit_call(rowconv, unit, mode, inputs):
+    """The wrapper on the unit; a list of outputs."""
+    ws, bs = unit["ws"], unit["bs"]
+    if unit["kind"] == "strided":
+        out = rowconv.conv_chain_strided(inputs[0], ws, bs, unit["strides"], unit["relus"], unit["taps"], mode)
+        return out if unit["taps"] else [out]
+    if unit["kind"] == "nhwc":
+        return [rowconv.conv_chain_nhwc(inputs[0], ws, bs, unit["relus"], mode)]
+    return [rowconv.flow_level_fused(*inputs, ws, bs, 3, unit["relus"], mode)]
+
+
+def _unit_plain(torch, rowconv, unit, mode, inputs):
+    """(plain outputs as the wrapper returns them, [(layer input, layer
+    output)] of every layer) from the plain versions."""
+    from davo_tpu_torch.kernels.costvol import cost_volume_plain
+
+    ws, bs, relus = unit["ws"], unit["bs"], unit["relus"]
+    act = torch.bfloat16 if mode == "bfloat16" else torch.float32
+    if unit["kind"] == "level":
+        f1, f2, feat, flow_up = inputs
+        x = torch.cat([torch.relu(cost_volume_plain(f1.float(), f2.float(), 3)), feat.float(), flow_up], -1)
+        x = x.to(act)
+    else:
+        x = inputs[0].to(act)
+    strides = unit.get("strides", (1,) * len(ws))
+    layers = rowconv.conv_chain_strided_plain(x, ws, bs, strides, relus, tuple(range(len(ws))), mode)
+    pairs = list(zip([x] + layers[:-1], layers))
+    if unit["kind"] == "strided":
+        taps = unit["taps"] or (len(ws) - 1,)
+        return [layers[t] for t in taps], pairs
+    return [layers[-1].float()], pairs
+
+
+def _rel_err(got, want):
+    scale = max(float(w.float().abs().max()) for w in want)
+    return max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)) / scale
+
+
+def check_rowconv(torch, rowconv, N=64):
+    """Phase 3d: the fused kernels against their plain versions on the
+    card, at the fused serving path's shapes for one request of N pairs:
+    bfloat16 (the path's mode: every layer by the ulp criterion, the chain
+    by the gap criterion), float32 (1e-5 of the largest), and bf16_dot at
+    the /4 flow level. Device ms by CUDA-graph replay of the wrapper
+    (weight repacking included), the plain version's ms by CUDA events,
+    and, as the library yardstick, the device ms of the port's unfused
+    route for the same function. Weights: the seeded fused davo-fast."""
+    from davo_tpu_torch.models import presets
+    from davo_tpu_torch.models.davo import DavoModel
+
+    model = DavoModel(presets.with_overrides("davo-fast", **FUSED_FLAGS).model, device="cuda", seed=0)
+    rows = []
+    for unit in _rowconv_units(torch, model, N):
+        modes = ["bfloat16", "float32"] + (["bf16_dot"] if unit["unit"].startswith("flow level /4") else [])
+        for mode in modes:
+            inputs = _unit_inputs(torch, unit, mode)
+            with torch.inference_mode():
+                got = _unit_call(rowconv, unit, mode, inputs)
+                torch.cuda.synchronize()
+                want, layers = _unit_plain(torch, rowconv, unit, mode, inputs)
+                row = {"kernel": unit["kernel"], "unit": unit["unit"], "mode": mode,
+                       "max_rel_err": _rel_err(got, want)}
+                ok = mode == "float32" and row["max_rel_err"] <= ROWCONV_F32_TOL
+                if mode != "float32":
+                    # Every layer alone, on the plain version's input to it.
+                    layer_err = []
+                    for i, (x, y) in enumerate(layers):
+                        strides = unit.get("strides", (1,) * len(unit["ws"]))
+                        g = rowconv.conv_chain_strided(
+                            x.contiguous(), [unit["ws"][i]], [unit["bs"][i]], (strides[i],),
+                            (unit["relus"][i],), None, mode)
+                        d = (g.float() - y.float()).abs()
+                        layer_err.append({"differ_share": float((d > 0).float().mean()),
+                                          "max_err_in_ulps": float(d.max() / (2.0**-7 * y.float().abs().max()))})
+                    want32, _ = _unit_plain(torch, rowconv, unit, "float32", _unit_inputs(torch, unit, "float32"))
+
+                    def gaps(a, b):  # (mean, max) |a - b| over every element of the outputs
+                        d = torch.cat([(x.float() - y.float()).abs().flatten() for x, y in zip(a, b)])
+                        return float(d.mean()), float(d.max())
+
+                    (gap, gap_max), (ref_gap, ref_gap_max) = gaps(got, want), gaps(want, want32)
+                    row.update(layers=layer_err, chain_gap_mean=gap, reference_gap_mean=ref_gap,
+                               chain_gap_max=gap_max, reference_gap_max=ref_gap_max,
+                               gap_ratio=gap / ref_gap if ref_gap > 0 else math.inf)
+                    if mode == "bfloat16":
+                        ok = all(e["differ_share"] <= ROWCONV_BF16_SHARE and e["max_err_in_ulps"] <= 1.0
+                                 for e in layer_err)
+                    else:  # bf16_dot layers stay float32: the float32 limit
+                        ok = all(e["max_err_in_ulps"] * 2.0**-7 <= ROWCONV_F32_TOL for e in layer_err)
+                    ok = ok and row["gap_ratio"] <= ROWCONV_GAP_RATIO
+                del got, want, layers
+                nbytes = unit["weight_bytes"] + sum(t.numel() * t.element_size() for t in inputs)
+                outs = _unit_call(rowconv, unit, mode, inputs)
+                nbytes += sum(t.numel() * t.element_size() for t in outs)
+                del outs
+                bound_ms, bound_by = _bound_ms(
+                    nbytes, unit["flops"], BF16_FLOPS if mode != "float32" else F32_FLOPS)
+                row.update(
+                    ms=_graph_ms(lambda: _unit_call(rowconv, unit, mode, inputs), reps=5),
+                    plain_ms=_event_ms(lambda: _unit_plain(torch, rowconv, unit, mode, inputs), 3),
+                    bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=unit["flops"],
+                )
+                if mode == "bfloat16":
+                    row["library_ms"] = _graph_ms(unit["library"], reps=5)
+                    row["library_is"] = "the port's unfused route (cuDNN bf16 ConvBlocks" + (
+                        ", cost-volume kernel, ReLU, concatenation)" if unit["kind"] == "level" else ")")
+            print(json.dumps({"phase": "rowconv", **row}), flush=True)
+            if not ok:
+                raise AssertionError(f"{unit['kernel']} {unit['unit']} {mode}: {row}")
+            rows.append(row)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _fused_counts(costvol, rowconv):
+    return {"cost_volume": costvol.launches, **rowconv.launches,
+            "device_launches": dict(rowconv.device_launches)}
+
+
+def fused_path(torch, costvol, rowconv, stream):
+    """Phase 4b: the fused serving path: davo-fast at 128x416 with the four
+    serving flags streams the main path's 257-frame world through
+    predict_sequence in requests of 64 pairs (2 flow-level and 3
+    strided-chain launches per forward, no cost volume), then through
+    `cli infer` with the four --set flags. The fused and unfused poses of
+    the same seeded weights are compared (bf16; recorded, not gated)."""
+    import numpy as np
+
+    from davo_tpu_torch.cli.main import main as cli_main
+    from davo_tpu_torch.eval.runner import assemble_trajectory, make_pose_apply_fn, predict_sequence
+    from davo_tpu_torch.models import presets
+    from davo_tpu_torch.models.davo import DavoModel
+
+    unfused_model, unfused_fn, frames, seg = stream
+    cfg = presets.with_overrides("davo-fast", **FUSED_FLAGS).model
+    model = DavoModel(cfg, device="cuda", seed=0).eval()
+    apply_fn = make_pose_apply_fn(model)
+    _reset_counts()
+    t0 = time.perf_counter()
+    rels = predict_sequence(apply_fn, frames, seg=seg, batch_size=64)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    counts = _fused_counts(costvol, rowconv)
+    traj = assemble_trajectory(rels)
+    unfused_rels = predict_sequence(unfused_fn, frames, seg=seg, batch_size=64)
+    want = {"cost_volume": 0, "flow_level_fused": 2 * 4, "conv_chain_strided": 3 * 4, "conv_chain_nhwc": 0}
+    print(json.dumps({
+        "phase": "fused_path", "preset": "davo-fast", "flags": FUSED_FLAGS, "frames": len(frames),
+        "requests": 4, "batch": 64, "launches": counts, "stream_s": stream_s,
+        "trajectory_shape": list(traj.shape),
+        "fused_vs_unfused_max_abs_increment_diff": float(np.abs(rels - unfused_rels).max()),
+    }), flush=True)
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"fused path launches {counts}, want {want}")
+    if traj.shape != (257, 4, 4) or not np.isfinite(traj).all():
+        raise AssertionError(f"fused trajectory {traj.shape} is not a finite (257, 4, 4)")
+
+    out = Path("build/chip_smoke/fused_poses.txt")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    _reset_counts()
+    rc = cli_main(["infer", "--version", "davo-fast", *FUSED_SETS, "--data", "synthetic",
+                   "--seq", "0", "--out", str(out), "--batch-size", "64"])
+    torch.cuda.synchronize()
+    cli_counts = _fused_counts(costvol, rowconv)
+    rows = np.loadtxt(out)
+    print(json.dumps({"phase": "fused_cli_infer", "rc": rc, "poses": list(rows.shape),
+                      "launches": cli_counts}), flush=True)
+    cli_want = {"cost_volume": 0, "flow_level_fused": 2, "conv_chain_strided": 3, "conv_chain_nhwc": 0}
+    if rc != 0 or rows.shape != (32, 12) or not np.isfinite(rows).all():
+        raise AssertionError(f"fused cli infer: rc {rc}, poses {rows.shape}")
+    if {k: cli_counts[k] for k in cli_want} != cli_want:
+        raise AssertionError(f"fused cli infer launches {cli_counts}, want {cli_want}")
+    return counts, model
+
+
+def fused_estimator(torch, costvol, rowconv):
+    """Phase 4c: davo-fast with fuse_estimator only: one B=64 forward runs
+    the estimator chains as 2 conv_chain_nhwc launches after the 2
+    cost-volume launches."""
+    from davo_tpu_torch.models import presets
+    from davo_tpu_torch.models.davo import DavoModel
+
+    cfg = presets.with_overrides("davo-fast", fuse_estimator=True).model
+    model = DavoModel(cfg, device="cuda", seed=0).eval()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.rand(64, cfg.img_height, cfg.img_width, 3, device="cuda", generator=gen)
+    y = torch.rand(64, 1, cfg.img_height, cfg.img_width, 3, device="cuda", generator=gen)
+    s = torch.randint(0, 19, (64, cfg.img_height, cfg.img_width), device="cuda", generator=gen)
+    _reset_counts()
+    with torch.inference_mode():
+        poses = model(x, y, seg=s)["poses"]
+    torch.cuda.synchronize()
+    counts = _fused_counts(costvol, rowconv)
+    print(json.dumps({"phase": "fused_estimator", "batch": 64, "launches": counts,
+                      "poses_finite": bool(torch.isfinite(poses).all())}), flush=True)
+    want = {"cost_volume": 2, "flow_level_fused": 0, "conv_chain_strided": 0, "conv_chain_nhwc": 2}
+    if {k: counts[k] for k in want} != want or not torch.isfinite(poses).all():
+        raise AssertionError(f"fused estimator: launches {counts}, want {want}")
+    return counts
+
+
+def fused_gpu_against_cpu(torch, rowconv):
+    """Phase 5b: the fused davo-fast-width model (64x208, float32, TF32
+    off, the four serving flags) on the card against the same model on the
+    CPU (the plain versions): poses within 1e-4 of the largest."""
+    from davo_tpu_torch.models import presets
+    from davo_tpu_torch.models.davo import DavoModel
+
+    cfg = presets.with_overrides(
+        "davo-fast", img_height=64, img_width=208, compute_dtype="float32", **FUSED_FLAGS
+    ).model
+    cpu = DavoModel(cfg, device="cpu", seed=0).eval()
+    gpu = DavoModel(cfg, device="cuda", seed=0).eval()
+    gen = torch.Generator().manual_seed(10)
+    x = torch.rand(4, 64, 208, 3, generator=gen)
+    y = torch.rand(4, 1, 64, 208, 3, generator=gen)
+    s = torch.randint(0, 19, (4, 64, 208), generator=gen)
+    rowconv.reset_counts()
+    with torch.inference_mode():
+        want = cpu(x, y, seg=s)["poses"]
+        got = gpu(x.cuda(), y.cuda(), seg=s.cuda())["poses"].cpu()
+    scale = float(want.abs().max())
+    rel = float((got - want).abs().max()) / scale
+    counts = dict(rowconv.launches)
+    print(json.dumps({
+        "phase": "fused_gpu_vs_cpu", "preset": "davo-fast widths, 64x208, float32, 4 serving flags",
+        "max_rel_err": rel, "largest_pose_component": scale, "launches": counts,
+        "tf32": [torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32],
+    }), flush=True)
+    if counts != {"flow_level_fused": 2, "conv_chain_strided": 3, "conv_chain_nhwc": 0}:
+        raise AssertionError(f"fused GPU forward launches {counts}")
+    if not (scale > 0 and rel <= PORT_TOL):
+        raise AssertionError(f"fused GPU vs CPU poses: rel err {rel} > {PORT_TOL} (scale {scale})")
+
+
+def _forward_fps(torch, model, B, iters=5):
+    """(best, median) frames/s of the model's forward at batch B over 5
+    synchronised loops of `iters` forwards, after 2 warm-ups."""
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.rand(B, cfg.img_height, cfg.img_width, 3, device="cuda", generator=gen)
+    y = torch.rand(B, 1, cfg.img_height, cfg.img_width, 3, device="cuda", generator=gen)
+    s = torch.randint(0, 19, (B, cfg.img_height, cfg.img_width), device="cuda", generator=gen)
+    times = []
+    with torch.inference_mode():
+        for _ in range(2):
+            model(x, y, seg=s)
+        torch.cuda.synchronize()
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                model(x, y, seg=s)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    return B * iters / min(times), B * iters / statistics.median(times)
+
+
+def fused_throughput(torch, card, unfused, fused):
+    """Phase 6b: forward frames/s of the fused and the unfused davo-fast
+    at B=64 and B=256, in turns (unfused, fused, fused, unfused), and the
+    fused B=64 forward's device time by kernel. Recorded, not claimed."""
+    from davo_tpu_torch.eval.runner import predict_sequence
+
+    result = {}
+    for B in (64, 256):
+        runs = []
+        for name, model in (("unfused", unfused), ("fused", fused), ("fused", fused), ("unfused", unfused)):
+            runs.append((name, _forward_fps(torch, model, B)))
+        result[B] = {name: [r for n, r in runs if n == name] for name in ("unfused", "fused")}
+        print(json.dumps({"phase": "fused_throughput", "batch": B,
+                          "frames_per_s_best_median": result[B], "card": card}), flush=True)
+    torch.cuda.empty_cache()
+    cfg = fused.cfg
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.rand(64, cfg.img_height, cfg.img_width, 3, device="cuda", generator=gen)
+    y = torch.rand(64, 1, cfg.img_height, cfg.img_width, 3, device="cuda", generator=gen)
+    s = torch.randint(0, 19, (64, cfg.img_height, cfg.img_width), device="cuda", generator=gen)
+    rows, device_ms, wall_ms = _kernel_profile(torch, lambda: fused(x, y, seg=s), 3)
+    ours = sum(ms for k, ms, _ in rows if "conv_layer_kernel" in k or "flow_level_input_kernel" in k)
+    print(json.dumps({
+        "phase": "fused_profile_kernels", "batch": 64, "device_ms_per_forward": device_ms,
+        "wall_ms_per_forward": wall_ms, "device_busy_share": device_ms / wall_ms,
+        "rowconv_kernels_ms": ours, "rowconv_kernels_share": ours / device_ms, "card": card,
+        "top": [{"kernel": k[:100], "ms": ms, "calls": n} for k, ms, n in rows[:25]],
+    }), flush=True)
+    return result
 
 
 def train_path(torch, costvol, bandwarp):
@@ -563,7 +975,7 @@ def train_path(torch, costvol, bandwarp):
         setattr(mod, name, refuse)
     stats = PrefetchStats()
     try:
-        _reset_counts(costvol, bandwarp)
+        _reset_counts()
         t0 = time.perf_counter()
         _, state, history = loop.fit(
             cfg, device_prefetch(ds.batches(steps=steps), "cuda", stats=stats), state=state, device="cuda"
@@ -768,7 +1180,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
         return 1
     from davo_tpu_torch import exact_f32
-    from davo_tpu_torch.kernels import bandwarp, costvol, cuda_build
+    from davo_tpu_torch.kernels import bandwarp, costvol, cuda_build, rowconv
 
     # Phase 1: environment.
     card = subprocess.run(
@@ -795,11 +1207,18 @@ def main() -> int:
     rows = check_cost_volume(torch, costvol)
     bwd_rows = check_cost_volume_backward(torch, costvol)
     band_rows = check_banded_warp(torch, bandwarp)
+    rowconv_rows = check_rowconv(torch, rowconv)
     launches, stream = main_path(torch, costvol)
+    fused_counts, fused_model = fused_path(torch, costvol, rowconv, stream)
+    estimator_counts = fused_estimator(torch, costvol, rowconv)
     gpu_against_cpu(torch, costvol)
+    fused_gpu_against_cpu(torch, rowconv)
     inputs = throughput(torch, card, stream[0])
     profile(torch, card, stream, inputs)
-    del stream, inputs
+    del inputs
+    fused_throughput(torch, card, stream[0], fused_model)
+    del stream, fused_model
+    torch.cuda.empty_cache()
     train_counts, batch4 = train_path(torch, costvol, bandwarp)
     train_gpu_against_cpu(torch)
     train_step_time(torch, card, batch4)
@@ -870,6 +1289,35 @@ def main() -> int:
             "library_call_ms": step_sum("bwd_library_ms"),
         },
     ]
+    # The fused kernels: the work of one serving request in bf16, the
+    # path's mode (the units of phase 3d); launches on the fused serving
+    # path (4 requests) and, for conv_chain_nhwc, the fused-estimator
+    # forward. max_abs_err is the float32 error relative to the largest
+    # output; the bf16 criteria are in the phase's lines.
+    for name, line, path_counts in (
+        ("flow_level_fused", 246, fused_counts), ("conv_chain_strided", 501, fused_counts),
+        ("conv_chain_nhwc", 602, estimator_counts),
+    ):
+        unit_rows = [r for r in rowconv_rows if r["kernel"] == name and r["mode"] == "bfloat16"]
+        f32_rows = [r for r in rowconv_rows if r["kernel"] == name and r["mode"] == "float32"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "davo_tpu_torch/csrc/rowconv.cu",
+            "replaces": f"davo_tpu/kernels/rowconv.py:{line}",
+            "launches": path_counts[name],
+            "launches_by_path": {"fused serving" if path_counts is fused_counts else "fused estimator":
+                                 path_counts[name]},
+            "device_launches": path_counts["device_launches"][name],
+            "max_abs_err": max(r["max_rel_err"] for r in f32_rows),
+            "max_err_is": "float32, relative to the largest output",
+            "bf16_gap_ratio": max(r["gap_ratio"] for r in unit_rows),
+            "ms": sum(r["ms"] for r in unit_rows), "plain_ms": sum(r["plain_ms"] for r in unit_rows),
+            "bound_ms": sum(r["bound_ms"] for r in unit_rows),
+            "bound_by": bound_by(r["bound_by"] for r in unit_rows),
+            "library_ms": sum(r["library_ms"] for r in unit_rows),
+            "library_is": "the port's unfused route for the same function",
+            "float32_ms": sum(r["ms"] for r in f32_rows),
+            "float32_bound_ms": sum(r["bound_ms"] for r in f32_rows),
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

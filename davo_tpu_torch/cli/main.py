@@ -64,6 +64,12 @@ def cmd_train(args) -> int:
     if refused:
         return _refuse("train", refused)
 
+    from davo_tpu_torch.train.loop import SERVING_ONLY_MESSAGE, serving_only_flags_set
+
+    if serving_only_flags_set(cfg.model):
+        print(SERVING_ONLY_MESSAGE, file=sys.stderr)
+        return 1
+
     from davo_tpu_torch import resolve_device
     from davo_tpu_torch.data.prefetch import PrefetchStats, device_prefetch
     from davo_tpu_torch.data.snippets import MultiSourceDataset

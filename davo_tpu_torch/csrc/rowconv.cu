@@ -1,0 +1,344 @@
+// Fused conv chains of the serving path for Hopper (sm_90a).
+//
+// Replaces the TPU kernels of davo_tpu/kernels/rowconv.py:
+//   conv_chain_strided (_strided_chain_kernel): SAME conv chain, any odd k,
+//       stride 1 or 2, bias, ReLU per layer, taps of chosen layers;
+//   conv_chain_nhwc (_chain_kernel): stride-1 3x3 SAME chain;
+//   flow_level_fused (_flow_level_kernel): masked, ReLU'd cost volume ->
+//       concat(cv, feat, flow_up) -> the 3x3 estimator chain.
+// The TPU kernels keep a whole chain of one image in VMEM (rows layout,
+// space-to-depth for stride 2, Mosaic-friendly masks). One image of a /4
+// flow level is 3328 px x 96 ch, ~640 KB in bf16, well above the 227 KB
+// a block can use, so here each TPU "kernel" is a chain of launches on one
+// stream, one per layer, with the intermediates in device memory:
+//
+//   conv_layer_kernel   one SAME conv layer (any odd k, stride 1 or 2, the
+//                       Flax pads: low = total / 2), computing what a layer
+//                       of the TPU kernels computes: operands rounded to the
+//                       dot dtype, products summed in f32, + f32 bias, ONE
+//                       rounding to the activation dtype, then ReLU;
+//   flow_level_input_kernel  the estimator's input of a flow level, written
+//                       straight into its buffer (no separate concat).
+//
+// Bound on this card: operations. A layer does 2*k*k*Cin FLOPs per output
+// against a few bytes per output, and these products run on the f32 FMA
+// units (67 TFLOP/s), not the tensor cores: the rounding each mode asks for
+// is applied to the operands, and a bf16 x bf16 product is exact in f32,
+// so f32 FMAs give the same sums in every mode. Design: a block of 128
+// threads shares one slice of CO output channels, whose k*k*Cin*CO weights
+// it stages in shared memory; each thread computes 4 consecutive output
+// pixels of a row x CO channels (up to 64 accumulators) and reads the
+// input through L1 (4 channels at a time when Cin % 4 == 0). A warp reads
+// the same weights (shared-memory broadcast). What limits it: f32 FMA
+// rate, and L1 traffic from input rows that neighbouring threads re-read.
+// Tensor-core products (wgmma), input tiles in shared memory and fusion
+// across layers are later work.
+
+#include <cstdint>
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kPx = 4;                      // output pixels of one row per thread
+constexpr size_t kMaxSmem = 227 * 1024;     // dynamic shared memory a block can use
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+  return __uint_as_float(static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(p))) << 16);
+}
+
+__device__ __forceinline__ void load4(const float* p, float v[4]) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
+  // bf16 -> f32 is a 16-bit shift; element 0 sits in the low half.
+  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+  v[0] = __uint_as_float(q.x << 16);
+  v[1] = __uint_as_float(q.x & 0xffff0000u);
+  v[2] = __uint_as_float(q.y << 16);
+  v[3] = __uint_as_float(q.y & 0xffff0000u);
+}
+
+__device__ __forceinline__ void store1(void* out, long long i, float v, int out_bf16) {
+  if (out_bf16) {
+    static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(v);
+  } else {
+    static_cast<float*>(out)[i] = v;
+  }
+}
+
+template <int CO>
+__device__ __forceinline__ void load_weights(const float* w, float wv[CO]) {
+  if constexpr (CO % 4 == 0) {
+#pragma unroll
+    for (int o = 0; o < CO; o += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(w + o);
+      wv[o] = q.x;
+      wv[o + 1] = q.y;
+      wv[o + 2] = q.z;
+      wv[o + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int o = 0; o < CO; ++o) wv[o] = w[o];
+  }
+}
+
+// x (B, H, W, cin) NHWC; w (k, k, cin, cout) f32 holding dot-dtype values;
+// out (B, Ho, Wo, cout). Block (blockIdx.x, blockIdx.y): 128 pixel groups
+// of kPx outputs x the output channels [CO*blockIdx.y, CO*blockIdx.y + CO).
+template <typename TIn, int CO, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+conv_layer_kernel(const TIn* __restrict__ x, const float* __restrict__ w,
+                  const float* __restrict__ bias, void* __restrict__ out, int out_bf16,
+                  int H, int W, int cin, int Ho, int Wo, int cout, int k, int stride,
+                  int pad_t, int pad_l, int round_in, int round_out, int relu,
+                  long long groups) {
+  extern __shared__ __align__(16) float sw[];  // (k*k*cin, CO)
+  const int co0 = blockIdx.y * CO;
+  const int rows = k * k * cin;
+  for (int i = threadIdx.x; i < rows * CO; i += blockDim.x) {
+    sw[i] = w[static_cast<long long>(i / CO) * cout + co0 + i % CO];
+  }
+  __syncthreads();
+
+  const long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (g >= groups) return;
+  const int wgroups = (Wo + kPx - 1) / kPx;
+  const int ox0 = static_cast<int>(g % wgroups) * kPx;
+  const long long q = g / wgroups;  // b * Ho + oy
+  const int oy = static_cast<int>(q % Ho);
+  const long long b = q / Ho;
+
+  float acc[kPx][CO];
+#pragma unroll
+  for (int p = 0; p < kPx; ++p) {
+#pragma unroll
+    for (int o = 0; o < CO; ++o) acc[p][o] = 0.0f;
+  }
+
+  for (int ky = 0; ky < k; ++ky) {
+    const int iy = oy * stride - pad_t + ky;
+    if (iy < 0 || iy >= H) continue;  // SAME zero padding
+    const TIn* row = x + (b * H + iy) * static_cast<long long>(W) * cin;
+    for (int kx = 0; kx < k; ++kx) {
+      const TIn* src[kPx];
+      bool ok[kPx];
+#pragma unroll
+      for (int p = 0; p < kPx; ++p) {
+        const int ix = (ox0 + p) * stride - pad_l + kx;
+        ok[p] = ix >= 0 && ix < W && ox0 + p < Wo;
+        src[p] = row + static_cast<long long>(ok[p] ? ix : 0) * cin;
+      }
+      const float* wt = sw + (ky * k + kx) * cin * CO;
+      if constexpr (kVec) {
+        for (int c = 0; c < cin; c += 4) {
+          float v[kPx][4];
+#pragma unroll
+          for (int p = 0; p < kPx; ++p) {
+            if (ok[p]) {
+              load4(src[p] + c, v[p]);
+              if (round_in) {
+#pragma unroll
+                for (int j = 0; j < 4; ++j) v[p][j] = round_bf16(v[p][j]);
+              }
+            } else {
+#pragma unroll
+              for (int j = 0; j < 4; ++j) v[p][j] = 0.0f;
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float wv[CO];
+            load_weights<CO>(wt + (c + j) * CO, wv);
+#pragma unroll
+            for (int p = 0; p < kPx; ++p) {
+#pragma unroll
+              for (int o = 0; o < CO; ++o) acc[p][o] = fmaf(v[p][j], wv[o], acc[p][o]);
+            }
+          }
+        }
+      } else {
+        for (int c = 0; c < cin; ++c) {
+          float v[kPx];
+#pragma unroll
+          for (int p = 0; p < kPx; ++p) {
+            v[p] = ok[p] ? load1(src[p] + c) : 0.0f;
+            if (round_in) v[p] = round_bf16(v[p]);
+          }
+          float wv[CO];
+          load_weights<CO>(wt + c * CO, wv);
+#pragma unroll
+          for (int p = 0; p < kPx; ++p) {
+#pragma unroll
+            for (int o = 0; o < CO; ++o) acc[p][o] = fmaf(v[p], wv[o], acc[p][o]);
+          }
+        }
+      }
+    }
+  }
+
+  float bv[CO];
+#pragma unroll
+  for (int o = 0; o < CO; ++o) bv[o] = __ldg(bias + co0 + o);
+#pragma unroll
+  for (int p = 0; p < kPx; ++p) {
+    if (ox0 + p >= Wo) break;
+    const long long base = (q * Wo + ox0 + p) * cout + co0;
+#pragma unroll
+    for (int o = 0; o < CO; ++o) {
+      float v = acc[p][o] + bv[o];
+      if (round_out) v = round_bf16(v);
+      if (relu) v = fmaxf(v, 0.0f);
+      store1(out, base + o, v, out_bf16);
+    }
+  }
+}
+
+template <typename TIn, int CO>
+cudaError_t launch_conv(const void* x, const float* w, const float* bias, void* out, int out_bf16,
+                        int B, int H, int W, int cin, int Ho, int Wo, int cout, int k,
+                        int stride, int pad_t, int pad_l, int round_in, int round_out,
+                        int relu, cudaStream_t stream) {
+  const bool vec = cin % 4 == 0 && reinterpret_cast<uintptr_t>(x) % (4 * sizeof(TIn)) == 0;
+  auto kernel = vec ? conv_layer_kernel<TIn, CO, true> : conv_layer_kernel<TIn, CO, false>;
+  const size_t smem = static_cast<size_t>(k) * k * cin * CO * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const long long groups = static_cast<long long>(B) * Ho * ((Wo + kPx - 1) / kPx);
+  const dim3 grid(static_cast<unsigned>((groups + kThreads - 1) / kThreads), cout / CO);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const TIn*>(x), w, bias, out, out_bf16, H, W, cin, Ho, Wo, cout, k, stride,
+      pad_t, pad_l, round_in, round_out, relu, groups);
+  return cudaGetLastError();
+}
+
+template <typename TIn>
+cudaError_t dispatch_conv(int co, const void* x, const float* w, const float* bias, void* out,
+                          int out_bf16, int B, int H, int W, int cin, int Ho, int Wo, int cout,
+                          int k, int stride, int pad_t, int pad_l, int round_in, int round_out,
+                          int relu, cudaStream_t stream) {
+#define DAVO_CONV(N)                                                                       \
+  case N:                                                                                  \
+    return launch_conv<TIn, N>(x, w, bias, out, out_bf16, B, H, W, cin, Ho, Wo, cout, k,   \
+                               stride, pad_t, pad_l, round_in, round_out, relu, stream);
+  switch (co) {
+    DAVO_CONV(16)
+    DAVO_CONV(8)
+    DAVO_CONV(4)
+    DAVO_CONV(2)
+    DAVO_CONV(1)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef DAVO_CONV
+}
+
+// The estimator input of a flow level: out (B, H, W, cpad) channels
+//   [0, D)          relu(sum_c f1[p, c] * f2[p + shift_k, c] / C), 0 outside the frame,
+//   [D, D+Cf)       feat,
+//   [D+Cf, D+Cf+Cu) flow_up,
+//   [D+Cf+Cu, cpad) 0 (padding to a multiple of 4 channels),
+// each rounded once to the activation dtype, as the TPU kernel's concat
+// and cast. One thread per output element, channels fastest (coalesced
+// stores; a warp's shift threads read the same f1 row).
+template <typename TIn>
+__global__ void __launch_bounds__(256)
+flow_level_input_kernel(const TIn* __restrict__ f1, const TIn* __restrict__ f2,
+                        const TIn* __restrict__ feat, const float* __restrict__ flow_up,
+                        void* __restrict__ out, int out_bf16, int H, int W, int C, int Cf,
+                        int Cu, int search, int cpad, long long elements) {
+  const int d = 2 * search + 1;
+  const int D = d * d;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < elements;
+       i += step) {
+    const int ch = static_cast<int>(i % cpad);
+    const long long p = i / cpad;
+    float v = 0.0f;
+    if (ch < D) {
+      const int dy = ch / d - search, dx = ch % d - search;
+      const int w = static_cast<int>(p % W);
+      const int h = static_cast<int>((p / W) % H);
+      if (h + dy >= 0 && h + dy < H && w + dx >= 0 && w + dx < W) {
+        const TIn* a = f1 + p * C;
+        const TIn* b = f2 + (p + static_cast<long long>(dy) * W + dx) * C;
+        float acc = 0.0f;
+        for (int c = 0; c < C; ++c) acc = fmaf(load1(a + c), load1(b + c), acc);
+        v = fmaxf(acc / static_cast<float>(C), 0.0f);
+      }
+    } else if (ch < D + Cf) {
+      v = load1(feat + p * Cf + (ch - D));
+    } else if (ch < D + Cf + Cu) {
+      v = __ldg(flow_up + p * Cu + (ch - D - Cf));
+    }
+    store1(out, i, out_bf16 ? round_bf16(v) : v, out_bf16);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// One fused conv layer. x_bf16 / out_bf16: bfloat16 (else float32)
+// storage; round_in: round float32 input to bf16 before the products
+// (the bf16_dot mode); round_out: round the biased sum to bf16 (the
+// activation dtype is bf16). Returns a cudaError_t (InvalidValue when no
+// channel slice of the weights fits shared memory).
+int davo_conv_layer(const void* x, int x_bf16, const float* w, const float* bias, void* out,
+                    int out_bf16, int B, int H, int W, int cin, int Ho, int Wo, int cout, int k,
+                    int stride, int pad_t, int pad_l, int round_in, int round_out, int relu,
+                    void* stream) {
+  if (B <= 0 || Ho <= 0 || Wo <= 0 || cin <= 0 || cout <= 0 || k <= 0) return cudaErrorInvalidValue;
+  int co = 16;  // the widest channel slice that divides cout and fits shared memory
+  while (co > 1 && (cout % co != 0 || static_cast<size_t>(k) * k * cin * co * 4 > kMaxSmem)) co /= 2;
+  if (static_cast<size_t>(k) * k * cin * co * 4 > kMaxSmem) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (x_bf16) {
+    return dispatch_conv<__nv_bfloat16>(co, x, w, bias, out, out_bf16, B, H, W, cin, Ho, Wo, cout,
+                                        k, stride, pad_t, pad_l, round_in, round_out, relu, s);
+  }
+  return dispatch_conv<float>(co, x, w, bias, out, out_bf16, B, H, W, cin, Ho, Wo, cout, k, stride,
+                              pad_t, pad_l, round_in, round_out, relu, s);
+}
+
+int davo_flow_level_input(const void* f1, const void* f2, const void* feat, int in_bf16,
+                          const float* flow_up, void* out, int out_bf16, int B, int H, int W,
+                          int C, int Cf, int Cu, int search, int cpad, void* stream) {
+  const long long elements = static_cast<long long>(B) * H * W * cpad;
+  if (elements <= 0 || C <= 0) return cudaErrorInvalidValue;
+  const int blocks = static_cast<int>((elements + 255) / 256 < 132 * 32 ? (elements + 255) / 256 : 132 * 32);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (in_bf16) {
+    flow_level_input_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(f1), static_cast<const __nv_bfloat16*>(f2),
+        static_cast<const __nv_bfloat16*>(feat), flow_up, out, out_bf16, H, W, C, Cf, Cu, search,
+        cpad, elements);
+  } else {
+    flow_level_input_kernel<float><<<blocks, 256, 0, s>>>(
+        static_cast<const float*>(f1), static_cast<const float*>(f2),
+        static_cast<const float*>(feat), flow_up, out, out_bf16, H, W, C, Cf, Cu, search, cpad,
+        elements);
+  }
+  return cudaGetLastError();
+}
+
+const char* davo_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,0 +1,366 @@
+"""Fused conv chains of the serving path: the hand-written CUDA kernels
+(`csrc/rowconv.cu`) and their plain versions.
+
+Three functions, each the counterpart of a TPU kernel of
+`davo_tpu/kernels/rowconv.py`:
+
+- `conv_chain_strided` (TPU `conv_chain_strided`, :501): a chain of SAME
+  convolutions, any odd k, stride 1 or 2, bias and optional ReLU per
+  layer; returns the last layer, or the layers named in `taps` (a
+  feature pyramid);
+- `conv_chain_nhwc` (TPU `conv_chain_nhwc`, :602): a chain of stride-1
+  3x3 SAME convolutions; the last layer comes out in float32;
+- `flow_level_fused` (TPU `flow_level_fused`, :246): the masked, ReLU'd
+  cost volume of f1/f2, concatenated with the level's features and the
+  upsampled flow, through the estimator chain; returns the flow
+  increment in float32.
+
+Every layer computes what the TPU kernels compute: operands rounded to
+the dot dtype, products summed in float32, plus the float32 bias, ONE
+rounding to the activation dtype, then ReLU. The unfused `ConvBlock`
+rounds the conv output first and adds a bf16 bias, which is another
+function in bf16: the fused modules follow the kernels, not `ConvBlock`.
+
+Weights are the port's OIHW float32 parameters (`Conv_0.weight`, as
+`convert.py` loads them); the wrappers repack them into the kernel's
+(k, k, Cin, Cout) layout, rounded to the dot dtype, on each call.
+
+Serving only, as the TPU kernels (which have no VJP): every wrapper
+raises when autograd would have to differentiate it. For CUDA tensors it
+launches the kernels (one launch per layer, plus the cost-volume input
+of a flow level) or raises; for CPU tensors it runs the plain version.
+`launches` counts wrapper calls that launched, `device_launches` the
+kernels they launched; the plain versions never count.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from davo_tpu_torch.kernels import cuda_build
+from davo_tpu_torch.kernels.costvol import cost_volume_plain
+from davo_tpu_torch.models.common import same_pads
+
+# Compute-mode name -> (activation dtype, dot-operand dtype), as the
+# reference's `_DTYPE_MODES`. "bf16_dot" keeps activations float32 and
+# rounds only the operands of each product to bf16.
+DTYPE_MODES = {
+    "float32": (torch.float32, torch.float32),
+    "bfloat16": (torch.bfloat16, torch.bfloat16),
+    "bf16_dot": (torch.float32, torch.bfloat16),
+}
+
+_NAMES = ("flow_level_fused", "conv_chain_strided", "conv_chain_nhwc")
+launches = dict.fromkeys(_NAMES, 0)
+device_launches = dict.fromkeys(_NAMES, 0)
+
+
+def reset_counts() -> None:
+    for name in _NAMES:
+        launches[name] = device_launches[name] = 0
+
+
+def fusable_even_prefix(h: int, w: int, strides: Sequence[int]) -> int:
+    """Longest chain prefix whose stride-2 layers all see even dims (the
+    reference fuses that prefix and runs the tail as `ConvBlock`s)."""
+    n = 0
+    for s in strides:
+        if s == 2:
+            if h % 2 or w % 2:
+                break
+            h, w = h // 2, w // 2
+        n += 1
+    return n
+
+
+def even_prefix_chain(x, convs, compute_dtype_name):
+    """A stride-2, ReLU'd conv stack's longest prefix whose layers all see
+    even dims, as one `conv_chain_strided` (the fused prefix of the
+    reference's PoseEncoder and RegionAttention). `convs` are the stack's
+    `Conv` modules. Returns (the prefix's output, or x when no layer
+    fuses; the number of layers fused)."""
+    n = fusable_even_prefix(x.shape[1], x.shape[2], (2,) * len(convs))
+    if not n:
+        return x, 0
+    y = conv_chain_strided(
+        x.contiguous(), [c.weight for c in convs[:n]], [c.bias for c in convs[:n]],
+        (2,) * n, (True,) * n, compute_dtype_name=compute_dtype_name,
+    )
+    return y, n
+
+
+def _strided_shapes(h: int, w: int, weights, strides) -> list[tuple[int, int]]:
+    """Output (H, W) of each layer; raises as the reference does when a
+    stride-2 layer sees odd dims."""
+    shapes = []
+    for i, (wt, s) in enumerate(zip(weights, strides)):
+        if wt.shape[-1] % 2 == 0 or s not in (1, 2):
+            raise ValueError(f"layer {i}: need an odd kernel and stride 1 or 2, got k={wt.shape[-1]} s={s}")
+        if s == 2:
+            if h % 2 or w % 2:
+                raise ValueError(f"stride-2 layer {i} needs even dims, got {h}x{w}")
+            h, w = h // 2, w // 2
+        shapes.append((h, w))
+    return shapes
+
+
+def _modes(name: str) -> tuple[torch.dtype, torch.dtype]:
+    if name not in DTYPE_MODES:
+        raise ValueError(f"unknown fused compute mode {name!r}; one of {sorted(DTYPE_MODES)}")
+    return DTYPE_MODES[name]
+
+
+# --------------------------------------------------------------- plain versions
+
+
+def _layer_plain(x, w, b, stride, relu, act, dot):
+    """One fused layer on NHWC `x` (already in the activation dtype)."""
+    k = w.shape[-1]
+    (top, bottom), (left, right) = (same_pads(n, k, stride) for n in x.shape[1:3])
+    xin = F.pad(x.to(dot).float().permute(0, 3, 1, 2), (left, right, top, bottom))
+    y = F.conv2d(xin, w.to(dot).float(), stride=stride)
+    y = (y + b.float()[:, None, None]).to(act)
+    if relu:
+        y = torch.relu(y)
+    return y.permute(0, 2, 3, 1)
+
+
+def conv_chain_strided_plain(x, weights, biases, strides, relus, taps=None,
+                             compute_dtype_name="bfloat16"):
+    """The plain version of `conv_chain_strided` (same arguments)."""
+    act, dot = _modes(compute_dtype_name)
+    _strided_shapes(x.shape[1], x.shape[2], weights, strides)
+    outs = []
+    y = x.to(act)
+    for i, (w, b, s, r) in enumerate(zip(weights, biases, strides, relus)):
+        y = _layer_plain(y, w, b, s, r, act, dot)
+        outs.append(y)
+    return outs[-1] if taps is None else [outs[t] for t in taps]
+
+
+def conv_chain_nhwc_plain(x, weights, biases, relus, compute_dtype_name="bfloat16"):
+    """The plain version of `conv_chain_nhwc` (same arguments)."""
+    y = conv_chain_strided_plain(
+        x, weights, biases, (1,) * len(weights), relus, compute_dtype_name=compute_dtype_name
+    )
+    return y.float()
+
+
+def flow_level_fused_plain(f1, f2, feat, flow_up, weights, biases, search, relus,
+                           compute_dtype_name="bfloat16"):
+    """The plain version of `flow_level_fused` (same arguments)."""
+    act, _ = _modes(compute_dtype_name)
+    cv = torch.relu(cost_volume_plain(f1.float(), f2.float(), search))
+    x = torch.cat([cv, feat.float(), flow_up.float()], -1).to(act)
+    return conv_chain_nhwc_plain(x, weights, biases, relus, compute_dtype_name)
+
+
+# --------------------------------------------------------------------- kernels
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = cuda_build.load("rowconv")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.davo_conv_layer.argtypes = [P, I, P, P, P, I] + [I] * 14 + [P]
+    lib.davo_conv_layer.restype = I
+    lib.davo_flow_level_input.argtypes = [P, P, P, I, P, P, I] + [I] * 8 + [P]
+    lib.davo_flow_level_input.restype = I
+    lib.davo_cuda_error_string.argtypes = [I]
+    lib.davo_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_if(err: int, what: str) -> None:
+    if err:
+        msg = _library().davo_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg}")
+
+
+def _bf16_flag(t: torch.Tensor, what: str) -> int:
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: the kernels take float32 or bfloat16, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: the kernels take contiguous NHWC tensors")
+    return int(t.dtype == torch.bfloat16)
+
+
+def _pack(w: torch.Tensor, dot: torch.dtype, cin: int | None = None) -> torch.Tensor:
+    """OIHW float32 -> (k, k, Cin, Cout) float32 holding dot-dtype values;
+    input channels zero-padded to `cin`."""
+    if cin is not None and cin > w.shape[1]:
+        w = F.pad(w, (0, 0, 0, 0, 0, cin - w.shape[1]))
+    return w.detach().to(dot).float().permute(2, 3, 1, 0).contiguous()
+
+
+def _launch_layer(x, w_packed, b, out, stride, relu, act, dot):
+    """One layer kernel: x (B, H, W, Cin) -> out (B, Ho, Wo, Cout)."""
+    B, H, W, cin = x.shape
+    _, Ho, Wo, cout = out.shape
+    k = w_packed.shape[0]
+    if w_packed.shape != (k, k, cin, cout):
+        raise ValueError(f"weights {tuple(w_packed.shape)} do not fit input {tuple(x.shape)} -> {cout}")
+    pad_t = same_pads(H, k, stride)[0]
+    pad_l = same_pads(W, k, stride)[0]
+    bias = b.detach().float().contiguous()
+    with torch.cuda.device(x.device):
+        err = _library().davo_conv_layer(
+            x.data_ptr(), _bf16_flag(x, "conv input"), w_packed.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), int(out.dtype == torch.bfloat16),
+            B, H, W, cin, Ho, Wo, cout, k, stride, pad_t, pad_l,
+            int(dot == torch.bfloat16), int(act == torch.bfloat16), int(bool(relu)),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _raise_if(err, "fused conv layer")
+
+
+def _launch_level_input(f1, f2, feat, flow_up, x, search):
+    """The flow level's input kernel: x (B, H, W, cpad) <- relu(cost
+    volume) ++ feat ++ flow_up ++ zero channels, in x's dtype."""
+    B, H, W, C = f1.shape
+    in_bf16 = _bf16_flag(f1, "f1")
+    for t, what in ((f2, "f2"), (feat, "feat"), (flow_up, "flow_up")):
+        _bf16_flag(t, what)
+    with torch.cuda.device(f1.device):
+        err = _library().davo_flow_level_input(
+            f1.data_ptr(), f2.data_ptr(), feat.data_ptr(), in_bf16, flow_up.data_ptr(),
+            x.data_ptr(), int(x.dtype == torch.bfloat16),
+            B, H, W, C, feat.shape[3], flow_up.shape[3], search, x.shape[3],
+            torch.cuda.current_stream(f1.device).cuda_stream,
+        )
+    _raise_if(err, "flow level input")
+
+
+def _chain_cuda(name, x, weights, biases, strides, relus, act, dot, keep, last_f32):
+    """Run the layers on x; returns the outputs of the layers in `keep`.
+    Intermediates live in device memory. A wide input whose channels are
+    not a multiple of 4 is zero-padded to one (zero weights too: the same
+    sums), so the first layer reads 4 channels at a time; a narrow one
+    (the images, the flow cue) is read one channel at a time, which costs
+    less than the padded products."""
+    B, h, w, cin = x.shape
+    if cin % 4 and cin >= 32:
+        cin = -(-cin // 4) * 4
+        x = F.pad(x, (0, cin - x.shape[3]))
+    layers = [(_pack(weights[0], dot, cin), biases[0], strides[0], relus[0])]
+    layers += [(_pack(wt, dot), b, s, r) for wt, b, s, r in zip(weights[1:], biases[1:], strides[1:], relus[1:])]
+    outs = {}
+    for i, (wp, b, s, r) in enumerate(layers):
+        h, w = -(-h // s), -(-w // s)
+        dtype = torch.float32 if (last_f32 and i == len(layers) - 1) else act
+        y = torch.empty((B, h, w, wp.shape[3]), dtype=dtype, device=x.device)
+        _launch_layer(x, wp, b, y, s, r, act, dot)
+        device_launches[name] += 1
+        if i in keep:
+            outs[i] = y
+        x = y
+    return [outs[i] for i in sorted(keep)]
+
+
+def _check_serving(name: str, tensors) -> str:
+    """The device the call runs on; refuses autograd and mixed devices."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is serving-only (the fused kernels have no backward): call it under "
+            "torch.no_grad() or torch.inference_mode()"
+        )
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors on several devices {sorted(map(str, devices))}")
+    device = devices.pop()
+    if device.type not in ("cpu", "cuda"):
+        raise NotImplementedError(f"no {name} for device {device}")
+    return device.type
+
+
+def conv_chain_strided(x, weights, biases, strides, relus, taps=None,
+                       compute_dtype_name="bfloat16"):
+    """Mixed-stride SAME conv chain (serving only).
+
+    x: (B, H, W, C0) float32 or bfloat16; weights[i]: (Cout, Cin, k, k)
+    OIHW float32 (odd k); biases[i]: (Cout,); strides[i] in {1, 2}, and a
+    stride-2 layer needs even input dims (ValueError otherwise, as the
+    reference). Returns the last layer's (B, H', W', Cout), or, with
+    `taps`, the list of those layers' outputs, in the activation dtype of
+    `compute_dtype_name`. (The reference returns them as float32 of the
+    same values; the callers cast to the compute dtype, so the values are
+    identical.)
+    """
+    n = len(weights)
+    if not (len(biases) == len(strides) == len(relus) == n):
+        raise ValueError("weights, biases, strides and relus differ in length")
+    keep = (n - 1,) if taps is None else tuple(taps)
+    if sorted(set(keep)) != list(keep) or not all(0 <= t < n for t in keep):
+        raise ValueError(f"taps {keep} must be increasing layer indices below {n}")
+    act, dot = _modes(compute_dtype_name)
+    on = _check_serving("conv_chain_strided", [x, *weights, *biases])
+    if on == "cpu":
+        return conv_chain_strided_plain(x, weights, biases, strides, relus, taps, compute_dtype_name)
+    _strided_shapes(x.shape[1], x.shape[2], weights, strides)
+    outs = _chain_cuda("conv_chain_strided", x, weights, biases, strides, relus, act, dot, keep,
+                       last_f32=False)
+    launches["conv_chain_strided"] += 1
+    return outs[0] if taps is None else outs
+
+
+def conv_chain_nhwc(x, weights, biases, relus, compute_dtype_name="bfloat16"):
+    """Stride-1 3x3 SAME conv chain (serving only): x (B, H, W, C0) ->
+    (B, H, W, Cout_last) float32. Weights OIHW float32."""
+    if any(w.shape[-2:] != (3, 3) for w in weights):
+        raise ValueError("conv_chain_nhwc takes 3x3 kernels")
+    act, dot = _modes(compute_dtype_name)
+    on = _check_serving("conv_chain_nhwc", [x, *weights, *biases])
+    if on == "cpu":
+        return conv_chain_nhwc_plain(x, weights, biases, relus, compute_dtype_name)
+    n = len(weights)
+    (out,) = _chain_cuda("conv_chain_nhwc", x, weights, biases, (1,) * n, relus, act, dot, (n - 1,),
+                         last_f32=True)
+    launches["conv_chain_nhwc"] += 1
+    return out
+
+
+def flow_level_fused(f1, f2, feat, flow_up, weights, biases, search, relus,
+                     compute_dtype_name="bfloat16"):
+    """One flow level (serving only): relu(cost volume(f1, f2)) ++ feat
+    ++ flow_up, through the 3x3 chain; returns the flow increment
+    (B, H, W, Cout_last) float32 (the caller adds flow_up).
+
+    f1/f2: (B, H, W, C) correlation features (f2 already warped); feat:
+    (B, H, W, Cf), the same dtype; flow_up: (B, H, W, Cu) float32;
+    weights[0] takes (2*search+1)^2 + Cf + Cu input channels.
+    """
+    B, H, W, C = f1.shape
+    D = (2 * search + 1) ** 2
+    cin0 = D + feat.shape[3] + flow_up.shape[3]
+    if f2.shape != f1.shape or feat.shape[:3] != f1.shape[:3] or flow_up.shape[:3] != f1.shape[:3]:
+        raise ValueError(
+            f"f1 {tuple(f1.shape)}, f2 {tuple(f2.shape)}, feat {tuple(feat.shape)} and "
+            f"flow_up {tuple(flow_up.shape)} must share (B, H, W)"
+        )
+    if weights[0].shape[1] != cin0:
+        raise ValueError(f"first layer takes {weights[0].shape[1]} channels, the level gives {cin0}")
+    act, dot = _modes(compute_dtype_name)
+    on = _check_serving("flow_level_fused", [f1, f2, feat, flow_up, *weights, *biases])
+    if on == "cpu":
+        return flow_level_fused_plain(f1, f2, feat, flow_up, weights, biases, search, relus,
+                                      compute_dtype_name)
+    if not (f1.dtype == f2.dtype == feat.dtype) or flow_up.dtype != torch.float32:
+        raise TypeError(
+            f"f1/f2/feat must share a dtype and flow_up be float32, got "
+            f"{f1.dtype}/{f2.dtype}/{feat.dtype}/{flow_up.dtype}"
+        )
+    # The estimator input with its channels padded to a multiple of 4
+    # (zero channels; `_chain_cuda` pads the weights to match).
+    x = torch.empty((B, H, W, -(-cin0 // 4) * 4), dtype=act, device=f1.device)
+    _launch_level_input(f1, f2, feat, flow_up, x, search)
+    device_launches["flow_level_fused"] += 1
+    n = len(weights)
+    (out,) = _chain_cuda("flow_level_fused", x, weights, biases, (1,) * n, relus, act, dot, (n - 1,),
+                         last_f32=True)
+    launches["flow_level_fused"] += 1
+    return out

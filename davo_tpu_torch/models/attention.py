@@ -2,7 +2,10 @@
 
 Flow drives a small net that produces one weight per semantic region
 (softmax x K, so uniform weights are the identity); the segmentation
-turns them into a spatial map at the pose features' resolution.
+turns them into a spatial map at the pose features' resolution. With
+`fuse_attention` the even-dim prefix of the stride-2 conv stack runs as
+one `conv_chain_strided` and the tail as `ConvBlock`s, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ import torch
 import torch.nn as nn
 
 from davo_tpu_torch.config import ModelConfig
+from davo_tpu_torch.kernels.rowconv import even_prefix_chain
 from davo_tpu_torch.models.common import ConvBlock, dtype_of
 
 
@@ -21,6 +25,8 @@ class RegionAttention(nn.Module):
         super().__init__()
         self.dtype = dtype_of(cfg.compute_dtype)
         self.num_classes = cfg.num_seg_classes
+        self.fuse = cfg.fuse_attention
+        self.mode = cfg.fuse_compute or cfg.compute_dtype
         for i, ch in enumerate((16, 32, 64)):
             self.add_module(f"conv{i}", ConvBlock(cin, ch, 3, 2, self.dtype))
             cin = ch
@@ -28,7 +34,14 @@ class RegionAttention(nn.Module):
         self.fc1 = nn.Linear(64, cfg.num_seg_classes)
 
     def forward(self, flow: torch.Tensor) -> torch.Tensor:
-        x = self.conv2(self.conv1(self.conv0(flow.to(self.dtype))))
+        x = flow.to(self.dtype)
+        start = 0
+        if self.fuse:
+            convs = [getattr(self, f"conv{i}").Conv_0 for i in range(3)]
+            x, start = even_prefix_chain(x, convs, self.mode)
+            x = x.to(self.dtype)
+        for i in range(start, 3):
+            x = getattr(self, f"conv{i}")(x)
         # Mean in the compute dtype (accumulated in f32), then f32.
         x = x.mean(dim=(1, 2)).float()
         logits = self.fc1(torch.relu(self.fc0(x)))

@@ -5,7 +5,10 @@
     (I_tgt, I_src, direction, flow) -> PoseNet -> 6-DoF xi * pose_scale
     I_tgt (+ I_src) -> DispNet -> multi-scale disparity   (train=True)
 
-Every option that selects something not ported (`fuse_*`, `geo_hybrid`,
+The serving flags `fuse_pyramid`, `fuse_flow_level`, `fuse_attention`,
+`fuse_pose_encoder` and `fuse_estimator` run the fused kernels of
+`kernels/rowconv.py` (forward only). Every option that selects something
+not ported (the `fuse_*_train` flags, `fuse_disp_encoder`, `geo_hybrid`,
 `s2d_first_conv`, the resnet DispNet encoder) raises NotImplementedError
 rather than running a different path.
 """
@@ -22,6 +25,7 @@ from davo_tpu_torch import exact_f32, resolve_device
 from davo_tpu_torch.config import ModelConfig
 from davo_tpu_torch.core.warp import flow_warp_separable
 from davo_tpu_torch.kernels.resize import resize_bilinear_aligned
+from davo_tpu_torch.kernels.rowconv import DTYPE_MODES
 from davo_tpu_torch.models.attention import RegionAttention, region_weight_map
 from davo_tpu_torch.models.common import lecun_init_
 from davo_tpu_torch.models.dispnet import DispNet
@@ -29,16 +33,24 @@ from davo_tpu_torch.models.flownet import FlowNetLite
 from davo_tpu_torch.models.posenet import PoseNet
 
 
+SERVING_FUSE_FLAGS = (
+    "fuse_pyramid", "fuse_flow_level", "fuse_attention", "fuse_pose_encoder", "fuse_estimator",
+)
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for options outside the ported slice."""
+    """Raise NotImplementedError for options outside the ported slices."""
     fused = [
         f.name for f in dataclasses.fields(cfg)
-        if f.name.startswith("fuse_") and getattr(cfg, f.name) is True
+        if f.name.startswith("fuse_") and f.name not in SERVING_FUSE_FLAGS
+        and getattr(cfg, f.name) is True
     ]
     if fused:
         raise NotImplementedError(
             f"{fused}: the fused kernels these select are not ported yet"
         )
+    if cfg.fuse_compute and cfg.fuse_compute not in DTYPE_MODES:
+        raise ValueError(f"unknown fuse_compute {cfg.fuse_compute!r}")
     if cfg.pose_head != "conv":
         raise NotImplementedError(f"pose_head={cfg.pose_head!r} is not ported yet")
     if cfg.s2d_first_conv:

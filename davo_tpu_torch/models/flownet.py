@@ -1,9 +1,16 @@
 """FlowNetLite: PWC-style coarse-to-fine optical flow (port of
-davo_tpu.models.flownet, serving path).
+davo_tpu.models.flownet).
 
 Every `costvol_impl` of the reference computes the same function, so
 here the cost volume always goes through `kernels.costvol.cost_volume`:
 the hand-written CUDA kernel on the GPU, its plain version on the CPU.
+The serving flags route as in the reference: `fuse_pyramid` runs the
+whole (s2, s1) ladder as one `conv_chain_strided` with taps (when every
+stride-2 layer sees even dims), `fuse_flow_level` (with no estimator
+bottleneck) a whole level as one `flow_level_fused`, superseding
+`fuse_estimator`, which runs the estimator chain as one
+`conv_chain_nhwc` after the optional `est_in`. The fused layers round
+as the kernels do (`kernels/rowconv.py`), not as `ConvBlock`.
 """
 
 from __future__ import annotations
@@ -15,9 +22,22 @@ from davo_tpu_torch.config import ModelConfig
 from davo_tpu_torch.core.warp import flow_warp_separable
 from davo_tpu_torch.kernels.costvol import cost_volume
 from davo_tpu_torch.kernels.resize import resize_bilinear_aligned
+from davo_tpu_torch.kernels.rowconv import (
+    conv_chain_nhwc,
+    conv_chain_strided,
+    flow_level_fused,
+    fusable_even_prefix,
+)
 from davo_tpu_torch.models.common import Conv, ConvBlock, dtype_of
 
 _LEVEL_CHANNELS = (16, 32, 64, 96)
+_EST_RELUS = (True, True, True, False)
+
+
+def _conv_params(block: nn.Module) -> tuple[torch.Tensor, torch.Tensor]:
+    """(weight, bias) of a `ConvBlock` or a bare `Conv`."""
+    conv = getattr(block, "Conv_0", block)
+    return conv.weight, conv.bias
 
 
 class FeaturePyramid(nn.Module):
@@ -33,9 +53,22 @@ class FeaturePyramid(nn.Module):
             self.add_module(f"feat{i}b", ConvBlock(ch, ch, 3, 1, dt))
             cin = ch
         self.dtype = dt
+        self.fuse = cfg.fuse_pyramid
+        self.mode = cfg.fuse_compute or cfg.compute_dtype
 
     def forward(self, img: torch.Tensor) -> list[torch.Tensor]:
         x = img.to(self.dtype)
+        strides = (2, 1) * self.levels
+        if self.fuse and fusable_even_prefix(x.shape[1], x.shape[2], strides) == len(strides):
+            ws, bs = zip(*(
+                _conv_params(getattr(self, f"feat{i}{suf}"))
+                for i in range(self.levels) for suf in "ab"
+            ))
+            pyr = conv_chain_strided(
+                x.contiguous(), ws, bs, strides, (True,) * len(strides),
+                taps=tuple(2 * i + 1 for i in range(self.levels)), compute_dtype_name=self.mode,
+            )
+            return [f.to(self.dtype) for f in pyr]
         pyr = []
         for i in range(self.levels):
             x = getattr(self, f"feat{i}b")(getattr(self, f"feat{i}a")(x))
@@ -50,6 +83,8 @@ class FlowEstimator(nn.Module):
         super().__init__()
         dt = dtype_of(cfg.compute_dtype)
         self.dtype = dt
+        self.fuse = cfg.fuse_estimator
+        self.mode = cfg.fuse_compute or cfg.compute_dtype
         if cfg.flow_est_bottleneck > 0:
             self.est_in = ConvBlock(cin, cfg.flow_est_bottleneck, 1, 1, dt)
             cin = cfg.flow_est_bottleneck
@@ -62,8 +97,15 @@ class FlowEstimator(nn.Module):
         x = torch.cat([cv.to(self.dtype), feat, flow_up.to(self.dtype)], -1)
         if hasattr(self, "est_in"):
             x = self.est_in(x)
+        if self.fuse:
+            ws, bs = self.chain_params()
+            return flow_up + conv_chain_nhwc(x.contiguous(), ws, bs, _EST_RELUS, self.mode)
         x = self.est2(self.est1(self.est0(x)))
         return flow_up + self.flow(x).float()
+
+    def chain_params(self):
+        """Weights and biases of est0, est1, est2 and the flow head."""
+        return zip(*(_conv_params(m) for m in (self.est0, self.est1, self.est2, self.flow)))
 
 
 class FlowNetLite(nn.Module):
@@ -74,6 +116,9 @@ class FlowNetLite(nn.Module):
         super().__init__()
         self.search = cfg.flow_search_range
         self.levels = cfg.flow_levels
+        # As the reference: the fused level needs the plain estimator input.
+        self.fuse_level = cfg.fuse_flow_level and cfg.flow_est_bottleneck == 0
+        self.mode = cfg.fuse_compute or cfg.compute_dtype
         dt = dtype_of(cfg.compute_dtype)
         self.pyramid = FeaturePyramid(cfg)
         d2 = (2 * self.search + 1) ** 2
@@ -110,12 +155,19 @@ class FlowNetLite(nn.Module):
             if self.project:
                 proj = getattr(self, f"cv_proj{level}")
                 f1c, f2c = proj(f1), proj(f2w)
-            cv = torch.relu(
-                cost_volume(
-                    f1c.float().contiguous(), f2c.float().contiguous(), self.search
+            estimator = getattr(self, f"estimator{level}")
+            if self.fuse_level:
+                ws, bs = estimator.chain_params()
+                delta = flow_level_fused(
+                    f1c.contiguous(), f2c.contiguous(), f1.contiguous(), flow_up.contiguous(), ws, bs,
+                    self.search, _EST_RELUS, self.mode,
                 )
-            )
-            flow = getattr(self, f"estimator{level}")(cv, f1, flow_up)
+                flow = flow_up + delta
+            else:
+                cv = torch.relu(
+                    cost_volume(f1c.float().contiguous(), f2c.float().contiguous(), self.search)
+                )
+                flow = estimator(cv, f1, flow_up)
             flows.append(flow)
         return flows[::-1]  # fine (/4) first
 

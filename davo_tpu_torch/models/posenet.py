@@ -4,7 +4,9 @@ davo_tpu.models.posenet).
 Stride-2 conv stack on the concatenated pair, optional region-attention
 map multiplied into the features, 1x1 conv head, global mean, x
 pose_scale. Output ``[tx, ty, tz, rx, ry, rz] * pose_scale`` maps
-target-cam points to source-cam points.
+target-cam points to source-cam points. With `fuse_pose_encoder` the
+even-dim prefix of the stride-2 stack runs as one `conv_chain_strided`
+and the tail as `ConvBlock`s, as in the reference.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 import torch.nn as nn
 
 from davo_tpu_torch.config import ModelConfig
+from davo_tpu_torch.kernels.rowconv import even_prefix_chain
 from davo_tpu_torch.models.common import Conv, ConvBlock, dtype_of
 
 
@@ -21,6 +24,8 @@ class PoseEncoder(nn.Module):
         super().__init__()
         self.dtype = dtype_of(cfg.compute_dtype)
         self.depth = len(cfg.pose_channels)
+        self.fuse = cfg.fuse_pose_encoder
+        self.mode = cfg.fuse_compute or cfg.compute_dtype
         for i, ch in enumerate(cfg.pose_channels):
             k = 7 if i == 0 else (5 if i == 1 else 3)
             self.add_module(f"enc{i}", ConvBlock(cin, ch, k, 2, self.dtype))
@@ -28,7 +33,12 @@ class PoseEncoder(nn.Module):
 
     def forward(self, pair: torch.Tensor) -> torch.Tensor:
         x = pair.to(self.dtype)
-        for i in range(self.depth):
+        start = 0
+        if self.fuse:
+            convs = [getattr(self, f"enc{i}").Conv_0 for i in range(self.depth)]
+            x, start = even_prefix_chain(x, convs, self.mode)
+            x = x.to(self.dtype)
+        for i in range(start, self.depth):
             x = getattr(self, f"enc{i}")(x)
         return x
 

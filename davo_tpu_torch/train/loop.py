@@ -23,7 +23,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from davo_tpu_torch import resolve_device
-from davo_tpu_torch.config import Config
+from davo_tpu_torch.config import Config, ModelConfig
 from davo_tpu_torch.core import warp as warp_mod
 from davo_tpu_torch.models.davo import DavoModel
 from davo_tpu_torch.train.losses import total_loss
@@ -123,9 +123,34 @@ class TrainState:
     step: int = 0  # updates applied so far
 
 
+SERVING_ONLY_MESSAGE = (
+    "model.fuse_estimator / fuse_flow_level / fuse_pyramid / "
+    "fuse_pose_encoder / fuse_attention / fuse_disp_encoder "
+    "are serving-only fast paths (pallas_call has no VJP); "
+    "train with them false — the *_train variants carry VJPs "
+    "and may be enabled for training"
+)
+
+
+def serving_only_flags_set(m: ModelConfig) -> bool:
+    """The reference's `cmd_train` test for serving-only fused flags that
+    the training forward would reach (RegionAttention, and so its fused
+    stack, exists only with attention="flow_seg")."""
+    return (
+        ((m.fuse_estimator or m.fuse_flow_level or m.fuse_pyramid) and m.attention != "none")
+        or m.fuse_pose_encoder
+        or m.fuse_disp_encoder
+        or (m.fuse_attention and m.attention == "flow_seg")
+    )
+
+
 def create_state(cfg: Config, device: str | torch.device | None = None) -> TrainState:
     """A `davo` model with DispNet, initialised from `cfg.train.seed`, on
-    `device` (the GPU unless device="cpu"), with its optimizer at step 0."""
+    `device` (the GPU unless device="cpu"), with its optimizer at step 0.
+    Refuses the serving-only fused flags (ValueError), as the reference's
+    `cli train` does."""
+    if serving_only_flags_set(cfg.model):
+        raise ValueError(SERVING_ONLY_MESSAGE)
     model = DavoModel(cfg.model, device=device, seed=cfg.train.seed, dispnet=True)
     return TrainState(model=model, tx=_make_tx(cfg, model.parameters()))
 

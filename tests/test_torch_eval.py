@@ -1,6 +1,8 @@
 """davo_tpu_torch streaming inference end to end against the JAX
 reference (CPU), the CLI, and the no-silent-CPU-fallback rule."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -134,3 +136,67 @@ def test_write_poses_kitti_round_trip(tmp_path):
     poses[:, :3, 3] = np.arange(9).reshape(3, 3)
     write_poses_kitti(str(tmp_path / "p.txt"), poses)
     np.testing.assert_allclose(np.loadtxt(tmp_path / "p.txt"), poses[:, :3].reshape(3, 12))
+
+
+FUSED_SETS = [
+    "--set", "model.fuse_pyramid=true", "--set", "model.fuse_flow_level=true",
+    "--set", "model.fuse_attention=true", "--set", "model.fuse_pose_encoder=true",
+]
+
+
+def test_cli_infer_runs_the_fused_serving_path(tmp_path):
+    """`infer` with the four serving flags on the CPU (the plain versions
+    of the fused kernels): the same trajectory as the unfused path from
+    the same seeded parameters (tiny is float32)."""
+    paths = {}
+    for name, sets in (("fused", FUSED_SETS), ("unfused", [])):
+        paths[name] = tmp_path / f"{name}.txt"
+        rc = cli_main(["infer", "--version", "tiny", "--data", "synthetic", "--seq", "0",
+                       "--out", str(paths[name]), "--batch-size", "8", "--device", "cpu", *sets])
+        assert rc == 0
+    fused, unfused = np.loadtxt(paths["fused"]), np.loadtxt(paths["unfused"])
+    assert fused.shape == (32, 12) and np.isfinite(fused).all()
+    np.testing.assert_allclose(fused, unfused, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize(
+    "sets",
+    [
+        ["model.fuse_pose_encoder=true"],
+        ["model.fuse_flow_level=true"],
+        ["model.fuse_attention=true"],
+        ["model.fuse_estimator=true", "model.attention=flow"],
+    ],
+)
+def test_train_refuses_serving_only_flags_as_reference(sets, capsys):
+    """`cli train` and `create_state` refuse the serving-only flags where
+    the reference's `cli train` does, with its message."""
+    from davo_tpu.cli.main import main as j_cli_main
+    from davo_tpu_torch.train import loop
+
+    argv = ["train", "--version", "tiny", "--steps", "1"]
+    for item in sets:
+        argv += ["--set", item]
+    assert j_cli_main(argv) == 1
+    want = capsys.readouterr().err
+    assert cli_main([*argv, "--device", "cpu"]) == 1
+    assert capsys.readouterr().err == want
+    overrides = dict(item.split("=") for item in sets)
+    cfg = presets.get("tiny")
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **{
+        k.split(".")[1]: (v == "true" if v in ("true", "false") else v) for k, v in overrides.items()
+    }))
+    with pytest.raises(ValueError, match="serving-only"):
+        loop.create_state(cfg, "cpu")
+
+
+def test_train_accepts_a_serving_flag_the_forward_never_reaches():
+    """fuse_attention with attention="flow": no RegionAttention is built,
+    so the reference trains with it, and so does the port."""
+    from davo_tpu_torch.train import loop
+
+    cfg = presets.get("tiny")
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, attention="flow", fuse_attention=True))
+    assert not loop.serving_only_flags_set(cfg.model)
+    assert loop.create_state(cfg, "cpu").step == 0

@@ -414,9 +414,11 @@ def test_init_mirrors_flax_defaults():
 @pytest.mark.parametrize(
     "override",
     [
-        {"fuse_estimator": True},
+        {"fuse_estimator_train": True},
         {"fuse_flow_level_train": True},
-        {"fuse_pose_encoder": True},
+        {"fuse_pyramid_train": True},
+        {"fuse_attention_train": True},
+        {"fuse_pose_encoder_train": True},
         {"fuse_disp_encoder": True},
         {"pose_head": "geo_hybrid"},
         {"s2d_first_conv": True},
@@ -436,3 +438,154 @@ def test_train_forward_is_refused():
         model(x, x[:, None], train=True)
     with pytest.raises(NotImplementedError, match="resnet"):
         DavoModel(dataclasses.replace(TINY, disp_encoder="resnet"), device="cpu", dispnet=True)
+
+
+# ------------------------------------------------------ fused serving path
+
+SERVING_FLAGS = dict(
+    fuse_pyramid=True, fuse_flow_level=True, fuse_attention=True, fuse_pose_encoder=True
+)
+
+
+def _fused(cfg, **flags):
+    return dataclasses.replace(cfg, **(flags or SERVING_FLAGS))
+
+
+def _module_pair(jcls, cls, cfg, jcfg, port_args, key, *inputs):
+    """(reference fused output, port fused output, port unfused output)
+    on one converted tree: the fused modules read the unfused parameters."""
+    jinputs = [jnp.asarray(a) for a in inputs]
+    params = jcls(jcfg).init(jax.random.key(key), *jinputs)
+    want = jcls(_fused(jcfg)).apply(params, *jinputs)
+    fused, plain = cls(_fused(cfg), *port_args), cls(cfg, *port_args)
+    load_flax_params(fused, params)
+    load_flax_params(plain, params)
+    with torch.no_grad():
+        return want, fused(*map(_t, inputs)), plain(*map(_t, inputs))
+
+
+def _close_all(got, want, atol):
+    got = got if isinstance(got, (list, tuple)) else [got]
+    want = want if isinstance(want, (list, tuple)) else [want]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == tuple(w.shape)
+        _close(g.float(), np.asarray(w, np.float32), atol)
+
+
+@pytest.mark.parametrize("height", [48, 50])
+def test_fused_feature_pyramid_matches_reference(height):
+    """48x64 fuses the whole ladder (taps at layers 1, 3, 5); at 50 rows
+    the second stride-2 layer sees 25, so the reference and the port run
+    the unfused ladder."""
+    img = _images(60, 2, height, W, 3)
+    want, fused, plain = _module_pair(JFeaturePyramid, FeaturePyramid, TINY, J_TINY, (), 9, img)
+    _close_all(fused, want, 1e-5)
+    _close_all(fused, plain, 1e-5)
+
+
+@pytest.mark.parametrize("flags", [SERVING_FLAGS, {"fuse_estimator": True}])
+def test_fused_flownet_matches_reference(flags):
+    """The fused flow level (two per forward at tiny, with the pyramid
+    fused), and the fused estimator chain (cost volume unfused)."""
+    jcfg = dataclasses.replace(J_TINY, costvol_feat_channels=8, **flags)
+    cfg = dataclasses.replace(TINY, costvol_feat_channels=8, **flags)
+    a, b = _images(61, 2, H, W, 3), _images(62, 2, H, W, 3)
+    params = JFlowNetLite(dataclasses.replace(J_TINY, costvol_feat_channels=8)).init(
+        jax.random.key(10), jnp.asarray(a), jnp.asarray(b)
+    )
+    want = JFlowNetLite(jcfg).apply(params, jnp.asarray(a), jnp.asarray(b))
+    fused = FlowNetLite(cfg)
+    plain = FlowNetLite(dataclasses.replace(TINY, costvol_feat_channels=8))
+    load_flax_params(fused, params)
+    load_flax_params(plain, params)
+    with torch.no_grad():
+        got, unfused = fused(_t(a), _t(b)), plain(_t(a), _t(b))
+    _close_all(got, want, 1e-4)
+    _close_all(got, unfused, 1e-4)
+
+
+@pytest.mark.parametrize("height", [48, 36])
+def test_fused_posenet_matches_reference(height):
+    """tiny's three stride-2 pose layers: all fused at 48x64 (a full
+    prefix); at 36x64 the third sees 9 rows, so two fuse and one runs as
+    a `ConvBlock` (a partial prefix)."""
+    t, s = _images(63, 2, height, W, 3), _images(64, 2, height, W, 3)
+    extra = np.random.default_rng(65).normal(size=(2, height, W, 3)).astype(np.float32)
+    want, fused, plain = _module_pair(JPoseNet, PoseNet, TINY, J_TINY, (3,), 11, t, s, extra)
+    _close_all(fused, want, 1e-5)
+    _close_all(fused, plain, 1e-5)
+
+
+def test_fused_region_attention_matches_reference():
+    flow = np.random.default_rng(66).normal(scale=2.0, size=(3, H, W, 2)).astype(np.float32)
+    want, fused, plain = _module_pair(JRegionAttention, RegionAttention, TINY, J_TINY, (2,), 12, flow)
+    _close_all(fused, want, 1e-5)
+    _close_all(fused, plain, 1e-5)
+
+
+def _poses_and_attn_match(jcfg, cfg, hw, seed, tol=1e-4):
+    """The fused DavoModel against the reference's fused DavoModel, and
+    against the port's unfused model, on one converted tree: poses and
+    attention within `tol` of their largest element."""
+    h, w = hw
+    target, sources = _images(seed, 2, h, w, 3), _images(seed + 1, 2, 1, h, w, 3)
+    seg = _seg(seed + 2, 2, h, w)
+    jmodel, params, plain = _davo_pair(jcfg, cfg, target, sources, seg)
+    args = (jnp.asarray(target), jnp.asarray(sources))
+    want = JDavoModel(_fused(jcfg)).apply(params, *args, seg=jnp.asarray(seg), train=False)
+    fused = DavoModel(_fused(cfg), device="cpu")
+    load_flax_params(fused, params)
+    with torch.no_grad():
+        got = fused(_t(target), _t(sources), seg=_t(seg))
+        unfused = plain(_t(target), _t(sources), seg=_t(seg))
+    for key in ("poses", "attn"):
+        scale = np.abs(np.asarray(want[key])).max()
+        assert scale > 0
+        assert np.abs(got[key].numpy() - np.asarray(want[key])).max() <= tol * scale, key
+        assert np.abs(got[key].numpy() - unfused[key].numpy()).max() <= tol * scale, key
+
+
+def test_davo_all_fused_serving_matches_reference():
+    """The four serving flags at the configuration of
+    tests/test_models.py::TestDavoModel::test_all_fused_serving_matches_xla."""
+    kw = dict(img_height=64, img_width=96, pose_channels=(8, 12, 16, 16),
+              disp_channels=(8, 12, 16, 16), flow_levels=3, flow_search_range=2,
+              attention="flow_seg", compute_dtype="float32")
+    jcfg = dataclasses.replace(jpresets.get("tiny").model, pose_scale=0.01, **kw)
+    cfg = dataclasses.replace(TINY, pose_scale=0.01, **kw)
+    _poses_and_attn_match(jcfg, cfg, (64, 96), 70)
+
+
+def test_davo_fast_widths_all_fused_match_reference():
+    """davo-fast's widths at 64x208 in f32 with the four serving flags:
+    the pose encoder fuses 4 of its 7 layers (the fifth sees 4x13) and
+    runs 3 as `ConvBlock`s."""
+    kw = dict(img_height=64, img_width=208, compute_dtype="float32")
+    jcfg = jpresets.with_overrides("davo-fast", **kw).model
+    cfg = presets.with_overrides("davo-fast", **kw).model
+    _poses_and_attn_match(jcfg, cfg, (64, 208), 73)
+
+
+def test_davo_fused_estimator_matches_reference():
+    jcfg = dataclasses.replace(J_TINY, costvol_feat_channels=8)
+    cfg = dataclasses.replace(TINY, costvol_feat_channels=8)
+    target, sources, seg = _images(76, 2, H, W, 3), _images(77, 2, 1, H, W, 3), _seg(78, 2, H, W)
+    jmodel, params, _ = _davo_pair(jcfg, cfg, target, sources, seg)
+    flags = {"fuse_estimator": True}
+    want = JDavoModel(_fused(jcfg, **flags)).apply(
+        params, jnp.asarray(target), jnp.asarray(sources), seg=jnp.asarray(seg), train=False
+    )
+    model = DavoModel(_fused(cfg, **flags), device="cpu")
+    load_flax_params(model, params)
+    with torch.no_grad():
+        got = model(_t(target), _t(sources), seg=_t(seg))
+    _close(got["poses"], want["poses"], 1e-4)
+    _close(got["attn"], want["attn"], 1e-4)
+
+
+def test_fuse_compute_modes_are_checked():
+    for mode in ("", "float32", "bfloat16", "bf16_dot"):
+        DavoModel(dataclasses.replace(TINY, fuse_compute=mode, **SERVING_FLAGS), device="cpu")
+    with pytest.raises(ValueError, match="fuse_compute"):
+        DavoModel(dataclasses.replace(TINY, fuse_compute="float16"), device="cpu")
