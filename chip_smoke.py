@@ -11,7 +11,10 @@ Phases, in order; any failure exits non-zero:
      shapes the main paths give it, with times, the card's bound and, for
      the banded warp, F.grid_sample as the library yardstick; (3d) the
      fused serving kernels at one fused request's shapes in bf16, f32 and
-     bf16_dot, with the port's unfused route as the yardstick
+     bf16_dot, with the port's unfused route as the yardstick; (3e) the
+     training chains' backward kernels against their plain backwards at
+     one fused davo train step's shapes, bf16 and f32, with the port's
+     unfused route backward as the yardstick
   4. the serving path: davo-fast at 128x416 streams a 257-frame synthetic
      world through predict_sequence in 4 requests of 64 pairs, then
      assemble_trajectory and evaluate_sequence; plus one davo forward;
@@ -27,11 +30,14 @@ Phases, in order; any failure exits non-zero:
      B=256, and the fused B=64 forward's device time by kernel
   8. the train path: davo at 128x416, B=4, synthetic worlds, 5 steps
      through train.loop.fit; launch counts per step, finite loss terms,
-     every parameter changed, no plain version run
+     every parameter changed, no plain version run; (8b) the same on the
+     fused training path (the five fuse_*_train flags), then `cli train`
+     with those flags for 2 steps; (8c) 2 fuse_estimator_train steps
   9. one train step on the card against the port on the CPU (davo
-     widths, 64x128, float32): loss terms and every gradient leaf
+     widths, 64x128, float32): loss terms and every gradient leaf; (9b)
+     the same on the fused training path
  10. train-step time at B=4 and B=64, peak memory, and device time by
-     kernel of one B=64 step
+     kernel of one B=64 step; (10b) the same on the fused training path
 The line before the last names the card; the last line is the result.
 """
 
@@ -58,7 +64,7 @@ BANDWARP_TOL = 1e-5
 BAND = (4, 16)
 TRAIN_LOSS_TOL = 1e-4   # train step, card against CPU: loss terms, relative
 TRAIN_GRAD_TOL = 1e-3   # each gradient leaf, relative to its largest element
-KERNEL_SOURCES = ("costvol", "bandwarp", "rowconv")  # davo_tpu_torch/csrc/<name>.cu
+KERNEL_SOURCES = ("costvol", "bandwarp", "rowconv", "rowconv_bwd")  # davo_tpu_torch/csrc/<name>.cu
 
 
 def _event_ms(fn, runs: int) -> float:
@@ -541,11 +547,12 @@ def _counts(costvol, bandwarp):
 
 def _reset_counts():
     """Every launch count of every kernel module to 0."""
-    from davo_tpu_torch.kernels import bandwarp, costvol, rowconv
+    from davo_tpu_torch.kernels import bandwarp, costvol, rowconv, rowconv_ad
 
     costvol.launches = costvol.backward_launches = 0
     bandwarp.launches = bandwarp.backward_launches = 0
     rowconv.reset_counts()
+    rowconv_ad.reset_counts()
 
 
 # ---------------------------------------------------------------- fused serving kernels
@@ -566,6 +573,10 @@ BF16_FLOPS = 989e12        # H100 SXM bf16 tensor-core rate, dense
 EST_RELUS = (True, True, True, False)
 FUSED_FLAGS = dict(fuse_pyramid=True, fuse_flow_level=True, fuse_attention=True, fuse_pose_encoder=True)
 FUSED_SETS = [arg for k in FUSED_FLAGS for arg in ("--set", f"model.{k}=true")]
+# The fused training path: the five `_train` flags set together.
+FUSED_TRAIN_FLAGS = dict(fuse_pyramid_train=True, fuse_flow_level_train=True, fuse_attention_train=True,
+                         fuse_pose_encoder_train=True, fuse_disp_encoder_train=True)
+FUSED_TRAIN_SETS = [arg for k in FUSED_TRAIN_FLAGS for arg in ("--set", f"model.{k}=true")]
 
 
 def _conv_params(mods):
@@ -766,6 +777,247 @@ def check_rowconv(torch, rowconv, N=64):
     return rows
 
 
+# ---------------------------------------------------------------- fused training kernels
+
+# The training chains' backward kernels (kernels/rowconv_ad.py,
+# csrc/rowconv_bwd.cu) on the card against the plain backwards, on the
+# same residuals (the forward kernels' outputs) and output cotangents.
+# float32: every gradient within 1e-5 of its largest element. bfloat16:
+# the cotangents rounded to a bf16 input's dtype differ from the plain
+# version's in at most 1e-3 of their elements, each by at most one bf16
+# ulp at the gradient's scale; the float32 ones (dW, db, the flow's)
+# within 1e-5 of their largest, as both sum the same float32 products.
+ROWCONV_BWD_TOL = 1e-5
+ROWCONV_BWD_BF16_SHARE = 1e-3
+
+
+def _train_units(torch, model):
+    """The training chains' calls of one `davo` train step at B=4 with two
+    sources (128x416): the pyramid on 16 images, the attention stack and
+    the pose prefix on 8, the DispNet prefix on 12, the three flow levels
+    and (the fuse_estimator_train configuration) the three estimator
+    chains on 8. Weights from `model` (a seeded fused davo with DispNet),
+    inputs of the path's ranges."""
+    from davo_tpu_torch.kernels import costvol
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    Hh, Ww = model.cfg.img_height, model.cfg.img_width
+    B, S = 4, 2
+    fn, enc, dn = model.flownet, model.posenet.encoder, model.dispnet
+
+    def rand(*shape, scale=None):
+        if scale is None:
+            return torch.rand(*shape, device="cuda", generator=gen)
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+
+    def strided(label, x, mods, strides, taps, need_dx):
+        ws, bs = _conv_params(mods)
+        return dict(kernel="conv_chain_strided_ad", unit=label, kind="strided", x=x, ws=ws, bs=bs, mods=mods,
+                    strides=strides, relus=(True,) * len(ws), taps=taps, need_dx=need_dx)
+
+    units = [
+        strided(f"pyramid ({2 * S * B}, {Hh}, {Ww}, 3), 8 layers, taps 1/3/5/7", rand(2 * S * B, Hh, Ww, 3),
+                [getattr(fn.pyramid, f"feat{i}{s}") for i in range(4) for s in "ab"], (2, 1) * 4, (1, 3, 5, 7),
+                False),
+        strided(f"attention ({S * B}, {Hh}, {Ww}, 2), 3 x 3x3/s2", rand(S * B, Hh, Ww, 2, scale=2.0),
+                [getattr(model.attn, f"conv{i}") for i in range(3)], (2,) * 3, (2,), True),
+        strided(f"pose prefix ({S * B}, {Hh}, {Ww}, 9), k 7/5/3/3/3",
+                torch.cat([rand(S * B, Hh, Ww, 6), rand(S * B, Hh, Ww, 1) * 0 - 1,
+                           rand(S * B, Hh, Ww, 2, scale=2.0)], -1),
+                [getattr(enc, f"enc{i}") for i in range(5)], (2,) * 5, (4,), True),
+        strided(f"DispNet prefix ({(1 + S) * B}, {Hh}, {Ww}, 3), 10 layers, taps 1/3/5/7/9",
+                rand((1 + S) * B, Hh, Ww, 3),
+                [getattr(dn, f"enc{i}{s}") for i in range(5) for s in ("", "b")], (2, 1) * 5, (1, 3, 5, 7, 9),
+                False),
+    ]
+    for level, c in ((3, 96), (2, 64), (1, 32)):
+        h, w = Hh >> (level + 1), Ww >> (level + 1)
+        est = getattr(fn, f"estimator{level}")
+        mods = [est.est0, est.est1, est.est2, est.flow]
+        ws, bs = _conv_params(mods)
+        f1, f2 = rand(S * B, h, w, c, scale=1.0), rand(S * B, h, w, c, scale=1.0)
+        flow_up = rand(S * B, h, w, 2, scale=0.0 if level == 3 else 2.0)
+        units.append(dict(
+            kernel="flow_level_fused_ad", unit=f"flow level /{2 ** (level + 1)} ({S * B}, {h}, {w}), C=Cf={c}, D=81",
+            kind="level", f1=f1, f2=f2, flow_up=flow_up, ws=ws, bs=bs, relus=EST_RELUS, est=est,
+        ))
+        x = torch.cat([torch.relu(costvol.cost_volume_plain(f1, f2, 4)), f1, flow_up], -1)
+        units.append(dict(
+            kernel="conv_chain_nhwc_ad", unit=f"estimator /{2 ** (level + 1)} ({S * B}, {h}, {w}, {x.shape[3]})",
+            kind="strided", x=x, ws=ws, bs=bs, mods=mods, strides=(1,) * 4, relus=EST_RELUS, taps=(3,),
+            need_dx=True, last_f32=True,
+        ))
+    return units
+
+
+def _train_unit_case(torch, rowconv, rowconv_ad, unit, mode):
+    """The unit in `mode` as the training path hands it over: residuals
+    from the forward kernels and random float32 output cotangents.
+    Returns (kernels' backward, plain backward, the plain backward summed
+    in float64, the indices of the outputs rounded to a bf16 input's
+    dtype, bytes moved, FLOPs, the port's unfused route backward or
+    None), each backward a function returning a flat list of gradients
+    in the kernels' dtypes."""
+    from collections import Counter
+
+    from davo_tpu_torch.kernels import costvol
+
+    dt = torch.bfloat16 if mode == "bfloat16" else torch.float32
+    act, dot = rowconv.DTYPE_MODES[mode]
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    ws, bs, relus = unit["ws"], unit["bs"], unit["relus"]
+    n = len(ws)
+    scratch = Counter()  # the residuals' launches are not the path's
+
+    def layer_flops(shapes, dgrads):
+        # wgrad per layer, dgrad per layer that has one: 2 k k Cin Cout per output pixel each.
+        return sum((1 + (i in dgrads)) * 2 * out.shape[0] * out.shape[1] * out.shape[2] * w[0].numel() * w.shape[0]
+                   for i, (w, out) in enumerate(zip(ws, shapes)))
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    if unit["kind"] == "level":
+        f1, f2, flow_up = unit["f1"].to(dt), unit["f2"].to(dt), unit["flow_up"]
+        a0, acts = rowconv_ad._level_fwd_cuda(f1, f2, f1, flow_up, ws, bs, 4, relus, act, dot, counts=scratch)
+        g = torch.randn(acts[-1].shape, device="cuda", generator=gen)
+        cf = f1.shape[3]
+
+        def kernels():
+            df1, df2, dfeat, dflow, dws, dbs = rowconv_ad._level_bwd_cuda(f1, f2, a0, acts, ws, relus, g, 4, dt, cf)
+            return [df1, df2, dfeat, dflow, *dws, *dbs]
+
+        def plain(cot=g):
+            df1, df2, dfeat, dflow, dws, dbs = rowconv_ad.flow_level_bwd_plain(f1, f2, a0, acts, ws, relus, cot, 4, cf)
+            return [df1.to(dt), df2.to(dt), dfeat.to(dt), dflow.float(), *(t.float() for t in dws + dbs)]
+
+        def reference():
+            return plain(g.double())
+
+        rounded = (0, 1, 2)
+        P, C = f1.shape[0] * f1.shape[1] * f1.shape[2], f1.shape[3]
+        flops = layer_flops(acts, range(n)) + 4 * P * 81 * C
+        moved = nbytes([f1, f2, a0, *acts, g]) + 4 * sum(t.numel() for t in ws)
+
+        def library_fn():  # the unfused route: cost-volume kernel, ReLU, concat, ConvBlocks
+            leaves = [f1.detach().clone().requires_grad_(), f2.detach().clone().requires_grad_(),
+                      flow_up.detach().clone().requires_grad_()]
+            cv = torch.relu(costvol.cost_volume(leaves[0].float().contiguous(), leaves[1].float().contiguous(), 4))
+            out = unit["est"](cv, leaves[0], leaves[2])
+            return out, leaves + list(unit["est"].parameters()), [g]
+    else:
+        x, strides, taps = unit["x"].to(dt), unit["strides"], unit["taps"]
+        acts = rowconv._chain_cuda("residuals", x, ws, bs, strides, relus, act, dot, tuple(range(n)),
+                                   unit.get("last_f32", False), counts=scratch)
+        gs = [torch.randn(acts[t].shape, device="cuda", generator=gen) for t in taps]
+        need_dx = unit["need_dx"]
+
+        def kernels():
+            dx, dws, dbs = rowconv_ad._chain_bwd_cuda(x, acts, ws, strides, relus, taps, gs, need_dx, x.dtype)
+            return ([dx] if need_dx else []) + [*dws, *dbs]
+
+        def plain(cots=gs):
+            dx, dws, dbs = rowconv_ad.conv_chain_bwd_plain(x, acts, ws, strides, relus, taps, cots, need_dx)
+            return ([dx.to(x.dtype)] if need_dx else []) + [t.float() for t in dws + dbs]
+
+        def reference():
+            return plain([t.double() for t in gs])
+
+        rounded = (0,) if need_dx else ()
+        flops = layer_flops(acts, range(n) if need_dx else range(1, n))
+        moved = nbytes([x, *acts, *gs]) + 4 * sum(t.numel() for t in ws)
+
+        def library_fn():  # the unfused route: the ConvBlocks (the flow head a bare Conv)
+            leaf = x.detach().clone().requires_grad_(need_dx)
+            y, outs = leaf, []
+            for m in unit["mods"]:
+                y = m(y)
+                outs.append(y)
+            params = [p for m in unit["mods"] for p in m.parameters()]
+            return [outs[t] for t in taps], ([leaf] if need_dx else []) + params, gs
+
+    library = None
+    if mode == "bfloat16":  # the model's compute dtype
+        outs, leaves, cots = library_fn()
+        outs = outs if isinstance(outs, list) else [outs]
+        cots = [c.to(o.dtype) for c, o in zip(cots, outs)]
+
+        def library():
+            return torch.autograd.grad(outs, leaves, cots, retain_graph=True)
+
+    return kernels, plain, reference, rounded, moved, flops, library
+
+
+def _bwd_errors(torch, got, want, rounded):
+    """(worst float32 error relative to each gradient's largest, worst
+    share of differing elements among the bf16-rounded outputs, their
+    worst error in bf16 ulps at the gradient's scale: one ulp of its
+    largest element, as phase 3d counts them. An element near zero by
+    cancellation has a far smaller ulp of its own, which a difference of
+    one float32 rounding in the sum before the cast can exceed.)"""
+    rel, share, ulps = 0.0, 0.0, 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"gradient {i}: {tuple(a.shape)} {a.dtype} against {tuple(b.shape)} {b.dtype}")
+        d = (a.float() - b.float()).abs()
+        if i in rounded and a.dtype == torch.bfloat16:
+            share = max(share, float((d > 0).float().mean()))
+            ulps = max(ulps, float(d.max()) / (2.0**-7 * max(float(b.float().abs().max()), 1e-30)))
+        else:
+            rel = max(rel, float(d.max()) / max(float(b.float().abs().max()), 1e-30))
+    return rel, share, ulps
+
+
+def check_rowconv_backward(torch, rowconv, rowconv_ad):
+    """Phase 3e: the training chains' backward kernels against their plain
+    backwards on the card, at the fused training path's shapes (one davo
+    train step at B=4), in bfloat16 (the path's mode) and float32. The
+    kernels are held against the plain backward summed in float64 (the
+    float32 plain backward's own error against it, cuDNN's weight
+    gradient over up to 213,000 pixels among it, is recorded beside:
+    two float32 sums in different orders can differ by more than either
+    differs from the exact sum). Device
+    ms of the backward by CUDA-graph replay; the plain backward's ms by
+    CUDA events; as the library figure, the port's unfused route backward
+    for the same unit (autograd through the cuDNN bf16 ConvBlocks, and
+    for a flow level the cost-volume backward kernel) by CUDA events
+    around torch.autograd.grad, host time included."""
+    from davo_tpu_torch.models import presets
+    from davo_tpu_torch.models.davo import DavoModel
+
+    model = DavoModel(presets.with_overrides("davo", **FUSED_TRAIN_FLAGS).model, device="cuda", seed=0,
+                      dispnet=True)
+    rows = []
+    for unit in _train_units(torch, model):
+        for mode in ("bfloat16", "float32"):
+            kernels, plain, reference, rounded, moved, flops, library = _train_unit_case(
+                torch, rowconv, rowconv_ad, unit, mode)
+            with torch.no_grad():
+                got = kernels()
+                torch.cuda.synchronize()
+                want = reference()
+                rel, share, ulps = _bwd_errors(torch, got, want, rounded)
+                plain_rel, plain_share, _ = _bwd_errors(torch, plain(), want, rounded)
+                moved_all = moved + sum(t.numel() * t.element_size() for t in got)
+                del got, want
+                bound_ms, bound_by = _bound_ms(moved_all, flops)
+                row = {"kernel": unit["kernel"], "unit": unit["unit"], "mode": mode,
+                       "max_rel_err": rel, "bf16_differ_share": share, "bf16_max_ulps": ulps,
+                       "plain_f32_max_rel_err": plain_rel, "plain_f32_bf16_differ_share": plain_share,
+                       "ms": _graph_ms(kernels, reps=3), "plain_ms": _event_ms(plain, 3),
+                       "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved_all, "flops": flops}
+            if library is not None:
+                row["library_ms"] = _event_ms(library, 5)
+            print(json.dumps({"phase": "rowconv_bwd", **row}), flush=True)
+            ok = rel <= ROWCONV_BWD_TOL and share <= ROWCONV_BWD_BF16_SHARE and ulps <= 1.0
+            if not ok:
+                raise AssertionError(f"{unit['kernel']} {unit['unit']} {mode}: {row}")
+            rows.append(row)
+            del kernels, plain, reference, library
+            torch.cuda.empty_cache()
+    return rows
+
+
 def _fused_counts(costvol, rowconv):
     return {"cost_volume": costvol.launches, **rowconv.launches,
             "device_launches": dict(rowconv.device_launches)}
@@ -940,10 +1192,57 @@ def fused_throughput(torch, card, unfused, fused):
     return result
 
 
-def train_path(torch, costvol, bandwarp):
+def _train_counts(costvol, bandwarp):
+    """The train path's launch counts: the cost volume, the banded warp,
+    and the training chains (`rowconv_ad`: forward and backward calls,
+    and every kernel launch under `device_launches`)."""
+    from davo_tpu_torch.kernels import rowconv, rowconv_ad
+
+    return {
+        **_counts(costvol, bandwarp), **{f"serving_{k}": v for k, v in rowconv.launches.items()},
+        **rowconv_ad.launches,
+        **{f"{k}_backward": v for k, v in rowconv_ad.backward_launches.items()},
+        "device_launches": dict(rowconv_ad.device_launches),
+    }
+
+
+def _refuse_plains(plains):
+    """Patch each (module, name) in `plains` to raise; returns the undo."""
+    saved = [getattr(mod, name) for mod, name in plains]
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a plain version ran on the train path")
+
+    for mod, name in plains:
+        setattr(mod, name, refuse)
+
+    def undo():
+        for (mod, name), fn in zip(plains, saved):
+            setattr(mod, name, fn)
+
+    return undo
+
+
+def _train_plains(costvol, bandwarp):
+    """Every plain version the train path's kernels stand in for."""
+    from davo_tpu_torch.kernels import rowconv, rowconv_ad
+
+    return [(costvol, "cost_volume_plain"), (costvol, "cost_volume_plain_bwd"),
+            (bandwarp, "banded_warp_plain_fwd"), (bandwarp, "banded_warp_plain_bwd"),
+            (rowconv, "_layer_plain"), (rowconv, "conv_chain_strided_plain"),
+            (rowconv, "conv_chain_nhwc_plain"), (rowconv, "flow_level_fused_plain"),
+            (rowconv_ad, "conv_chain_bwd_plain"), (rowconv_ad, "flow_level_bwd_plain"),
+            (rowconv_ad, "flow_level_input_bwd_plain"), (rowconv_ad, "level_input_plain"),
+            (rowconv_ad, "_gate_plain"), (rowconv_ad, "_dgrad_plain"), (rowconv_ad, "_wgrad_plain")]
+
+
+def train_path(torch, costvol, bandwarp, phase="train_path", flags=None, steps=5, per_step=None):
     """Phase 8: the davo train path at 128x416 with the TrainConfig
     defaults (B=4, bf16, warp_gather auto -> banded (4, 16)), synthetic
-    worlds, 5 steps through `fit`. No plain version may run."""
+    worlds, `steps` steps through `fit`, with the model `flags` set. No
+    plain version may run; the launch counts must be `per_step` times
+    the steps (every count not named there 0). Returns (counts, a host
+    batch of B=4)."""
     import dataclasses
 
     import numpy as np
@@ -954,8 +1253,7 @@ def train_path(torch, costvol, bandwarp):
     from davo_tpu_torch.models import presets
     from davo_tpu_torch.train import loop
 
-    steps = 5
-    cfg = presets.get("davo")
+    cfg = presets.with_overrides("davo", **(flags or {}))
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, max_steps=steps, log_every=1))
     m = cfg.model
     t0 = time.perf_counter()
@@ -964,15 +1262,7 @@ def train_path(torch, costvol, bandwarp):
     state = loop.create_state(cfg, "cuda")
     before = [p.detach().clone() for p in state.model.parameters()]
     setup_s = time.perf_counter() - t0
-
-    def refuse(*_a, **_k):
-        raise AssertionError("a plain version ran on the train path")
-
-    plains = [(costvol, "cost_volume_plain"), (costvol, "cost_volume_plain_bwd"),
-              (bandwarp, "banded_warp_plain_fwd"), (bandwarp, "banded_warp_plain_bwd")]
-    saved = [getattr(mod, name) for mod, name in plains]
-    for mod, name in plains:
-        setattr(mod, name, refuse)
+    undo = _refuse_plains(_train_plains(costvol, bandwarp))
     stats = PrefetchStats()
     try:
         _reset_counts()
@@ -982,33 +1272,87 @@ def train_path(torch, costvol, bandwarp):
         )
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
-        counts = _counts(costvol, bandwarp)
+        counts = _train_counts(costvol, bandwarp)
     finally:
-        for (mod, name), fn in zip(plains, saved):
-            setattr(mod, name, fn)
+        undo()
     unchanged = [
         n for (n, p), b in zip(state.model.named_parameters(), before) if torch.equal(p.detach(), b)
     ]
-    want = {"cost_volume": 3 * steps, "cost_volume_backward": 3 * steps,
-            "banded_warp": 16 * steps, "banded_warp_backward": 16 * steps}
+    per_step = per_step or {"cost_volume": 3, "cost_volume_backward": 3, "banded_warp": 16,
+                            "banded_warp_backward": 16}
+    want = _want_counts(counts, per_step, steps)
     print(json.dumps({
-        "phase": "train_path", "preset": "davo", "hw": [m.img_height, m.img_width],
+        "phase": phase, "preset": "davo", "flags": flags or {}, "hw": [m.img_height, m.img_width],
         "batch": cfg.train.batch_size, "steps": steps, "compute_dtype": m.compute_dtype,
         "warp_gather": "banded", "band": list(BAND), "launches": counts,
-        "launches_per_step": {k: v / steps for k, v in counts.items()},
         "history": history, "setup_s": setup_s, "fit_s": fit_s, "prefetch": stats.summary(),
         "unchanged_parameters": unchanged, "n_parameters": len(before),
     }), flush=True)
     if counts != want:
-        raise AssertionError(f"train path launches {counts}, want {want}")
+        raise AssertionError(f"{phase} launches {counts}, want {want}")
     if len(history) != steps or state.step != steps:
-        raise AssertionError(f"train path ran {state.step} steps, logged {len(history)}")
+        raise AssertionError(f"{phase} ran {state.step} steps, logged {len(history)}")
     bad = [(i, k) for i, h in enumerate(history) for k, v in h.items() if not np.isfinite(v)]
     if bad:
-        raise AssertionError(f"non-finite loss terms {bad}")
+        raise AssertionError(f"{phase}: non-finite loss terms {bad}")
     if unchanged:
-        raise AssertionError(f"parameters unchanged after {steps} steps: {unchanged}")
+        raise AssertionError(f"{phase}: parameters unchanged after {steps} steps: {unchanged}")
     return counts, next(ds.batches(steps=1))
+
+
+def _want_counts(counts, per_step, steps):
+    """`counts`' shape with every count `per_step[name]` times `steps`
+    (0 when not named), device launches included."""
+    want = {k: per_step.get(k, 0) * steps for k in counts if k != "device_launches"}
+    want["device_launches"] = {k: per_step.get(f"device:{k}", 0) * steps for k in counts["device_launches"]}
+    return want
+
+
+# Launches per `davo` train step (B=4, two sources, 128x416) on the fused
+# training path, reckoned from the model: the pyramid (8 layers on 16
+# images), the attention stack (3 layers) and the pose prefix (5 of 7
+# layers; the sixth sees 4x13) as one `conv_chain_strided_ad` each, the
+# DispNet encoder's (s2, s1) prefix (10 of 14 layers) as a fourth; three
+# flow levels (/16, /8, /4) of 4 layers plus the input kernel. Backward:
+# a wgrad per layer, a dgrad per layer but the first of the pyramid and
+# of DispNet (their input is the images), and one flow_level_input_bwd
+# per level. No cost volume: the fused levels bypass it.
+FUSED_TRAIN_PER_STEP = {
+    "banded_warp": 16, "banded_warp_backward": 16,
+    "flow_level_fused_ad": 3, "flow_level_fused_ad_backward": 3,
+    "conv_chain_strided_ad": 4, "conv_chain_strided_ad_backward": 4,
+    "device:flow_level_fused_ad": 3 * 5, "device:conv_chain_strided_ad": 8 + 3 + 5 + 10,
+    "device:conv_layer_wgrad": 8 + 3 + 5 + 10 + 3 * 4, "device:conv_layer_dgrad": 7 + 3 + 5 + 9 + 3 * 4,
+    "device:flow_level_input_bwd": 3,
+}
+# `fuse_estimator_train` alone: the three estimators as conv_chain_nhwc_ad
+# (4 layers each; every layer's dgrad, as the cost volume needs one).
+ESTIMATOR_TRAIN_PER_STEP = {
+    "cost_volume": 3, "cost_volume_backward": 3, "banded_warp": 16, "banded_warp_backward": 16,
+    "conv_chain_nhwc_ad": 3, "conv_chain_nhwc_ad_backward": 3, "device:conv_chain_nhwc_ad": 12,
+    "device:conv_layer_wgrad": 12, "device:conv_layer_dgrad": 12,
+}
+
+
+def fused_train_cli(torch, costvol, bandwarp, steps=2):
+    """Phase 8b (end): `cli train --version davo` with the five --set
+    flags of the fused training path, `steps` steps; launch counts as
+    the fit phase's."""
+    from davo_tpu_torch.cli.main import main as cli_main
+
+    undo = _refuse_plains(_train_plains(costvol, bandwarp))
+    try:
+        _reset_counts()
+        rc = cli_main(["train", "--version", "davo", "--steps", str(steps), "--worlds", "2",
+                       "--world-frames", "8", "--set", "train.log_every=1", *FUSED_TRAIN_SETS])
+        torch.cuda.synchronize()
+        counts = _train_counts(costvol, bandwarp)
+    finally:
+        undo()
+    want = _want_counts(counts, FUSED_TRAIN_PER_STEP, steps)
+    print(json.dumps({"phase": "fused_cli_train", "rc": rc, "steps": steps, "launches": counts}), flush=True)
+    if rc != 0 or counts != want:
+        raise AssertionError(f"fused cli train: rc {rc}, launches {counts}, want {want}")
 
 
 def _loss_and_grads(torch, model, batch, cfg, device, step):
@@ -1025,11 +1369,13 @@ def _loss_and_grads(torch, model, batch, cfg, device, step):
             {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
 
 
-def train_gpu_against_cpu(torch):
+def train_gpu_against_cpu(torch, phase="train_gpu_vs_cpu", flags=None):
     """Phase 9: one train step's loss terms and gradients on the card
     against the port on the CPU: `davo` widths at 64x128 in float32,
     TF32 off, the same seeded parameters and batch, banded warp (4, 16)
-    on both (kernels on the card, plain versions on the CPU).
+    on both (kernels on the card, plain versions on the CPU), with the
+    model `flags` set (9b: the fused training path, whose step on the
+    card must launch the training chains' backward kernels).
 
     Gated on a batch of independent noise images. On a synthetic-world
     batch, whose frames are nearly alike, SSIM's (1 - s)/2 cancels: on
@@ -1046,7 +1392,9 @@ def train_gpu_against_cpu(torch):
     from davo_tpu_torch.models import presets
     from davo_tpu_torch.models.davo import DavoModel
 
-    cfg = presets.with_overrides("davo", img_height=64, img_width=128, compute_dtype="float32")
+    from davo_tpu_torch.kernels import rowconv_ad
+
+    cfg = presets.with_overrides("davo", img_height=64, img_width=128, compute_dtype="float32", **(flags or {}))
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, batch_size=2, warp_gather="banded", warp_band=BAND))
     world = SyntheticSequence(n_frames=5, height=64, width=128, seed=7)
@@ -1063,19 +1411,24 @@ def train_gpu_against_cpu(torch):
     step = 125  # the depth warm-up gate half open
     for name, batch, gated in (("noise", noise_batch, True), ("world", world_batch, False)):
         want_m, want_g = _loss_and_grads(torch, cpu, batch, cfg, "cpu", step)
+        rowconv_ad.reset_counts()
         got_m, got_g = _loss_and_grads(torch, gpu, batch, cfg, "cuda", step)
+        backward_launches = sum(rowconv_ad.backward_launches.values())
         loss_err = {k: abs(got_m[k] - want_m[k]) / abs(want_m[k]) for k in want_m}
         grad_err = {n: float((got_g[n] - want_g[n]).abs().max()) / max(float(want_g[n].abs().max()), 1e-30)
                     for n in want_g}
         worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:5]
         print(json.dumps({
-            "phase": "train_gpu_vs_cpu", "batch": name, "gated": gated,
+            "phase": phase, "batch": name, "gated": gated, "flags": flags or {},
             "preset": "davo widths, 64x128, float32, B=2", "loss_terms": want_m,
+            "rowconv_ad_backward_launches": backward_launches,
             "loss_rel_err": loss_err, "grad_leaves": len(grad_err), "worst_grad_rel_err": worst,
             "tf32": [torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32],
         }), flush=True)
         if gated and (max(loss_err.values()) > TRAIN_LOSS_TOL or worst[0][1] > TRAIN_GRAD_TOL):
-            raise AssertionError(f"train step card vs CPU: loss {loss_err}, worst grads {worst}")
+            raise AssertionError(f"{phase}: loss {loss_err}, worst grads {worst}")
+        if bool(flags) != (backward_launches > 0):
+            raise AssertionError(f"{phase}: {backward_launches} training-chain backward launches on the card")
 
 
 def _device_batch(torch, batch, reps):
@@ -1105,10 +1458,11 @@ def _time_steps(torch, cfg, batch4, B):
     return state, step_fn, batch, times, float(metrics["total"])
 
 
-def train_step_time(torch, card, batch4):
+def train_step_time(torch, card, batch4, phase="train_step_time", flags=None):
     """Phase 10: davo train-step time at B=4 and B=64 (median of 10 steps
     after 3 warm-up steps, CUDA events), peak memory, and device time by
-    kernel of one B=64 step (torch.profiler)."""
+    kernel of one B=64 step (torch.profiler); with the model `flags` set
+    (10b: the fused training path, beside phase 10's unfused step)."""
     import dataclasses
 
     from torch.autograd import DeviceType
@@ -1118,7 +1472,7 @@ def train_step_time(torch, card, batch4):
     from davo_tpu_torch.models import presets
     from davo_tpu_torch.train import loop
 
-    base = presets.get("davo")
+    base = presets.with_overrides("davo", **(flags or {}))
     results = {}
     for want_B in (4, 64):
         B = want_B
@@ -1138,8 +1492,8 @@ def train_step_time(torch, card, batch4):
             "frames_per_s": B / statistics.median(times) * 1e3,
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30, "loss": loss,
         }
-        print(json.dumps({"phase": "train_step_time", "requested_batch": want_B, **results[want_B],
-                          "card": card}), flush=True)
+        print(json.dumps({"phase": phase, "flags": flags or {}, "requested_batch": want_B,
+                          **results[want_B], "card": card}), flush=True)
         if not math.isfinite(loss):
             raise AssertionError(f"train step at B={B} gave a non-finite loss")
         if want_B == 4:
@@ -1161,11 +1515,17 @@ def train_step_time(torch, card, batch4):
         for name, part in (("banded_warp", "banded_warp_fwd_kernel"),
                            ("banded_warp_backward", "banded_warp_bwd_"),
                            ("cost_volume_backward", "cost_volume_bwd_kernel"),
-                           ("cost_volume", "cost_volume_kernel<"))
+                           ("cost_volume", "cost_volume_kernel<"),
+                           ("rowconv_layers", "conv_layer_kernel<"),
+                           ("flow_level_input", "flow_level_input_kernel<"),
+                           ("conv_layer_dgrad", "conv_dgrad_kernel<"),
+                           ("conv_layer_wgrad", "conv_wgrad_partial_kernel"),
+                           ("conv_layer_wgrad_reduce", "wgrad_reduce_kernel"),
+                           ("flow_level_input_bwd", "flow_level_input_bwd_kernel<"))
     }
     ours = {k: {"ms": v, "share": v / device_ms} for k, v in ours.items()}
     print(json.dumps({
-        "phase": "train_profile", "batch": results[64]["batch"], "device_ms": device_ms,
+        "phase": phase.replace("step_time", "profile"), "batch": results[64]["batch"], "device_ms": device_ms,
         "wall_ms": wall_ms, "device_busy_share": device_ms / wall_ms, "kernels_of_this_port": ours,
         "top": [{"kernel": k[:100], "ms": ms, "calls": n} for k, ms, n in rows[:30]], "card": card,
     }), flush=True)
@@ -1180,7 +1540,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
         return 1
     from davo_tpu_torch import exact_f32
-    from davo_tpu_torch.kernels import bandwarp, costvol, cuda_build, rowconv
+    from davo_tpu_torch.kernels import bandwarp, costvol, cuda_build, rowconv, rowconv_ad
 
     # Phase 1: environment.
     card = subprocess.run(
@@ -1208,6 +1568,7 @@ def main() -> int:
     bwd_rows = check_cost_volume_backward(torch, costvol)
     band_rows = check_banded_warp(torch, bandwarp)
     rowconv_rows = check_rowconv(torch, rowconv)
+    bwd_kernel_rows = check_rowconv_backward(torch, rowconv, rowconv_ad)
     launches, stream = main_path(torch, costvol)
     fused_counts, fused_model = fused_path(torch, costvol, rowconv, stream)
     estimator_counts = fused_estimator(torch, costvol, rowconv)
@@ -1220,8 +1581,16 @@ def main() -> int:
     del stream, fused_model
     torch.cuda.empty_cache()
     train_counts, batch4 = train_path(torch, costvol, bandwarp)
+    fused_train_counts, _ = train_path(torch, costvol, bandwarp, "fused_train_path", FUSED_TRAIN_FLAGS,
+                                       per_step=FUSED_TRAIN_PER_STEP)
+    fused_train_cli(torch, costvol, bandwarp)
+    estimator_train_counts, _ = train_path(torch, costvol, bandwarp, "estimator_train_path",
+                                           {"fuse_estimator_train": True}, steps=2,
+                                           per_step=ESTIMATOR_TRAIN_PER_STEP)
     train_gpu_against_cpu(torch)
+    train_gpu_against_cpu(torch, "fused_train_gpu_vs_cpu", FUSED_TRAIN_FLAGS)
     train_step_time(torch, card, batch4)
+    train_step_time(torch, card, batch4, "fused_train_step_time", FUSED_TRAIN_FLAGS)
 
     # The kernels' line. cost_volume: the work of one serving request (its
     # two flow levels at B=64), launches on both main paths (serving:
@@ -1317,6 +1686,39 @@ def main() -> int:
             "library_is": "the port's unfused route for the same function",
             "float32_ms": sum(r["ms"] for r in f32_rows),
             "float32_bound_ms": sum(r["bound_ms"] for r in f32_rows),
+        })
+    # The training chains: the work of one davo train step at B=4 (the
+    # units of phase 3e) in bf16, the path's mode: "ms" is the backward
+    # kernels' device time (the forwards are the serving kernels, timed
+    # in phase 3d at serving shapes); launches are the autograd
+    # functions' backward calls on the fused training path (5 steps), or
+    # for conv_chain_nhwc_ad on the fuse_estimator_train path (2 steps),
+    # with the kernel launches of that run. max_abs_err is the float32
+    # error relative to each gradient's largest element.
+    for name, line, path, counts in (
+        ("flow_level_fused_ad", 1059, "fused training path", fused_train_counts),
+        ("conv_chain_strided_ad", 1390, "fused training path", fused_train_counts),
+        ("conv_chain_nhwc_ad", 824, "fuse_estimator_train path", estimator_train_counts),
+    ):
+        unit_rows = [r for r in bwd_kernel_rows if r["kernel"] == name and r["mode"] == "bfloat16"]
+        f32_rows = [r for r in bwd_kernel_rows if r["kernel"] == name and r["mode"] == "float32"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "davo_tpu_torch/csrc/rowconv_bwd.cu",
+            "forward_source": "davo_tpu_torch/csrc/rowconv.cu",
+            "replaces": f"davo_tpu/kernels/rowconv.py:{line}",
+            "launches": counts[f"{name}_backward"], "forward_launches": counts[name],
+            "launches_by_path": {path: counts[f"{name}_backward"]},
+            "path_device_launches": {k: v for k, v in counts["device_launches"].items() if v},
+            "max_abs_err": max(r["max_rel_err"] for r in f32_rows),
+            "max_err_is": "float32, relative to each gradient's largest element",
+            "bf16_max_differ_share": max(r["bf16_differ_share"] for r in unit_rows),
+            "bf16_max_ulps": max(r["bf16_max_ulps"] for r in unit_rows),
+            "ms": sum(r["ms"] for r in unit_rows), "plain_ms": sum(r["plain_ms"] for r in unit_rows),
+            "bound_ms": sum(r["bound_ms"] for r in unit_rows),
+            "bound_by": bound_by(r["bound_by"] for r in unit_rows),
+            "library_ms": sum(r["library_ms"] for r in unit_rows),
+            "library_is": "the port's unfused route backward for the same units, CUDA events",
+            "float32_ms": sum(r["ms"] for r in f32_rows),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

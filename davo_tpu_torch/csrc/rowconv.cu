@@ -254,14 +254,17 @@ cudaError_t dispatch_conv(int co, const void* x, const float* w, const float* bi
 //   [D+Cf, D+Cf+Cu) flow_up,
 //   [D+Cf+Cu, cpad) 0 (padding to a multiple of 4 channels),
 // each rounded once to the activation dtype, as the TPU kernel's concat
-// and cast. One thread per output element, channels fastest (coalesced
-// stores; a warp's shift threads read the same f1 row).
+// and cast. The training forward also keeps the unrounded values in a0
+// (float32, same layout; null when serving): the reference's backward
+// reads the float32 estimator input (layer 0's dW, the cost-volume gate).
+// One thread per output element, channels fastest (coalesced stores; a
+// warp's shift threads read the same f1 row).
 template <typename TIn>
 __global__ void __launch_bounds__(256)
 flow_level_input_kernel(const TIn* __restrict__ f1, const TIn* __restrict__ f2,
                         const TIn* __restrict__ feat, const float* __restrict__ flow_up,
-                        void* __restrict__ out, int out_bf16, int H, int W, int C, int Cf,
-                        int Cu, int search, int cpad, long long elements) {
+                        void* __restrict__ out, int out_bf16, float* __restrict__ a0, int H, int W,
+                        int C, int Cf, int Cu, int search, int cpad, long long elements) {
   const int d = 2 * search + 1;
   const int D = d * d;
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
@@ -287,6 +290,7 @@ flow_level_input_kernel(const TIn* __restrict__ f1, const TIn* __restrict__ f2,
       v = __ldg(flow_up + p * Cu + (ch - D - Cf));
     }
     store1(out, i, out_bf16 ? round_bf16(v) : v, out_bf16);
+    if (a0 != nullptr) a0[i] = v;
   }
 }
 
@@ -317,8 +321,8 @@ int davo_conv_layer(const void* x, int x_bf16, const float* w, const float* bias
 }
 
 int davo_flow_level_input(const void* f1, const void* f2, const void* feat, int in_bf16,
-                          const float* flow_up, void* out, int out_bf16, int B, int H, int W,
-                          int C, int Cf, int Cu, int search, int cpad, void* stream) {
+                          const float* flow_up, void* out, int out_bf16, float* a0, int B, int H,
+                          int W, int C, int Cf, int Cu, int search, int cpad, void* stream) {
   const long long elements = static_cast<long long>(B) * H * W * cpad;
   if (elements <= 0 || C <= 0) return cudaErrorInvalidValue;
   const int blocks = static_cast<int>((elements + 255) / 256 < 132 * 32 ? (elements + 255) / 256 : 132 * 32);
@@ -326,13 +330,13 @@ int davo_flow_level_input(const void* f1, const void* f2, const void* feat, int 
   if (in_bf16) {
     flow_level_input_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(
         static_cast<const __nv_bfloat16*>(f1), static_cast<const __nv_bfloat16*>(f2),
-        static_cast<const __nv_bfloat16*>(feat), flow_up, out, out_bf16, H, W, C, Cf, Cu, search,
-        cpad, elements);
+        static_cast<const __nv_bfloat16*>(feat), flow_up, out, out_bf16, a0, H, W, C, Cf, Cu,
+        search, cpad, elements);
   } else {
     flow_level_input_kernel<float><<<blocks, 256, 0, s>>>(
         static_cast<const float*>(f1), static_cast<const float*>(f2),
-        static_cast<const float*>(feat), flow_up, out, out_bf16, H, W, C, Cf, Cu, search, cpad,
-        elements);
+        static_cast<const float*>(feat), flow_up, out, out_bf16, a0, H, W, C, Cf, Cu, search,
+        cpad, elements);
   }
   return cudaGetLastError();
 }

@@ -26,11 +26,13 @@ Weights are the port's OIHW float32 parameters (`Conv_0.weight`, as
 (k, k, Cin, Cout) layout, rounded to the dot dtype, on each call.
 
 Serving only, as the TPU kernels (which have no VJP): every wrapper
-raises when autograd would have to differentiate it. For CUDA tensors it
-launches the kernels (one launch per layer, plus the cost-volume input
-of a flow level) or raises; for CPU tensors it runs the plain version.
-`launches` counts wrapper calls that launched, `device_launches` the
-kernels they launched; the plain versions never count.
+raises when autograd would have to differentiate it (the training
+variants, with their backward kernels, are in `rowconv_ad.py`). For CUDA
+tensors it launches the kernels (one launch per layer, plus the
+cost-volume input of a flow level) or raises; for CPU tensors it runs the
+plain version. `launches` counts wrapper calls that launched,
+`device_launches` the kernels they launched; the plain versions never
+count.
 """
 
 from __future__ import annotations
@@ -78,16 +80,17 @@ def fusable_even_prefix(h: int, w: int, strides: Sequence[int]) -> int:
     return n
 
 
-def even_prefix_chain(x, convs, compute_dtype_name):
+def even_prefix_chain(x, convs, compute_dtype_name, chain):
     """A stride-2, ReLU'd conv stack's longest prefix whose layers all see
-    even dims, as one `conv_chain_strided` (the fused prefix of the
-    reference's PoseEncoder and RegionAttention). `convs` are the stack's
-    `Conv` modules. Returns (the prefix's output, or x when no layer
-    fuses; the number of layers fused)."""
+    even dims, as one call of `chain`: `conv_chain_strided`, or its
+    training variant `rowconv_ad.conv_chain_strided_ad` (the fused prefix
+    of the reference's PoseEncoder and RegionAttention). `convs` are the
+    stack's `Conv` modules. Returns (the prefix's output, or x when no
+    layer fuses; the number of layers fused)."""
     n = fusable_even_prefix(x.shape[1], x.shape[2], (2,) * len(convs))
     if not n:
         return x, 0
-    y = conv_chain_strided(
+    y = chain(
         x.contiguous(), [c.weight for c in convs[:n]], [c.bias for c in convs[:n]],
         (2,) * n, (True,) * n, compute_dtype_name=compute_dtype_name,
     )
@@ -169,7 +172,7 @@ def _library() -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.davo_conv_layer.argtypes = [P, I, P, P, P, I] + [I] * 14 + [P]
     lib.davo_conv_layer.restype = I
-    lib.davo_flow_level_input.argtypes = [P, P, P, I, P, P, I] + [I] * 8 + [P]
+    lib.davo_flow_level_input.argtypes = [P, P, P, I, P, P, I, P] + [I] * 8 + [P]
     lib.davo_flow_level_input.restype = I
     lib.davo_cuda_error_string.argtypes = [I]
     lib.davo_cuda_error_string.restype = ctypes.c_char_p
@@ -219,9 +222,10 @@ def _launch_layer(x, w_packed, b, out, stride, relu, act, dot):
     _raise_if(err, "fused conv layer")
 
 
-def _launch_level_input(f1, f2, feat, flow_up, x, search):
+def _launch_level_input(f1, f2, feat, flow_up, x, search, a0=None):
     """The flow level's input kernel: x (B, H, W, cpad) <- relu(cost
-    volume) ++ feat ++ flow_up ++ zero channels, in x's dtype."""
+    volume) ++ feat ++ flow_up ++ zero channels, in x's dtype; and, when
+    given, the same unrounded into a0 (float32, x's shape)."""
     B, H, W, C = f1.shape
     in_bf16 = _bf16_flag(f1, "f1")
     for t, what in ((f2, "f2"), (feat, "feat"), (flow_up, "flow_up")):
@@ -229,15 +233,17 @@ def _launch_level_input(f1, f2, feat, flow_up, x, search):
     with torch.cuda.device(f1.device):
         err = _library().davo_flow_level_input(
             f1.data_ptr(), f2.data_ptr(), feat.data_ptr(), in_bf16, flow_up.data_ptr(),
-            x.data_ptr(), int(x.dtype == torch.bfloat16),
+            x.data_ptr(), int(x.dtype == torch.bfloat16), None if a0 is None else a0.data_ptr(),
             B, H, W, C, feat.shape[3], flow_up.shape[3], search, x.shape[3],
             torch.cuda.current_stream(f1.device).cuda_stream,
         )
     _raise_if(err, "flow level input")
 
 
-def _chain_cuda(name, x, weights, biases, strides, relus, act, dot, keep, last_f32):
+def _chain_cuda(name, x, weights, biases, strides, relus, act, dot, keep, last_f32, counts=None):
     """Run the layers on x; returns the outputs of the layers in `keep`.
+    Each layer launch counts in `counts[name]` (`device_launches` unless
+    given).
     Intermediates live in device memory. A wide input whose channels are
     not a multiple of 4 is zero-padded to one (zero weights too: the same
     sums), so the first layer reads 4 channels at a time; a narrow one
@@ -255,7 +261,7 @@ def _chain_cuda(name, x, weights, biases, strides, relus, act, dot, keep, last_f
         dtype = torch.float32 if (last_f32 and i == len(layers) - 1) else act
         y = torch.empty((B, h, w, wp.shape[3]), dtype=dtype, device=x.device)
         _launch_layer(x, wp, b, y, s, r, act, dot)
-        device_launches[name] += 1
+        (device_launches if counts is None else counts)[name] += 1
         if i in keep:
             outs[i] = y
         x = y
@@ -278,6 +284,19 @@ def _check_serving(name: str, tensors) -> str:
     return device.type
 
 
+def chain_keep(weights, biases, strides, relus, taps) -> tuple[int, ...]:
+    """The layers a chain returns: `taps`, or the last one; raises when the
+    per-layer arguments differ in length or the taps are not increasing
+    layer indices."""
+    n = len(weights)
+    if not (len(biases) == len(strides) == len(relus) == n):
+        raise ValueError("weights, biases, strides and relus differ in length")
+    keep = (n - 1,) if taps is None else tuple(taps)
+    if sorted(set(keep)) != list(keep) or not all(0 <= t < n for t in keep):
+        raise ValueError(f"taps {keep} must be increasing layer indices below {n}")
+    return keep
+
+
 def conv_chain_strided(x, weights, biases, strides, relus, taps=None,
                        compute_dtype_name="bfloat16"):
     """Mixed-stride SAME conv chain (serving only).
@@ -291,12 +310,7 @@ def conv_chain_strided(x, weights, biases, strides, relus, taps=None,
     same values; the callers cast to the compute dtype, so the values are
     identical.)
     """
-    n = len(weights)
-    if not (len(biases) == len(strides) == len(relus) == n):
-        raise ValueError("weights, biases, strides and relus differ in length")
-    keep = (n - 1,) if taps is None else tuple(taps)
-    if sorted(set(keep)) != list(keep) or not all(0 <= t < n for t in keep):
-        raise ValueError(f"taps {keep} must be increasing layer indices below {n}")
+    keep = chain_keep(weights, biases, strides, relus, taps)
     act, dot = _modes(compute_dtype_name)
     on = _check_serving("conv_chain_strided", [x, *weights, *biases])
     if on == "cpu":
@@ -324,6 +338,29 @@ def conv_chain_nhwc(x, weights, biases, relus, compute_dtype_name="bfloat16"):
     return out
 
 
+def check_level(f1, f2, feat, flow_up, weights, search) -> int:
+    """The estimator's input channels, (2*search+1)^2 + Cf + Cu; raises
+    when the maps do not share (B, H, W) or weights[0] takes another count."""
+    cin0 = (2 * search + 1) ** 2 + feat.shape[3] + flow_up.shape[3]
+    if f2.shape != f1.shape or feat.shape[:3] != f1.shape[:3] or flow_up.shape[:3] != f1.shape[:3]:
+        raise ValueError(
+            f"f1 {tuple(f1.shape)}, f2 {tuple(f2.shape)}, feat {tuple(feat.shape)} and "
+            f"flow_up {tuple(flow_up.shape)} must share (B, H, W)"
+        )
+    if weights[0].shape[1] != cin0:
+        raise ValueError(f"first layer takes {weights[0].shape[1]} channels, the level gives {cin0}")
+    return cin0
+
+
+def check_level_dtypes(f1, f2, feat, flow_up) -> None:
+    """The kernels' dtypes: f1, f2 and feat alike, flow_up float32."""
+    if not (f1.dtype == f2.dtype == feat.dtype) or flow_up.dtype != torch.float32:
+        raise TypeError(
+            f"f1/f2/feat must share a dtype and flow_up be float32, got "
+            f"{f1.dtype}/{f2.dtype}/{feat.dtype}/{flow_up.dtype}"
+        )
+
+
 def flow_level_fused(f1, f2, feat, flow_up, weights, biases, search, relus,
                      compute_dtype_name="bfloat16"):
     """One flow level (serving only): relu(cost volume(f1, f2)) ++ feat
@@ -334,26 +371,14 @@ def flow_level_fused(f1, f2, feat, flow_up, weights, biases, search, relus,
     (B, H, W, Cf), the same dtype; flow_up: (B, H, W, Cu) float32;
     weights[0] takes (2*search+1)^2 + Cf + Cu input channels.
     """
-    B, H, W, C = f1.shape
-    D = (2 * search + 1) ** 2
-    cin0 = D + feat.shape[3] + flow_up.shape[3]
-    if f2.shape != f1.shape or feat.shape[:3] != f1.shape[:3] or flow_up.shape[:3] != f1.shape[:3]:
-        raise ValueError(
-            f"f1 {tuple(f1.shape)}, f2 {tuple(f2.shape)}, feat {tuple(feat.shape)} and "
-            f"flow_up {tuple(flow_up.shape)} must share (B, H, W)"
-        )
-    if weights[0].shape[1] != cin0:
-        raise ValueError(f"first layer takes {weights[0].shape[1]} channels, the level gives {cin0}")
+    B, H, W, _ = f1.shape
     act, dot = _modes(compute_dtype_name)
+    cin0 = check_level(f1, f2, feat, flow_up, weights, search)
     on = _check_serving("flow_level_fused", [f1, f2, feat, flow_up, *weights, *biases])
     if on == "cpu":
         return flow_level_fused_plain(f1, f2, feat, flow_up, weights, biases, search, relus,
                                       compute_dtype_name)
-    if not (f1.dtype == f2.dtype == feat.dtype) or flow_up.dtype != torch.float32:
-        raise TypeError(
-            f"f1/f2/feat must share a dtype and flow_up be float32, got "
-            f"{f1.dtype}/{f2.dtype}/{feat.dtype}/{flow_up.dtype}"
-        )
+    check_level_dtypes(f1, f2, feat, flow_up)
     # The estimator input with its channels padded to a multiple of 4
     # (zero channels; `_chain_cuda` pads the weights to match).
     x = torch.empty((B, H, W, -(-cin0 // 4) * 4), dtype=act, device=f1.device)

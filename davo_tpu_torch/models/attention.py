@@ -5,7 +5,8 @@ Flow drives a small net that produces one weight per semantic region
 turns them into a spatial map at the pose features' resolution. With
 `fuse_attention` the even-dim prefix of the stride-2 conv stack runs as
 one `conv_chain_strided` and the tail as `ConvBlock`s, as in the
-reference.
+reference; with `fuse_attention_train` the prefix runs as the
+differentiable `conv_chain_strided_ad`.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ import torch
 import torch.nn as nn
 
 from davo_tpu_torch.config import ModelConfig
-from davo_tpu_torch.kernels.rowconv import even_prefix_chain
+from davo_tpu_torch.kernels.rowconv import conv_chain_strided, even_prefix_chain
+from davo_tpu_torch.kernels.rowconv_ad import conv_chain_strided_ad
 from davo_tpu_torch.models.common import ConvBlock, dtype_of
 
 
@@ -25,7 +27,8 @@ class RegionAttention(nn.Module):
         super().__init__()
         self.dtype = dtype_of(cfg.compute_dtype)
         self.num_classes = cfg.num_seg_classes
-        self.fuse = cfg.fuse_attention
+        self.fuse = cfg.fuse_attention or cfg.fuse_attention_train
+        self.chain = conv_chain_strided_ad if cfg.fuse_attention_train else conv_chain_strided
         self.mode = cfg.fuse_compute or cfg.compute_dtype
         for i, ch in enumerate((16, 32, 64)):
             self.add_module(f"conv{i}", ConvBlock(cin, ch, 3, 2, self.dtype))
@@ -38,7 +41,7 @@ class RegionAttention(nn.Module):
         start = 0
         if self.fuse:
             convs = [getattr(self, f"conv{i}").Conv_0 for i in range(3)]
-            x, start = even_prefix_chain(x, convs, self.mode)
+            x, start = even_prefix_chain(x, convs, self.mode, self.chain)
             x = x.to(self.dtype)
         for i in range(start, 3):
             x = getattr(self, f"conv{i}")(x)

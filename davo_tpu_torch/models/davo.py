@@ -6,16 +6,16 @@
     I_tgt (+ I_src) -> DispNet -> multi-scale disparity   (train=True)
 
 The serving flags `fuse_pyramid`, `fuse_flow_level`, `fuse_attention`,
-`fuse_pose_encoder` and `fuse_estimator` run the fused kernels of
-`kernels/rowconv.py` (forward only). Every option that selects something
-not ported (the `fuse_*_train` flags, `fuse_disp_encoder`, `geo_hybrid`,
+`fuse_pose_encoder`, `fuse_estimator` and `fuse_disp_encoder` run the
+fused kernels of `kernels/rowconv.py` (forward only); their `_train`
+variants run the differentiable chains of `kernels/rowconv_ad.py`. Every
+option that selects something not ported (`geo_hybrid`,
 `s2d_first_conv`, the resnet DispNet encoder) raises NotImplementedError
 rather than running a different path.
 """
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Any
 
 import torch
@@ -33,22 +33,8 @@ from davo_tpu_torch.models.flownet import FlowNetLite
 from davo_tpu_torch.models.posenet import PoseNet
 
 
-SERVING_FUSE_FLAGS = (
-    "fuse_pyramid", "fuse_flow_level", "fuse_attention", "fuse_pose_encoder", "fuse_estimator",
-)
-
-
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for options outside the ported slices."""
-    fused = [
-        f.name for f in dataclasses.fields(cfg)
-        if f.name.startswith("fuse_") and f.name not in SERVING_FUSE_FLAGS
-        and getattr(cfg, f.name) is True
-    ]
-    if fused:
-        raise NotImplementedError(
-            f"{fused}: the fused kernels these select are not ported yet"
-        )
     if cfg.fuse_compute and cfg.fuse_compute not in DTYPE_MODES:
         raise ValueError(f"unknown fuse_compute {cfg.fuse_compute!r}")
     if cfg.pose_head != "conv":

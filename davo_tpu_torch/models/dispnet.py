@@ -4,7 +4,12 @@ davo_tpu.models.dispnet, conv encoder).
 Stride-2 conv pairs down (7x7, 5x5, then 3x3 first kernels), a
 nearest-upsample + conv decoder with skips, and sigmoid disparity heads
 on the last `num_scales` levels, in f32. depth = min_depth *
-(max_depth / min_depth) ** disp. The resnet encoder is not ported yet.
+(max_depth / min_depth) ** disp. With `fuse_disp_encoder` the encoder's
+longest prefix of (s2, s1) pairs whose stride-2 layers see even dims
+runs as one `conv_chain_strided`, each pair's output a tap (the skips);
+`fuse_disp_encoder_train` runs it as the differentiable
+`conv_chain_strided_ad`; the rest stays `ConvBlock`s, as in the
+reference. The resnet encoder is not ported yet.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ import torch
 import torch.nn as nn
 
 from davo_tpu_torch.config import ModelConfig
+from davo_tpu_torch.kernels.rowconv import conv_chain_strided, fusable_even_prefix
+from davo_tpu_torch.kernels.rowconv_ad import conv_chain_strided_ad
 from davo_tpu_torch.models.common import Conv, ConvBlock, dtype_of, resize_nearest
 
 MIN_DEPTH = 0.5
@@ -45,6 +52,9 @@ class DispNet(nn.Module):
             raise NotImplementedError(f"disp_encoder={cfg.disp_encoder!r} is not ported yet")
         dt = dtype_of(cfg.compute_dtype)
         self.dtype = dt
+        self.fuse = cfg.fuse_disp_encoder or cfg.fuse_disp_encoder_train
+        self.chain = conv_chain_strided_ad if cfg.fuse_disp_encoder_train else conv_chain_strided
+        self.mode = cfg.fuse_compute or cfg.compute_dtype
         self.num_scales = cfg.num_scales
         chans = tuple(cfg.disp_channels)
         self.depth = len(chans)
@@ -68,7 +78,20 @@ class DispNet(nn.Module):
     def forward(self, img: torch.Tensor) -> list[torch.Tensor]:
         x = img.to(self.dtype)
         skips = []
-        for i in range(self.depth):
+        start = 0
+        if self.fuse:
+            strides = (2, 1) * self.depth
+            start = fusable_even_prefix(x.shape[1], x.shape[2], strides) // 2
+            if start:
+                convs = [getattr(self, f"enc{i}{s}").Conv_0 for i in range(start) for s in ("", "b")]
+                outs = self.chain(
+                    x.contiguous(), [c.weight for c in convs], [c.bias for c in convs],
+                    strides[: 2 * start], (True,) * (2 * start),
+                    taps=tuple(2 * i + 1 for i in range(start)), compute_dtype_name=self.mode,
+                )
+                skips = [o.to(self.dtype) for o in outs]
+                x = skips[-1]
+        for i in range(start, self.depth):
             x = getattr(self, f"enc{i}b")(getattr(self, f"enc{i}")(x))
             skips.append(x)
         disps = []

@@ -4,13 +4,17 @@ davo_tpu.models.flownet).
 Every `costvol_impl` of the reference computes the same function, so
 here the cost volume always goes through `kernels.costvol.cost_volume`:
 the hand-written CUDA kernel on the GPU, its plain version on the CPU.
-The serving flags route as in the reference: `fuse_pyramid` runs the
+The fused flags route as in the reference: `fuse_pyramid` runs the
 whole (s2, s1) ladder as one `conv_chain_strided` with taps (when every
 stride-2 layer sees even dims), `fuse_flow_level` (with no estimator
 bottleneck) a whole level as one `flow_level_fused`, superseding
 `fuse_estimator`, which runs the estimator chain as one
-`conv_chain_nhwc` after the optional `est_in`. The fused layers round
-as the kernels do (`kernels/rowconv.py`), not as `ConvBlock`.
+`conv_chain_nhwc` after the optional `est_in`. Each `_train` flag runs
+the same function through its differentiable variant
+(`kernels/rowconv_ad.py`) and wins over its serving flag; the flow
+level's and the estimator's take `compute_dtype`, the pyramid's
+`fuse_compute or compute_dtype`, as in the reference. The fused layers
+round as the kernels do (`kernels/rowconv.py`), not as `ConvBlock`.
 """
 
 from __future__ import annotations
@@ -27,6 +31,11 @@ from davo_tpu_torch.kernels.rowconv import (
     conv_chain_strided,
     flow_level_fused,
     fusable_even_prefix,
+)
+from davo_tpu_torch.kernels.rowconv_ad import (
+    conv_chain_nhwc_ad,
+    conv_chain_strided_ad,
+    flow_level_fused_ad,
 )
 from davo_tpu_torch.models.common import Conv, ConvBlock, dtype_of
 
@@ -53,7 +62,8 @@ class FeaturePyramid(nn.Module):
             self.add_module(f"feat{i}b", ConvBlock(ch, ch, 3, 1, dt))
             cin = ch
         self.dtype = dt
-        self.fuse = cfg.fuse_pyramid
+        self.fuse = cfg.fuse_pyramid or cfg.fuse_pyramid_train
+        self.chain = conv_chain_strided_ad if cfg.fuse_pyramid_train else conv_chain_strided
         self.mode = cfg.fuse_compute or cfg.compute_dtype
 
     def forward(self, img: torch.Tensor) -> list[torch.Tensor]:
@@ -64,7 +74,7 @@ class FeaturePyramid(nn.Module):
                 _conv_params(getattr(self, f"feat{i}{suf}"))
                 for i in range(self.levels) for suf in "ab"
             ))
-            pyr = conv_chain_strided(
+            pyr = self.chain(
                 x.contiguous(), ws, bs, strides, (True,) * len(strides),
                 taps=tuple(2 * i + 1 for i in range(self.levels)), compute_dtype_name=self.mode,
             )
@@ -83,8 +93,11 @@ class FlowEstimator(nn.Module):
         super().__init__()
         dt = dtype_of(cfg.compute_dtype)
         self.dtype = dt
-        self.fuse = cfg.fuse_estimator
-        self.mode = cfg.fuse_compute or cfg.compute_dtype
+        self.fuse = cfg.fuse_estimator or cfg.fuse_estimator_train
+        if cfg.fuse_estimator_train:
+            self.chain, self.mode = conv_chain_nhwc_ad, cfg.compute_dtype
+        else:
+            self.chain, self.mode = conv_chain_nhwc, cfg.fuse_compute or cfg.compute_dtype
         if cfg.flow_est_bottleneck > 0:
             self.est_in = ConvBlock(cin, cfg.flow_est_bottleneck, 1, 1, dt)
             cin = cfg.flow_est_bottleneck
@@ -99,7 +112,7 @@ class FlowEstimator(nn.Module):
             x = self.est_in(x)
         if self.fuse:
             ws, bs = self.chain_params()
-            return flow_up + conv_chain_nhwc(x.contiguous(), ws, bs, _EST_RELUS, self.mode)
+            return flow_up + self.chain(x.contiguous(), ws, bs, _EST_RELUS, self.mode)
         x = self.est2(self.est1(self.est0(x)))
         return flow_up + self.flow(x).float()
 
@@ -117,8 +130,11 @@ class FlowNetLite(nn.Module):
         self.search = cfg.flow_search_range
         self.levels = cfg.flow_levels
         # As the reference: the fused level needs the plain estimator input.
-        self.fuse_level = cfg.fuse_flow_level and cfg.flow_est_bottleneck == 0
-        self.mode = cfg.fuse_compute or cfg.compute_dtype
+        self.fuse_level = (cfg.fuse_flow_level or cfg.fuse_flow_level_train) and cfg.flow_est_bottleneck == 0
+        if cfg.fuse_flow_level_train:
+            self.level, self.mode = flow_level_fused_ad, cfg.compute_dtype
+        else:
+            self.level, self.mode = flow_level_fused, cfg.fuse_compute or cfg.compute_dtype
         dt = dtype_of(cfg.compute_dtype)
         self.pyramid = FeaturePyramid(cfg)
         d2 = (2 * self.search + 1) ** 2
@@ -158,7 +174,7 @@ class FlowNetLite(nn.Module):
             estimator = getattr(self, f"estimator{level}")
             if self.fuse_level:
                 ws, bs = estimator.chain_params()
-                delta = flow_level_fused(
+                delta = self.level(
                     f1c.contiguous(), f2c.contiguous(), f1.contiguous(), flow_up.contiguous(), ws, bs,
                     self.search, _EST_RELUS, self.mode,
                 )

@@ -6,7 +6,9 @@ map multiplied into the features, 1x1 conv head, global mean, x
 pose_scale. Output ``[tx, ty, tz, rx, ry, rz] * pose_scale`` maps
 target-cam points to source-cam points. With `fuse_pose_encoder` the
 even-dim prefix of the stride-2 stack runs as one `conv_chain_strided`
-and the tail as `ConvBlock`s, as in the reference.
+and the tail as `ConvBlock`s, as in the reference; with
+`fuse_pose_encoder_train` the prefix runs as the differentiable
+`conv_chain_strided_ad`.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import torch
 import torch.nn as nn
 
 from davo_tpu_torch.config import ModelConfig
-from davo_tpu_torch.kernels.rowconv import even_prefix_chain
+from davo_tpu_torch.kernels.rowconv import conv_chain_strided, even_prefix_chain
+from davo_tpu_torch.kernels.rowconv_ad import conv_chain_strided_ad
 from davo_tpu_torch.models.common import Conv, ConvBlock, dtype_of
 
 
@@ -24,7 +27,8 @@ class PoseEncoder(nn.Module):
         super().__init__()
         self.dtype = dtype_of(cfg.compute_dtype)
         self.depth = len(cfg.pose_channels)
-        self.fuse = cfg.fuse_pose_encoder
+        self.fuse = cfg.fuse_pose_encoder or cfg.fuse_pose_encoder_train
+        self.chain = conv_chain_strided_ad if cfg.fuse_pose_encoder_train else conv_chain_strided
         self.mode = cfg.fuse_compute or cfg.compute_dtype
         for i, ch in enumerate(cfg.pose_channels):
             k = 7 if i == 0 else (5 if i == 1 else 3)
@@ -36,7 +40,7 @@ class PoseEncoder(nn.Module):
         start = 0
         if self.fuse:
             convs = [getattr(self, f"enc{i}").Conv_0 for i in range(self.depth)]
-            x, start = even_prefix_chain(x, convs, self.mode)
+            x, start = even_prefix_chain(x, convs, self.mode, self.chain)
             x = x.to(self.dtype)
         for i in range(start, self.depth):
             x = getattr(self, f"enc{i}")(x)

@@ -411,22 +411,56 @@ def test_init_mirrors_flax_defaults():
     assert all(torch.equal(a, b) for a, b in zip(model.parameters(), again.parameters()))
 
 
-@pytest.mark.parametrize(
-    "override",
-    [
-        {"fuse_estimator_train": True},
-        {"fuse_flow_level_train": True},
-        {"fuse_pyramid_train": True},
-        {"fuse_attention_train": True},
-        {"fuse_pose_encoder_train": True},
-        {"fuse_disp_encoder": True},
-        {"pose_head": "geo_hybrid"},
-        {"s2d_first_conv": True},
-    ],
-)
+@pytest.mark.parametrize("override", [{"pose_head": "geo_hybrid"}, {"s2d_first_conv": True}])
 def test_unported_options_are_refused(override):
     with pytest.raises(NotImplementedError):
         DavoModel(dataclasses.replace(TINY, **override), device="cpu")
+
+
+def _train_forward_loss(model, seed):
+    target, sources = _t(_images(seed, 2, H, W, 3)), _t(_images(seed + 1, 2, 1, H, W, 3))
+    out = model(target, sources, seg=_t(_seg(seed + 2, 2, H, W)), train=True, source_disp=True)
+    return out["poses"].square().sum() + sum(d.square().sum() for d in out["disp"] + out["disp_src"])
+
+
+@pytest.mark.parametrize("flag", [
+    "fuse_estimator_train", "fuse_flow_level_train", "fuse_pyramid_train", "fuse_attention_train",
+    "fuse_pose_encoder_train", "fuse_disp_encoder_train", "fuse_disp_encoder",
+])
+def test_fused_flags_build_and_run_the_train_forward(flag):
+    """Each fused flag the training path may reach builds on the CPU. A
+    `_train` flag backpropagates into every parameter the unfused model
+    reaches, with the same gradients (f32); the serving `fuse_disp_encoder`
+    runs the train forward under no_grad, as the same function, and
+    raises under autograd."""
+    plain = DavoModel(TINY, device="cpu", seed=4, dispnet=True)
+    fused = DavoModel(dataclasses.replace(TINY, **{flag: True}), device="cpu", seed=4, dispnet=True)
+    if not flag.endswith("_train"):
+        with torch.no_grad():
+            np.testing.assert_allclose(_train_forward_loss(fused, 80), _train_forward_loss(plain, 80), rtol=1e-5)
+        with pytest.raises(RuntimeError, match="serving-only"):
+            _train_forward_loss(fused, 80)
+        return
+    for model in (plain, fused):
+        _train_forward_loss(model, 80).backward()
+    for (name, p), q in zip(plain.named_parameters(), fused.parameters()):
+        assert (p.grad is None) == (q.grad is None), name
+        if p.grad is not None:
+            scale = float(p.grad.abs().max())
+            np.testing.assert_allclose(q.grad.numpy(), p.grad.numpy(), rtol=0, atol=1e-4 * scale, err_msg=name)
+
+
+def test_strided_train_flag_refuses_bf16_dot():
+    """The reference's strided backward has no bf16_dot mode (its dtype
+    table at rowconv.py:1435 lacks it): a `_train` flag with
+    fuse_compute="bf16_dot" raises under autograd rather than running
+    another function; under no_grad it runs the serving kernel."""
+    cfg = dataclasses.replace(TINY, fuse_pose_encoder_train=True, fuse_compute="bf16_dot")
+    model = DavoModel(cfg, device="cpu", dispnet=True)
+    with torch.no_grad():
+        assert torch.isfinite(_train_forward_loss(model, 81))
+    with pytest.raises(ValueError, match="bf16_dot"):
+        _train_forward_loss(model, 81)
 
 
 def test_train_forward_is_refused():
@@ -589,3 +623,96 @@ def test_fuse_compute_modes_are_checked():
         DavoModel(dataclasses.replace(TINY, fuse_compute=mode, **SERVING_FLAGS), device="cpu")
     with pytest.raises(ValueError, match="fuse_compute"):
         DavoModel(dataclasses.replace(TINY, fuse_compute="float16"), device="cpu")
+
+
+# ------------------------------------------------------ fused training path
+#
+# Each `_train` flag on tiny (f32): the port's outputs and parameter
+# gradients (its `rowconv_ad` functions on CPU tensors: the plain
+# backwards) against the reference module with the same flag under
+# `jax.grad` (its Pallas VJPs in interpret mode), on one converted tree:
+# outputs within 1e-5, every gradient leaf within 1e-4 of its largest
+# element. As tests/test_models.py's fused-train checks, with the
+# reference's fused module in place of its XLA path.
+
+
+def _grads_match_reference(jcls, cls, jcfg, cfg, port_args, key, loss, inputs, out_tol=1e-5):
+    jinputs = [jnp.asarray(a) for a in inputs]
+    params = jcls(jcfg).init(jax.random.key(key), *jinputs)
+    jmodel = jcls(jcfg)
+    want_out = jmodel.apply(params, *jinputs)
+    jgrads = jax.grad(lambda p: loss(jmodel.apply(p, *jinputs)))(params)
+    model = cls(cfg, *port_args)
+    load_flax_params(model, params)
+    got_out = model(*map(_t, inputs))
+    loss(got_out).backward()
+    _close_all(got_out, want_out, out_tol)
+    want_grads, _ = flax_to_state_dict(jax.tree_util.tree_map(np.asarray, jgrads))
+    got_grads = {n: p.grad for n, p in model.named_parameters()}
+    assert got_grads.keys() == want_grads.keys()
+    for name, want in want_grads.items():
+        assert got_grads[name] is not None, name
+        scale = float(want.abs().max())
+        assert scale > 0, name
+        np.testing.assert_allclose(got_grads[name].numpy(), want.numpy(), rtol=0, atol=1e-4 * scale, err_msg=name)
+
+
+def _sum_squares(out):
+    """The sum of squares of a module's output(s), JAX arrays or tensors."""
+    outs = out if isinstance(out, (list, tuple)) else [out]
+    return sum(((o.float() if isinstance(o, torch.Tensor) else o.astype(jnp.float32)) ** 2).sum() for o in outs)
+
+
+def test_fused_train_posenet_grads_match_reference():
+    t, s = _images(90, 2, H, W, 3), _images(91, 2, H, W, 3)
+    extra = np.random.default_rng(92).normal(size=(2, H, W, 3)).astype(np.float32)
+    flags = {"fuse_pose_encoder_train": True}
+    _grads_match_reference(JPoseNet, PoseNet, dataclasses.replace(J_TINY, **flags),
+                           dataclasses.replace(TINY, **flags), (3,), 20, _sum_squares, (t, s, extra))
+
+
+def test_fused_train_dispnet_grads_match_reference():
+    """fuse_disp_encoder_train: the (s2, s1)-pair prefix with its taps as
+    the skips, whose cotangents arrive through both the decoder and the
+    chain. (fuse_disp_encoder's forward is held by
+    test_fused_dispnet_matches_reference.)"""
+    img = _images(93, 2, H, W, 3)
+    flags = {"fuse_disp_encoder_train": True}
+    _grads_match_reference(JDispNet, DispNet, dataclasses.replace(J_TINY, **flags),
+                           dataclasses.replace(TINY, **flags), (), 21, _sum_squares, (img,))
+
+
+@pytest.mark.parametrize("flag", ["fuse_disp_encoder", "fuse_disp_encoder_train"])
+def test_fused_dispnet_matches_reference(flag):
+    img = _images(94, 2, H, W, 3)
+    jinputs = [jnp.asarray(img)]
+    params = JDispNet(J_TINY).init(jax.random.key(22), *jinputs)
+    want = JDispNet(dataclasses.replace(J_TINY, **{flag: True})).apply(params, *jinputs)
+    fused, plain = DispNet(dataclasses.replace(TINY, **{flag: True})), DispNet(TINY)
+    load_flax_params(fused, params)
+    load_flax_params(plain, params)
+    with torch.no_grad():
+        got, unfused = fused(_t(img)), plain(_t(img))
+    _close_all(got, want, 1e-5)
+    _close_all(got, unfused, 1e-5)
+
+
+@pytest.mark.parametrize("flags", [
+    {"fuse_estimator_train": True},
+    {"fuse_flow_level_train": True},
+    {"fuse_flow_level_train": True, "costvol_feat_channels": 8},
+    {"fuse_pyramid_train": True},
+], ids=["estimator", "flow_level", "flow_level_proj8", "pyramid"])
+def test_fused_train_flownet_grads_match_reference(flags):
+    """Flows and parameter gradients; with costvol_feat_channels=8 the
+    gradients reach cv_proj through d f1 and d f2 of the level."""
+    a, b = _images(95, 2, H, W, 3), _images(96, 2, H, W, 3)
+    _grads_match_reference(JFlowNetLite, FlowNetLite, dataclasses.replace(J_TINY, **flags),
+                           dataclasses.replace(TINY, **flags), (), 23, _sum_squares, (a, b), out_tol=1e-4)
+
+
+def test_fused_train_region_attention_grads_match_reference():
+    flow = np.random.default_rng(97).normal(scale=2.0, size=(3, H, W, 2)).astype(np.float32)
+    flags = {"fuse_attention_train": True}
+    _grads_match_reference(JRegionAttention, RegionAttention, dataclasses.replace(J_TINY, **flags),
+                           dataclasses.replace(TINY, **flags), (2,), 24, _sum_squares, (flow,))

@@ -101,16 +101,18 @@ def _reference_step(jcfg, params, batch, step):
     return {k: float(v) for k, v in metrics.items()}, grads
 
 
-def check_train_step_against_reference(batch, gather):
-    """tiny, flow_seg attention, f32, geometry consistency on: every loss
-    term within 1e-5 of the total and every gradient leaf, by name
+def check_train_step_against_reference(batch, gather, flags=None):
+    """tiny (with the model `flags` set), flow_seg attention, f32,
+    geometry consistency on: every loss term within 1e-5 of the total
+    and every gradient leaf, by name
     through the converter, within 1e-4 of that leaf's largest magnitude.
     The reference runs op by op, not under `jax.jit`: XLA's fused CPU
     program rounds differently enough to move a few bilinear taps across
     a cell edge, which shifts whole-model gradients by up to ~1e-3 of a
     leaf's largest (measured on the pose head) against the same
     reference unjitted, with which the port agrees."""
-    jcfg = JConfig(model=J_TINY, train=JTrainConfig(batch_size=2))
+    flags = flags or {}
+    jcfg = JConfig(model=dataclasses.replace(J_TINY, **flags), train=JTrainConfig(batch_size=2))
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     params = JDavoModel(J_TINY).init(
         jax.random.key(0), jbatch["target"], jbatch["sources"], seg=jbatch["seg"],
@@ -120,7 +122,7 @@ def check_train_step_against_reference(batch, gather):
     jwarp.configure(gather, (2, 4))
     want_metrics, jgrads = _reference_step(jcfg, params, jbatch, STEP)
 
-    cfg = Config(model=TINY, train=TrainConfig(batch_size=2))
+    cfg = Config(model=dataclasses.replace(TINY, **flags), train=TrainConfig(batch_size=2))
     model = loop.create_state(cfg, "cpu").model
     load_flax_params(model, params)
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
