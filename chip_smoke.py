@@ -14,7 +14,11 @@ Phases, in order; any failure exits non-zero:
      bf16_dot, with the port's unfused route as the yardstick; (3e) the
      training chains' backward kernels against their plain backwards at
      one fused davo train step's shapes, bf16 and f32, with the port's
-     unfused route backward as the yardstick
+     unfused route backward as the yardstick; (3f) the conv stack (one
+     launch per stack) on the davo-fast pose prefix at B=64 and B=256
+     through the bench package's speed-of-light run, then against its
+     plain version and the strided chain, bf16 and f32, and on the JAX
+     tests' shapes and odd dims
   4. the serving path: davo-fast at 128x416 streams a 257-frame synthetic
      world through predict_sequence in 4 requests of 64 pairs, then
      assemble_trajectory and evaluate_sequence; plus one davo forward;
@@ -38,6 +42,9 @@ Phases, in order; any failure exits non-zero:
      the same on the fused training path
  10. train-step time at B=4 and B=64, peak memory, and device time by
      kernel of one B=64 step; (10b) the same on the fused training path
+ 11. the bench entry point: `python -m davo_tpu_torch.bench` (bench.py's
+     JSON line, davo-fast at B=256) beside phase 6, and one
+     bench_train_step (davo, B=16)
 The line before the last names the card; the last line is the result.
 """
 
@@ -64,7 +71,7 @@ BANDWARP_TOL = 1e-5
 BAND = (4, 16)
 TRAIN_LOSS_TOL = 1e-4   # train step, card against CPU: loss terms, relative
 TRAIN_GRAD_TOL = 1e-3   # each gradient leaf, relative to its largest element
-KERNEL_SOURCES = ("costvol", "bandwarp", "rowconv", "rowconv_bwd")  # davo_tpu_torch/csrc/<name>.cu
+KERNEL_SOURCES = ("costvol", "bandwarp", "rowconv", "rowconv_bwd", "conv_stack")  # davo_tpu_torch/csrc/<name>.cu
 
 
 def _event_ms(fn, runs: int) -> float:
@@ -315,7 +322,7 @@ def throughput(torch, card, model):
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
         "card": card,
     }), flush=True)
-    return x, y, s
+    return (x, y, s), B * iters / min(times)
 
 
 def _kernel_profile(torch, run, iters):
@@ -547,12 +554,13 @@ def _counts(costvol, bandwarp):
 
 def _reset_counts():
     """Every launch count of every kernel module to 0."""
-    from davo_tpu_torch.kernels import bandwarp, costvol, rowconv, rowconv_ad
+    from davo_tpu_torch.kernels import bandwarp, conv_stack, costvol, rowconv, rowconv_ad
 
     costvol.launches = costvol.backward_launches = 0
     bandwarp.launches = bandwarp.backward_launches = 0
     rowconv.reset_counts()
     rowconv_ad.reset_counts()
+    conv_stack.reset_counts()
 
 
 # ---------------------------------------------------------------- fused serving kernels
@@ -1016,6 +1024,176 @@ def check_rowconv_backward(torch, rowconv, rowconv_ad):
             del kernels, plain, reference, library
             torch.cuda.empty_cache()
     return rows
+
+
+# ---------------------------------------------------------------- the conv stack (#11)
+
+# kernels/conv_stack.py + csrc/conv_stack.cu on the card against the plain
+# version, with phase 3d's criteria: float32 within 1e-5 of the largest
+# output; bfloat16 per layer (single-layer stacks on the plain version's
+# input to the layer; their float32 outputs rounded to bf16, as the stack
+# rounds a layer between layers) at most 1e-3 of the elements differ, by
+# at most one bf16 ulp at the output's scale (on the small cases' few
+# hundred elements, one element may differ), their float32 outputs within
+# 1e-5 of the largest, and per stack a mean gap at most half the plain
+# version's own bf16-to-f32 mean gap.
+CONV_STACK_TOL = 1e-5
+POSE_KS = (7, 5, 3, 3, 3, 3, 3)  # davo-fast's seven pose layers
+CONV_STACK_CASES = [
+    # (label, input shape, kernel sizes, channels, strides): the JAX
+    # tests' shapes (tests/test_kernels.py::TestFusedConvStack), then odd
+    # input dims at stride 2.
+    ("stride1 (4, 8, 12, 8)", (4, 8, 12, 8), (3, 3), (16, 8), (1, 1)),
+    ("stride2 (2, 16, 24, 4) k5 k3", (2, 16, 24, 4), (5, 3), (8, 16), (2, 2)),
+    ("mixed (2, 8, 8, 4) s 2/1/2", (2, 8, 8, 4), (3, 3, 3), (8, 8, 8), (2, 1, 2)),
+    ("odd (2, 13, 15, 4) k3 s2", (2, 13, 15, 4), (3,), (8,), (2,)),
+    ("odd (2, 7, 9, 3) k5 s2, k3 s1", (2, 7, 9, 3), (5, 3), (8, 16), (2, 1)),
+]
+
+
+def _mean_gap(a, b):
+    return float((a.float() - b.float()).abs().mean())
+
+
+def _conv_stack_criteria(torch, conv_stack, rowconv, x, ws, bs, strides, relus, mode, chain=False):
+    """(errors of one stack against its plain version, whether they meet
+    the criteria). bf16: each layer's share and ulps and the stack's gap
+    ratio; f32: the error relative to the largest output and, with
+    `chain`, against #7 on the same inputs."""
+    got = conv_stack.fused_conv_stack(x, ws, bs, strides, relus, 1, mode)
+    torch.cuda.synchronize()
+    want = conv_stack.fused_conv_stack_plain(x, ws, bs, strides, relus, 1, mode)
+    if got.dtype != torch.float32 or got.shape != want.shape:
+        raise AssertionError(f"conv stack gave {got.dtype} {tuple(got.shape)}, want float32 {tuple(want.shape)}")
+    row = {"max_rel_err": float((got - want).abs().max() / want.abs().max())}
+    if mode == "float32":
+        ok = row["max_rel_err"] <= CONV_STACK_TOL
+        if chain:
+            ref = rowconv.conv_chain_strided(x, ws, bs, strides, relus, None, "float32")
+            row["vs_conv_chain_strided_rel_err"] = float((got - ref).abs().max() / ref.abs().max())
+            ok = ok and row["vs_conv_chain_strided_rel_err"] <= CONV_STACK_TOL
+        return row, ok
+    # Each layer alone on the plain stack's input to it (bf16 between layers).
+    inputs = [x.to(torch.bfloat16)]
+    for i in range(len(ws) - 1):
+        inputs.append(rowconv._layer_plain(inputs[-1], ws[i], bs[i], strides[i], relus[i],
+                                           torch.bfloat16, torch.bfloat16))
+    layers = []
+    for i, inp in enumerate(inputs):
+        args = (inp, [ws[i]], [bs[i]], (strides[i],), (relus[i],), 1, mode)
+        g, w = conv_stack.fused_conv_stack(*args), conv_stack.fused_conv_stack_plain(*args)
+        d = (g.to(torch.bfloat16).float() - w.to(torch.bfloat16).float()).abs()
+        layers.append({"differ_share": float((d > 0).float().mean()), "elements": d.numel(),
+                       "max_err_in_ulps": float(d.max() / (2.0**-7 * w.abs().max())),
+                       "f32_rel_err": float((g - w).abs().max() / w.abs().max())})
+    want32 = conv_stack.fused_conv_stack_plain(x, ws, bs, strides, relus, 1, "float32")
+    gap, ref_gap = _mean_gap(got, want), _mean_gap(want, want32)
+    row.update(layers=layers, stack_gap_mean=gap, reference_gap_mean=ref_gap,
+               gap_ratio=gap / ref_gap if ref_gap > 0 else math.inf)
+    ok = row["gap_ratio"] <= ROWCONV_GAP_RATIO and all(
+        e["differ_share"] * e["elements"] <= max(ROWCONV_BF16_SHARE * e["elements"], 1) and e["max_err_in_ulps"] <= 1.0
+        and e["f32_rel_err"] <= CONV_STACK_TOL for e in layers)
+    return row, ok
+
+
+def check_conv_stack(torch, card):
+    """Phase 3f: the conv stack (#11). Its path is the bench package's
+    speed-of-light measurement: `utils.profiling.timed` of
+    `fused_conv_stack` on the davo-fast pose prefix at 128x416 (B=64 and
+    B=256, bf16 and f32; the weights of a seeded davo-fast's enc0..enc4,
+    the prefix `fusable_prefix` gives), then `bench.sol.conv_stack_sol`
+    of the time; launch counts are read around that run, one device
+    launch per call asserted. Then the kernel against its plain version
+    on the same inputs (the criteria above), against #7
+    (`rowconv.conv_chain_strided`, the same function) in f32, and on the
+    JAX tests' shapes and odd dims. Device ms by CUDA-graph replay (the
+    cooperative launch is captured); the plain version's by CUDA events;
+    #7 and the port's unfused route (cuDNN bf16 ConvBlocks, the
+    library yardstick) by graph replay."""
+    from davo_tpu_torch.bench.sol import conv_stack_sol
+    from davo_tpu_torch.kernels import conv_stack, rowconv
+    from davo_tpu_torch.models import presets
+    from davo_tpu_torch.models.davo import DavoModel
+    from davo_tpu_torch.utils.profiling import timed
+
+    cfg = presets.get("davo-fast").model
+    H, W = cfg.img_height, cfg.img_width
+    n = conv_stack.fusable_prefix(H, W, POSE_KS, (2,) * len(POSE_KS))
+    if n != 5:
+        raise AssertionError(f"fusable_prefix gave {n} pose layers at {H}x{W}, not 5")
+    model = DavoModel(cfg, device="cuda", seed=0).eval()
+    mods = [getattr(model.posenet.encoder, f"enc{i}") for i in range(n)]
+    ws, bs = _conv_params(mods)
+    strides, relus = (2,) * n, (True,) * n
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def prefix_input(B, mode):  # images in [0, 1], the -1 direction plane, flow ~2 px
+        x = torch.cat([torch.rand(B, H, W, 6, device="cuda", generator=gen),
+                       torch.full((B, H, W, 1), -1.0, device="cuda"),
+                       torch.randn(B, H, W, 2, device="cuda", generator=gen) * 2.0], -1)
+        return x.to(torch.bfloat16 if mode == "bfloat16" else torch.float32)
+
+    def shapes(B):  # conv_stack_sol's layers, and the output's elements
+        out, h, w, cin = [], H, W, 9
+        for wt, s in zip(ws, strides):
+            out.append((B, h, w, cin, wt.shape[0], wt.shape[-1], s))
+            h, w, cin = -(-h // s), -(-w // s), wt.shape[0]
+        return out, B * h * w * cin
+
+    units = [(B, mode, prefix_input(B, mode)) for B in (64, 256) for mode in ("bfloat16", "float32")]
+    path = []
+    _reset_counts()
+    with torch.inference_mode():
+        for B, mode, x in units:
+            r = timed(lambda: conv_stack.fused_conv_stack(x, ws, bs, strides, relus, 8, mode), iters=10, loops=3)
+            path.append({"batch": B, "mode": mode, "ms": r["ms"], "sol": conv_stack_sol(shapes(B)[0], r["ms"])})
+    counts = {"launches": conv_stack.launches, "device_launches": conv_stack.device_launches}
+    calls = len(units) * (1 + 10 * 3)
+    print(json.dumps({"phase": "conv_stack_path", "calls": calls, **counts, "units": [
+        {"batch": p["batch"], "mode": p["mode"], "timed_ms": p["ms"],
+         "sol_roofline_ms": p["sol"].roofline_us / 1e3, "sol_fraction": p["sol"].sol_fraction} for p in path],
+        "card": card}), flush=True)
+    if counts != {"launches": calls, "device_launches": calls}:
+        raise AssertionError(f"conv stack path: {counts} for {calls} calls, want one device launch per call")
+
+    rows = []
+    with torch.inference_mode():
+        for (B, mode, x), p in zip(units, path):
+            row, ok = _conv_stack_criteria(torch, conv_stack, rowconv, x, ws, bs, strides, relus, mode, chain=True)
+            flops = p["sol"].flops
+            nbytes = x.numel() * x.element_size() + sum(t.numel() * 4 for t in ws + bs) + 4 * shapes(B)[1]
+            bound_ms, bound_by = _bound_ms(nbytes, flops, BF16_FLOPS if mode == "bfloat16" else F32_FLOPS)
+            row.update(
+                unit=f"pose prefix ({B}, {H}, {W}, 9), k 7/5/3/3/3", batch=B, mode=mode,
+                ms=_graph_ms(lambda: conv_stack.fused_conv_stack(x, ws, bs, strides, relus, 8, mode), reps=5),
+                plain_ms=_event_ms(lambda: conv_stack.fused_conv_stack_plain(x, ws, bs, strides, relus, 8, mode), 3),
+                conv_chain_strided_ms=_graph_ms(
+                    lambda: rowconv.conv_chain_strided(x, ws, bs, strides, relus, None, mode), reps=5),
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
+                sol_roofline_ms=p["sol"].roofline_us / 1e3,
+                timing="CUDA-graph replay of the wrapper (the cooperative launch is captured)",
+            )
+            if mode == "bfloat16":
+                seq = torch.nn.Sequential(*mods)
+                row["library_ms"] = _graph_ms(lambda: seq(x), reps=5)
+                row["library_is"] = "the port's unfused route (cuDNN bf16 ConvBlocks enc0..enc4)"
+            print(json.dumps({"phase": "conv_stack", **row, "card": card}), flush=True)
+            if not ok:
+                raise AssertionError(f"conv stack {row['unit']} {mode}: {row}")
+            rows.append(row)
+        del units
+        torch.cuda.empty_cache()
+        for label, shape, ks, chans, st in CONV_STACK_CASES:
+            sws = [torch.randn(c, ci, k, k, device="cuda", generator=gen) / (k * k * ci) ** 0.5
+                   for k, c, ci in zip(ks, chans, (shape[-1],) + chans[:-1])]
+            sbs = [torch.randn(c, device="cuda", generator=gen) * 0.1 for c in chans]
+            x = torch.rand(*shape, device="cuda", generator=gen)
+            for mode in ("float32", "bfloat16"):
+                row, ok = _conv_stack_criteria(torch, conv_stack, rowconv, x, sws, sbs, st, (True,) * len(ks), mode)
+                print(json.dumps({"phase": "conv_stack_small", "case": label, "mode": mode, **row}), flush=True)
+                if not ok:
+                    raise AssertionError(f"conv stack {label} {mode}: {row}")
+    return rows, counts
 
 
 def _fused_counts(costvol, rowconv):
@@ -1532,6 +1710,42 @@ def train_step_time(torch, card, batch4, phase="train_step_time", flags=None):
     return results, ours
 
 
+# ---------------------------------------------------------------- the bench entry point
+
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "median", "spread_pct", "loops", "davo_preset_fps"}
+
+
+def bench_entry(torch, card, phase6_fps):
+    """Phase 11: `python -m davo_tpu_torch.bench` once, in a subprocess
+    (davo-fast at B=256: bench.py's protocol and JSON line); its line is
+    printed on a line of its own, then beside phase 6's frames/s for the
+    same configuration. Then `bench_train_step(davo, batch=16)` once."""
+    from davo_tpu_torch.bench import bench_train_step
+    from davo_tpu_torch.models import presets
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "davo_tpu_torch.bench"], capture_output=True, text=True,
+                         timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = res.stdout.strip().splitlines()
+    if res.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"python -m davo_tpu_torch.bench: rc {res.returncode}, stdout {res.stdout!r}, "
+                             f"stderr {res.stderr[-2000:]!r}")
+    line = json.loads(lines[-1])
+    if set(line) != BENCH_KEYS or line["metric"] != "pose_infer_frames_per_s" or not all(
+            math.isfinite(line[k]) and line[k] > 0 for k in ("value", "davo_preset_fps")):
+        raise AssertionError(f"bench line {line}")
+    print(lines[-1], flush=True)
+    print(json.dumps({"phase": "bench", "bench_line": line, "seconds": seconds,
+                      "phase6_frames_per_s_best": phase6_fps, "card": card}), flush=True)
+    train = bench_train_step(presets.get("davo"), batch=16, device="cuda")
+    print(json.dumps({"phase": "bench_train_step", "preset": "davo", **train, "card": card}), flush=True)
+    if not math.isfinite(train["ms_per_step"]):
+        raise AssertionError(f"bench_train_step: {train}")
+    return line, train
+
+
 
 def main() -> int:
     import torch
@@ -1569,12 +1783,13 @@ def main() -> int:
     band_rows = check_banded_warp(torch, bandwarp)
     rowconv_rows = check_rowconv(torch, rowconv)
     bwd_kernel_rows = check_rowconv_backward(torch, rowconv, rowconv_ad)
+    stack_rows, stack_counts = check_conv_stack(torch, card)
     launches, stream = main_path(torch, costvol)
     fused_counts, fused_model = fused_path(torch, costvol, rowconv, stream)
     estimator_counts = fused_estimator(torch, costvol, rowconv)
     gpu_against_cpu(torch, costvol)
     fused_gpu_against_cpu(torch, rowconv)
-    inputs = throughput(torch, card, stream[0])
+    inputs, phase6_fps = throughput(torch, card, stream[0])
     profile(torch, card, stream, inputs)
     del inputs
     fused_throughput(torch, card, stream[0], fused_model)
@@ -1591,6 +1806,7 @@ def main() -> int:
     train_gpu_against_cpu(torch, "fused_train_gpu_vs_cpu", FUSED_TRAIN_FLAGS)
     train_step_time(torch, card, batch4)
     train_step_time(torch, card, batch4, "fused_train_step_time", FUSED_TRAIN_FLAGS)
+    bench_entry(torch, card, phase6_fps)
 
     # The kernels' line. cost_volume: the work of one serving request (its
     # two flow levels at B=64), launches on both main paths (serving:
@@ -1720,6 +1936,27 @@ def main() -> int:
             "library_is": "the port's unfused route backward for the same units, CUDA events",
             "float32_ms": sum(r["ms"] for r in f32_rows),
         })
+    # The conv stack: the work of the davo-fast pose prefix at B=64 in bf16;
+    # launches on its path (phase 3f's speed-of-light run through the bench
+    # package). max_abs_err is the float32 error relative to the largest
+    # output; the bf16 criteria are in the phase's lines.
+    unit = next(r for r in stack_rows if r["batch"] == 64 and r["mode"] == "bfloat16")
+    unit32 = next(r for r in stack_rows if r["batch"] == 64 and r["mode"] == "float32")
+    kernels.append({
+        "name": "fused_conv_stack", "route": "cuda", "source": "davo_tpu_torch/csrc/conv_stack.cu",
+        "replaces": "davo_tpu/kernels/conv_stack.py:179",
+        "launches": stack_counts["launches"],
+        "launches_by_path": {"bench: timed + conv_stack_sol (phase 3f)": stack_counts["launches"]},
+        "device_launches": stack_counts["device_launches"],
+        "max_abs_err": max(r["max_rel_err"] for r in stack_rows if r["mode"] == "float32"),
+        "max_err_is": "float32, relative to the largest output",
+        "bf16_gap_ratio": max(r["gap_ratio"] for r in stack_rows if r["mode"] == "bfloat16"),
+        "ms": unit["ms"], "plain_ms": unit["plain_ms"], "bound_ms": unit["bound_ms"],
+        "bound_by": unit["bound_by"], "sol_roofline_ms": unit["sol_roofline_ms"],
+        "library_ms": unit["library_ms"], "library_is": unit["library_is"],
+        "conv_chain_strided_ms": unit["conv_chain_strided_ms"],
+        "float32_ms": unit32["ms"], "float32_bound_ms": unit32["bound_ms"],
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,19 +4,24 @@ The JAX package `davo_tpu` stays the reference; this package mirrors
 its layout and module names and is held against it by the tests in
 `tests/test_torch_*.py`. It never imports JAX, Flax or `davo_tpu`.
 
-Layer map (the slices ported so far — streaming pose inference and
-the photometric train step):
+Layer map (the slices ported so far — streaming pose inference, the
+photometric train step, their fused paths, and the bench path):
   config.py, models/presets.py   typed config tree and version presets
   convert.py                     Flax parameter tree -> state_dict
   core/      geometry (pose vectors, projection, trajectories), pyramid,
              SSIM, warps (bilinear_sample, projective, flow, separable)
-  kernels/   hand-written CUDA kernels (sources in csrc/): cost volume
-             forward/backward, banded warp forward/backward; + plain versions
+  kernels/   hand-written CUDA kernels (sources in csrc/, five of them):
+             cost volume forward/backward, banded warp forward/backward,
+             the fused conv chains (rowconv, rowconv_ad) and the one-launch
+             conv stack (conv_stack); + plain versions
   models/    FlowNetLite, RegionAttention, PoseNet, DispNet, DavoModel
   train/     losses, train step (optax's Adam), fit loop, checkpoints
   eval/      streaming runner and trajectory metrics
   data/      synthetic sequences, snippet batches, device prefetch, KITTI poses
-  cli/       `python -m davo_tpu_torch.cli.main {train,infer} ...`
+  bench/     throughput harnesses, speed-of-light counts (H100 peaks), and
+             `python -m davo_tpu_torch.bench` (bench.py's JSON line)
+  utils/     profiling: `timed`, `profile_trace` (torch.profiler)
+  cli/       `python -m davo_tpu_torch.cli.main {train,infer,bench} ...`
 
 Tensors are NHWC at every public boundary, as in the JAX package.
 Entry points run on the GPU unless the caller passes device="cpu".

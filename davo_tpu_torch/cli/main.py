@@ -1,9 +1,10 @@
-"""davo_tpu_torch CLI (the ported subset): train and infer.
+"""davo_tpu_torch CLI (the ported subset): train, infer and bench.
 
   python -m davo_tpu_torch.cli.main train --version davo --data synthetic \
       --steps 1000 [--checkpoint-dir runs/davo] [--set train.k=v ...]
   python -m davo_tpu_torch.cli.main infer --version davo-fast \
       --data synthetic --seq 0 --out poses.txt [--set model.k=v ...]
+  python -m davo_tpu_torch.cli.main bench     # python -m davo_tpu_torch.bench
 
 Runs on the GPU unless `--device cpu`. `--version` selects a preset;
 dotted `--set key=value` overrides reach any config field. Prepared or
@@ -153,6 +154,15 @@ def cmd_infer(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """bench.py's JSON line (`python -m davo_tpu_torch.bench`); --version
+    is accepted and ignored, as the reference's `cli bench` does."""
+    from davo_tpu_torch.bench.__main__ import main as bench_main
+
+    bench_main(args.device)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="davo_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -187,6 +197,10 @@ def build_parser() -> argparse.ArgumentParser:
     i.add_argument("--set", action="append", help="dotted override k=v")
     i.add_argument("--device", default=None, help=device_help)
     i.set_defaults(fn=cmd_infer)
+    b = sub.add_parser("bench", help="throughput benchmark")
+    b.add_argument("--version", default="davo", help="ignored, as in the reference")
+    b.add_argument("--device", default=None, help=device_help)
+    b.set_defaults(fn=cmd_bench)
     return p
 
 

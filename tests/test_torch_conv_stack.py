@@ -1,0 +1,249 @@
+"""The conv stack's plain version against the JAX package's Pallas kernel
+(`davo_tpu/kernels/conv_stack.py::fused_conv_stack`, interpret mode on
+the CPU).
+
+On CPU tensors `fused_conv_stack` runs this plain version; the CUDA
+kernel (`csrc/conv_stack.cu`) is held against the same plain version on
+the card by chip_smoke.py (phase 3f). Inputs and weights come from numpy
+with a fixed seed (weights as `tests/test_kernels.py::TestFusedConvStack._make`).
+The JAX kernel takes HWIO weights, the port OIHW.
+
+Criteria: float32 within 1e-5 of the largest output. bfloat16: the output
+is float32 (the last layer unrounded); one layer within 1e-5 of the
+largest, as both sum the same bf16 x bf16 products in float32, and,
+rounded to bf16 as a layer's output is between layers, at most 1e-3 of
+its elements differ, by at most one bf16 ulp (the placement check shows
+that criterion tells the kernel's rounding apart from two wrong ones); a
+stack, over its layers' rounding flips, at most half of JAX's own gap
+between bf16 and float32.
+"""
+
+import contextlib
+import ctypes
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from davo_tpu.kernels import conv_stack as jconv_stack
+from davo_tpu_torch.convert import load_flax_params
+from davo_tpu_torch.kernels import conv_stack
+from davo_tpu_torch.models.common import ConvBlock
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _make(rng, ks, chans, cin, bias_scale=0.01):
+    ws, bs = [], []
+    for k, c in zip(ks, chans):
+        ws.append((rng.normal(size=(k, k, cin, c)) / np.sqrt(k * k * cin)).astype(np.float32))
+        bs.append((rng.normal(size=(c,)) * bias_scale).astype(np.float32))
+        cin = c
+    return ws, bs
+
+
+def _port(ws, bs):
+    return ([torch.from_numpy(w.transpose(3, 2, 0, 1).copy()) for w in ws],
+            [torch.from_numpy(b) for b in bs])
+
+
+def _both(x, ws, bs, strides, relus, batch_tile, mode):
+    want = jconv_stack.fused_conv_stack(
+        jnp.asarray(x), tuple(map(jnp.asarray, ws)), tuple(map(jnp.asarray, bs)), strides, relus,
+        batch_tile=batch_tile, compute_dtype_name=mode,
+    )
+    got = conv_stack.fused_conv_stack(
+        torch.from_numpy(x), *_port(ws, bs), strides, relus, batch_tile=batch_tile, compute_dtype_name=mode,
+    )
+    return got, np.asarray(want)
+
+
+def _assert_close(got, want):
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    scale = np.abs(want).max()
+    assert scale > 0
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * scale
+
+
+def _bf16(a):
+    return torch.from_numpy(np.array(a, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def _differ_share_and_ulps(got, want):
+    """The share of elements that differ once both are rounded to bf16,
+    and the largest gap in bf16 ulps at the output's scale."""
+    g, w = _bf16(got), _bf16(want)
+    return float(np.mean(g != w)), float(np.abs(g - w).max() / (2.0**-7 * np.abs(w).max()))
+
+
+CASES = {
+    # name: (input shape, kernel sizes, channels, strides, relus, batch_tile);
+    # the first three are tests/test_kernels.py::TestFusedConvStack's.
+    "stride1": ((4, 8, 12, 8), (3, 3), (16, 8), (1, 1), (True, True), 2),
+    "stride2_k5_k3": ((2, 16, 24, 4), (5, 3), (8, 16), (2, 2), (True, True), 1),
+    "mixed_2_1_2": ((2, 8, 8, 4), (3, 3, 3), (8, 8, 8), (2, 1, 2), (True,) * 3, 2),
+    "odd_13x15_k3_s2": ((2, 13, 15, 4), (3,), (8,), (2,), (True,), 2),
+    "odd_7x9_k5s2_k3s1": ((2, 7, 9, 3), (5, 3), (8, 16), (2, 1), (True, True), 1),
+    "last_without_relu": ((2, 16, 20, 6), (7, 3, 3), (8, 16, 4), (2, 2, 1), (True, True, False), 2),
+}
+
+
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fused_conv_stack_matches_reference(case, mode):
+    """A float32 output within 1e-5 of the largest: in float32, and in bf16
+    for one layer (both sum the same exact products of rounded operands).
+    A bf16 stack of several layers, where a flip in an intermediate's
+    rounding carries on: its gap to the JAX kernel is at most half of
+    JAX's own gap between bf16 and float32."""
+    shape, ks, chans, strides, relus, batch_tile = CASES[case]
+    rng = np.random.default_rng(len(case))
+    x = rng.uniform(size=shape).astype(np.float32)
+    ws, bs = _make(rng, ks, chans, shape[-1], bias_scale=0.1)
+    got, want = _both(x, ws, bs, strides, relus, batch_tile, mode)
+    if mode == "float32" or len(ks) == 1:
+        _assert_close(got, want)
+    else:
+        assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+        want32 = _both(x, ws, bs, strides, relus, batch_tile, "float32")[1]
+        assert np.abs(got.numpy() - want).max() <= 0.5 * np.abs(want - want32).max()
+    if not relus[-1]:
+        assert (want < 0).any() and (got.numpy() < 0).any()
+
+
+@pytest.mark.parametrize("k, stride", [(7, 2), (5, 2), (3, 1)])
+def test_one_layer_rounds_as_the_kernel(k, stride):
+    """One bf16 layer: rounded to bf16, at most 1e-3 of the elements differ
+    from the JAX kernel's, by at most one ulp. Placement check: a bf16
+    `ConvBlock` (conv output rounded, then a bf16 bias) and the layer on an
+    unrounded float32 input both differ from the JAX kernel in more than
+    5 % of the elements."""
+    rng = np.random.default_rng(k * 10 + stride)
+    cin, cout = (9, 16) if k == 7 else (16, 32)
+    x = rng.uniform(-1, 1, size=(2, 16, 26, cin)).astype(np.float32)
+    ws, bs = _make(rng, (k,), (cout,), cin, bias_scale=0.5)
+    got, want = _both(x, ws, bs, (stride,), (True,), 1, "bfloat16")
+    share, ulps = _differ_share_and_ulps(got.numpy(), want)
+    assert share <= 1e-3 and ulps <= 1.0
+
+    block = ConvBlock(cin, cout, k, stride, torch.bfloat16)
+    load_flax_params(block, {"Conv_0": {"kernel": ws[0], "bias": bs[0]}})
+    w_bf16 = [w.to(torch.bfloat16).float() for w in _port(ws, bs)[0]]
+    with torch.no_grad():
+        conv_block = block(torch.from_numpy(x)).float().numpy()
+        unrounded_input = conv_stack.fused_conv_stack_plain(
+            torch.from_numpy(x), w_bf16, _port(ws, bs)[1], (stride,), (True,), 1, "float32"
+        ).numpy()
+    for wrong in (conv_block, unrounded_input):
+        assert _differ_share_and_ulps(wrong, want)[0] > 0.05
+
+
+def test_bf16_output_is_float32_and_follows_reference_rounding():
+    """The davo-fast pose prefix's k 7/5/3 at small size in bf16: a float32
+    output, unrounded; over 3 seeds the port's gap to the JAX kernel is at
+    most half of JAX's own gap between bf16 and float32."""
+    gap = reference_gap = 0.0
+    for seed in range(3):
+        rng = np.random.default_rng(200 + seed)
+        x = rng.uniform(size=(2, 32, 48, 9)).astype(np.float32)
+        ws, bs = _make(rng, (7, 5, 3), (16, 32, 64), 9, bias_scale=0.1)
+        got, want = _both(x, ws, bs, (2,) * 3, (True,) * 3, 2, "bfloat16")
+        assert got.dtype == torch.float32 and not np.array_equal(_bf16(got.numpy()), got.numpy())
+        want32 = _both(x, ws, bs, (2,) * 3, (True,) * 3, 2, "float32")[1]
+        gap += np.abs(got.numpy() - want).max()
+        reference_gap += np.abs(want - want32).max()
+    assert reference_gap > 0 and gap <= 0.5 * reference_gap
+
+
+def test_batch_tile_must_divide_the_batch_as_reference():
+    rng = np.random.default_rng(3)
+    x = rng.uniform(size=(3, 8, 8, 4)).astype(np.float32)
+    ws, bs = _make(rng, (3,), (8,), 4)
+    with pytest.raises(AssertionError):
+        jconv_stack.fused_conv_stack(
+            jnp.asarray(x), tuple(map(jnp.asarray, ws)), tuple(map(jnp.asarray, bs)), (1,), (True,),
+            batch_tile=2, compute_dtype_name="float32",
+        )
+    for fn in (conv_stack.fused_conv_stack, conv_stack.fused_conv_stack_plain):
+        with pytest.raises(ValueError, match="batch_tile"):
+            fn(torch.from_numpy(x), *_port(ws, bs), (1,), (True,), batch_tile=2, compute_dtype_name="float32")
+
+
+def test_same_pads_and_fusable_prefix_equal_the_reference():
+    for size in range(1, 40):
+        for k in (1, 3, 5, 7):
+            for s in (1, 2):
+                assert conv_stack.same_pads(size, k, s) == jconv_stack.same_pads(size, k, s)
+    ks = (7, 5, 3, 3, 3, 3, 3)
+    for h in (1, 2, 7, 13, 32, 64, 96, 128):
+        for w in (1, 2, 15, 26, 104, 208, 416):
+            for strides in ((2,) * 7, (2, 1) * 3 + (2,), (1,) * 7):
+                assert conv_stack.fusable_prefix(h, w, ks, strides) == jconv_stack.fusable_prefix(h, w, ks, strides)
+    assert conv_stack.fusable_prefix(128, 416, ks, (2,) * 7) == 5
+
+
+def test_wrapper_counts_nothing_on_the_cpu_and_refuses_autograd():
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.uniform(size=(2, 8, 8, 4)).astype(np.float32))
+    ws, bs = _port(*_make(rng, (3,), (8,), 4))
+    conv_stack.reset_counts()
+    conv_stack.fused_conv_stack(x, ws, bs, (1,), (True,), batch_tile=1)
+    assert conv_stack.launches == conv_stack.device_launches == 0
+    ws[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        conv_stack.fused_conv_stack(x, ws, bs, (1,), (True,), batch_tile=1)
+    with torch.no_grad():
+        conv_stack.fused_conv_stack(x, ws, bs, (1,), (True,), batch_tile=1)
+
+
+def _emulated_launch(n, B, xs, outs, ws, bs, params, act_bf16, stream):
+    """`davo_conv_stack` in PyTorch on the CPU: each layer from the
+    pointers and the geometry of the table alone, as the kernel reads them."""
+    def view(ptr, dtype, shape):
+        count = int(np.prod(shape))
+        buf = (ctypes.c_char * (count * dtype.itemsize)).from_address(ptr)
+        return torch.frombuffer(buf, dtype=dtype, count=count).view(*shape)
+
+    for i in range(n):
+        x_bf16, aligned, H, W, cin, Ho, Wo, cout, k, s, pad_t, pad_l, relu = params[13 * i: 13 * i + 13]
+        assert aligned == 1
+        x = view(xs[i], torch.bfloat16 if x_bf16 else torch.float32, (B, H, W, cin)).float()
+        w = view(ws[i], torch.float32, (cout, cin, k, k))
+        b = view(bs[i], torch.float32, (cout,))
+        if act_bf16:
+            x, w = x.to(torch.bfloat16).float(), w.to(torch.bfloat16).float()
+        pad_b = max((Ho - 1) * s + k - H - pad_t, 0)
+        pad_r = max((Wo - 1) * s + k - W - pad_l, 0)
+        y = F.conv2d(F.pad(x.permute(0, 3, 1, 2), (pad_l, pad_r, pad_t, pad_b)), w, stride=s)
+        y = (y + b[:, None, None]).permute(0, 2, 3, 1)
+        y = torch.relu(y) if relu else y
+        out_dtype = torch.bfloat16 if act_bf16 and i < n - 1 else torch.float32
+        view(outs[i], out_dtype, (B, Ho, Wo, cout)).copy_(y.to(out_dtype))
+    return 0
+
+
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+def test_kernel_side_plumbing_with_the_launch_emulated(monkeypatch, mode):
+    """The CUDA branch's layer table and workspace (geometry, SAME pads,
+    dtypes, pointers to each intermediate) run on the CPU, with the one
+    launch emulated from the table: the plain version's result."""
+    monkeypatch.setattr(conv_stack, "_library", lambda: types.SimpleNamespace(davo_conv_stack=_emulated_launch))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    rng = np.random.default_rng(6)
+    for shape, ks, chans, strides in (((2, 13, 15, 4), (7, 5, 3), (8, 16, 4), (2, 2, 1)),
+                                      ((2, 16, 24, 9), (7, 5, 3, 3), (16, 32, 64, 128), (2,) * 4)):
+        relus = (True,) * (len(ks) - 1) + (False,)
+        ws, bs = _port(*_make(rng, ks, chans, shape[-1], bias_scale=0.1))
+        for x_dtype in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(rng.uniform(-1, 1, size=shape).astype(np.float32)).to(x_dtype)
+            got = conv_stack._stack_cuda(x, ws, bs, strides, relus, conv_stack.COMPUTE_DTYPES[mode])
+            want = conv_stack.fused_conv_stack_plain(x, ws, bs, strides, relus, 1, mode)
+            assert got.dtype == torch.float32 and got.shape == want.shape
+            assert torch.equal(got, want)
