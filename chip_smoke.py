@@ -9,7 +9,10 @@ Phases, in order; any failure exits non-zero:
      per source, all started together)
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it, with times, the card's bound and, for
-     the banded warp, F.grid_sample as the library yardstick; (3d) the
+     the banded warp, F.grid_sample as the library yardstick; (3b) the
+     cost-volume backward also at S*B=128 and on an odd frame (11x29,
+     C=20), (3c) the banded backward with d/dimg also at C=1 128x416
+     B=64 and on two edge frames (37x61, 5x7); (3d) the
      fused serving kernels at one fused request's shapes in bf16, f32 and
      bf16_dot, with the port's unfused route as the yardstick; (3e) the
      training chains' backward kernels against their plain backwards at
@@ -63,10 +66,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 COSTVOL_TOL = 1e-5
 PORT_TOL = 1e-4
-# Banded warp: the kernels sum the same terms in the same order as the
-# plain versions (the d/dimg transpose is a gather, not atomics), so
-# they differ by fma contraction only: 1e-5 absolute for the forward
-# (values in [0, 1]), 1e-5 of the largest gradient for the backward.
+# Banded warp: the forward and d/du, d/dv sum the same terms in the same
+# order as the plain versions, so they differ by fma contraction only;
+# d/dimg sums each source pixel's terms exactly in fixed point and rounds
+# once (bitwise reproducible, checked), where the plain version rounds
+# each float32 add. 1e-5 absolute for the forward (values in [0, 1]),
+# 1e-5 of the largest gradient for the backward.
 BANDWARP_TOL = 1e-5
 BAND = (4, 16)
 TRAIN_LOSS_TOL = 1e-4   # train step, card against CPU: loss terms, relative
@@ -415,34 +420,51 @@ def _bound_ms(nbytes: float, flops: float, peak: float = F32_FLOPS):
     return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations")
 
 
+# Phase 3b's shapes: `davo`'s three train levels (C = 96, 64, 32; s = 4)
+# at S*B = 8 and 128 (B = 4 and 64, two sources), then one odd shape
+# whose frame is smaller than the kernel's 8x16 tile in both axes and
+# whose channels do not fill its 32-channel slice.
+COSTVOL_BWD_SHAPES = [
+    (B, f"davo {label}", H, W, C) for B in (8, 128)
+    for label, H, W, C in (("/16", 8, 26, 96), ("/8", 16, 52, 64), ("/4", 32, 104, 32))
+] + [(3, "odd 11x29 C=20", 11, 29, 20)]
+
+
 def check_cost_volume_backward(torch, costvol):
     """Phase 3b: the backward kernel against `cost_volume_plain_bwd` at
-    `davo`'s train shapes (S*B = 8 and 128: B = 4 and 64, two sources)."""
+    COSTVOL_BWD_SHAPES; on the odd shape also each gradient alone (the
+    launch then runs one kind of block)."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     s, D = 4, 81
     rows = []
-    for B in (8, 128):
-        for label, H, W, C in (("/16", 8, 26, 96), ("/8", 16, 52, 64), ("/4", 32, 104, 32)):
-            f1 = torch.randn(B, H, W, C, device="cuda", generator=gen)
-            f2 = torch.randn(B, H, W, C, device="cuda", generator=gen)
-            g = torch.randn(B, H, W, D, device="cuda", generator=gen)
-            got = costvol._launch_bwd(f1, f2, g, s, True, True)
-            want = costvol.cost_volume_plain_bwd(f1, f2, g, s)
-            torch.cuda.synchronize()
-            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-            bound_ms, bound_by = _bound_ms(4.0 * B * H * W * (4 * C + D), 4.0 * B * H * W * D * C)
-            row = {
-                "shape": f"davo {label}", "B": B, "H": H, "W": W, "C": C, "search": s,
-                "max_abs_err": err,
-                "ms": _event_ms(lambda: costvol._launch_bwd(f1, f2, g, s, True, True), 20),
-                "device_ms": _graph_ms(lambda: costvol._launch_bwd(f1, f2, g, s, True, True)),
-                "plain_ms": _event_ms(lambda: costvol.cost_volume_plain_bwd(f1, f2, g, s), 5),
-                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            }
-            print(json.dumps({"phase": "costvol_bwd", **row}), flush=True)
-            if not err <= COSTVOL_TOL:
-                raise AssertionError(f"cost volume backward {label} B={B}: max abs err {err} > {COSTVOL_TOL}")
-            rows.append(row)
+    for B, label, H, W, C in COSTVOL_BWD_SHAPES:
+        f1 = torch.randn(B, H, W, C, device="cuda", generator=gen)
+        f2 = torch.randn(B, H, W, C, device="cuda", generator=gen)
+        g = torch.randn(B, H, W, D, device="cuda", generator=gen)
+        got = costvol._launch_bwd(f1, f2, g, s, True, True)
+        want = costvol.cost_volume_plain_bwd(f1, f2, g, s)
+        if label.startswith("odd"):
+            only1 = costvol._launch_bwd(f1, f2, g, s, True, False)
+            only2 = costvol._launch_bwd(f1, f2, g, s, False, True)
+            if only1[1] is not None or only2[0] is not None:
+                raise AssertionError("cost volume backward computed a gradient not asked for")
+            got = got + (only1[0], only2[1])
+            want = want + want
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        bound_ms, bound_by = _bound_ms(4.0 * B * H * W * (4 * C + D), 4.0 * B * H * W * D * C)
+        row = {
+            "shape": label, "B": B, "H": H, "W": W, "C": C, "search": s,
+            "max_abs_err": err,
+            "ms": _event_ms(lambda: costvol._launch_bwd(f1, f2, g, s, True, True), 20),
+            "device_ms": _graph_ms(lambda: costvol._launch_bwd(f1, f2, g, s, True, True)),
+            "plain_ms": _event_ms(lambda: costvol.cost_volume_plain_bwd(f1, f2, g, s), 5),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        }
+        print(json.dumps({"phase": "costvol_bwd", **row}), flush=True)
+        if not err <= COSTVOL_TOL:
+            raise AssertionError(f"cost volume backward {label} B={B}: max abs err {err} > {COSTVOL_TOL}")
+        rows.append(row)
     return rows
 
 
@@ -472,11 +494,56 @@ TRAIN_WARPS = {
 }
 
 
+# Phase 3c's further shapes at band (4, 16), (C, H, W, B, fill): the
+# geometry term's C=1 warp with d/dimg at B=64, the batch users train at,
+# and two edge frames for the d/dimg tiles (64x16 source pixels): one
+# ragged in both axes, one smaller than the halo.
+EXTRA_WARPS = [(1, 128, 416, 64, "zeros"), (1, 37, 61, 4, "zeros"), (3, 5, 7, 4, "border")]
+
+
+def _warp_errors(torch, bandwarp, img, coords, g, fill):
+    """The kernels' forward (also through `banded_warp` with `fill`) and
+    backward with d/dimg against the plain versions: (forward max abs
+    error, backward max error relative to each gradient's largest). Two
+    backward launches must agree bitwise."""
+    rv, rh = BAND
+    out = bandwarp._launch_fwd(img, coords, rv, rh)
+    dimg, dcoords = bandwarp._launch_bwd(img, coords, g, rv, rh, True)
+    again = bandwarp._launch_bwd(img, coords, g, rv, rh, True)
+    want = bandwarp.banded_warp_plain_fwd(img, coords, rv, rh)
+    want_dimg, want_dcoords = bandwarp.banded_warp_plain_bwd(img, coords, g, rv, rh, True)
+    with torch.no_grad():
+        filled, valid = bandwarp.banded_warp(img, coords, rv, rh, fill=fill)
+    torch.cuda.synchronize()
+    fwd_err = max(float((out - want).abs().max()),
+                  float((filled - (want if fill == "border" else want * valid)).abs().max()))
+    bwd_err = max(float((dcoords - want_dcoords).abs().max()) / float(want_dcoords.abs().max()),
+                  float((dimg - want_dimg).abs().max()) / float(want_dimg.abs().max()))
+    if not (torch.equal(again[0], dimg) and torch.equal(again[1], dcoords)):
+        raise AssertionError(f"banded warp backward {tuple(img.shape)}: two launches differ")
+    return fwd_err, bwd_err
+
+
+def _grid_sample_bwd(torch, bandwarp, img, coords, g, need_img):
+    """grid_sample's backward op (`grid_sampler_2d_backward`, the one op
+    autograd runs for it) on the band-clamped coordinates, as a callable,
+    with the forward's NCHW image and grid."""
+    rv, rh = BAND
+    _, H, W, _ = img.shape
+    _, _, _, _, uc, vc, _, _ = bandwarp._clamped(coords, rv, rh)
+    grid = torch.stack([uc / (W - 1) * 2 - 1, vc / (H - 1) * 2 - 1], -1)
+    nchw = img.permute(0, 3, 1, 2).contiguous()
+    g_nchw = g.permute(0, 3, 1, 2).contiguous()
+    return grid, nchw, g_nchw, lambda: torch.ops.aten.grid_sampler_2d_backward(
+        g_nchw, nchw, grid, 0, 1, True, [need_img, True])
+
+
 def check_banded_warp(torch, bandwarp):
     """Phase 3c: the banded forward and backward kernels against their
     plain versions at every shape of the train step (B=4, band (4, 16)),
     with F.grid_sample on band-clamped coordinates as the library
-    yardstick (the same forward; its backward follows other edge rules)."""
+    yardstick (the same forward; its backward follows other edge rules);
+    then EXTRA_WARPS, forward and backward with d/dimg (no plain timing)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -488,21 +555,9 @@ def check_banded_warp(torch, bandwarp):
         coords = _band_coords(torch, gen, B, H, W)
         g = torch.randn(B, H, W, C, device="cuda", generator=gen)
         need_img = C == 1  # only the geometry term's sampled depth needs d/dimg
-        out = bandwarp._launch_fwd(img, coords, rv, rh)
-        dimg, dcoords = bandwarp._launch_bwd(img, coords, g, rv, rh, True)
+        fwd_err, bwd_err = _warp_errors(torch, bandwarp, img, coords, g, fill)
         want = bandwarp.banded_warp_plain_fwd(img, coords, rv, rh)
-        want_dimg, want_dcoords = bandwarp.banded_warp_plain_bwd(img, coords, g, rv, rh, True)
-        with torch.no_grad():
-            filled, valid = bandwarp.banded_warp(img, coords, rv, rh, fill=fill)
-        torch.cuda.synchronize()
-        fwd_err = max(float((out - want).abs().max()),
-                      float((filled - (want if fill == "border" else want * valid)).abs().max()))
-        bwd_err = max(float((dcoords - want_dcoords).abs().max()) / float(want_dcoords.abs().max()),
-                      float((dimg - want_dimg).abs().max()) / float(want_dimg.abs().max()))
-
-        _, _, _, _, uc, vc, _, _ = bandwarp._clamped(coords, rv, rh)
-        grid = torch.stack([uc / (W - 1) * 2 - 1, vc / (H - 1) * 2 - 1], -1)
-        nchw = img.permute(0, 3, 1, 2).contiguous()
+        grid, nchw, g_nchw, library_bwd = _grid_sample_bwd(torch, bandwarp, img, coords, g, need_img)
 
         def library_fwd():
             return F.grid_sample(nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)
@@ -511,12 +566,6 @@ def check_banded_warp(torch, bandwarp):
         lib_in = [grid.detach().requires_grad_()] + ([nchw.detach().requires_grad_()] if need_img else [])
         lib_out = F.grid_sample(lib_in[-1] if need_img else nchw, lib_in[0], mode="bilinear",
                                 padding_mode="border", align_corners=True)
-        g_nchw = g.permute(0, 3, 1, 2).contiguous()
-
-        def library_bwd():  # the one op autograd runs for grid_sample's backward
-            return torch.ops.aten.grid_sampler_2d_backward(
-                g_nchw, nchw, grid, 0, 1, True, [need_img, True])
-
         fwd_bound = _bound_ms(4.0 * B * H * W * (2 + 2 * C), 8.0 * B * H * W * C)
         bwd_bound = _bound_ms(4.0 * B * H * W * (4 + (3 if need_img else 2) * C), 16.0 * B * H * W * C)
         row = {
@@ -542,7 +591,26 @@ def check_banded_warp(torch, bandwarp):
         if not (fwd_err <= BANDWARP_TOL and bwd_err <= BANDWARP_TOL):
             raise AssertionError(f"banded warp C={C} {H}x{W}: fwd err {fwd_err}, bwd rel err {bwd_err}")
         rows.append(row)
-    return rows
+    extra_rows = []
+    for C, H, W, B, fill in EXTRA_WARPS:
+        img = torch.rand(B, H, W, C, device="cuda", generator=gen)
+        coords = _band_coords(torch, gen, B, H, W)
+        g = torch.randn(B, H, W, C, device="cuda", generator=gen)
+        fwd_err, bwd_err = _warp_errors(torch, bandwarp, img, coords, g, fill)
+        library_bwd = _grid_sample_bwd(torch, bandwarp, img, coords, g, True)[-1]
+        bwd_bound = _bound_ms(4.0 * B * H * W * (4 + 3 * C), 16.0 * B * H * W * C)
+        row = {
+            "C": C, "H": H, "W": W, "B": B, "fill": fill, "per_step": 0,
+            "fwd_max_abs_err": fwd_err, "bwd_max_rel_err": bwd_err, "bwd_need_img": True,
+            "bwd_device_ms": _graph_ms(lambda: bandwarp._launch_bwd(img, coords, g, rv, rh, True)),
+            "bwd_library_device_ms": _graph_ms(library_bwd),
+            "bwd_bound_ms": bwd_bound[0], "bwd_bound_by": bwd_bound[1],
+        }
+        print(json.dumps({"phase": "bandwarp_extra", **row}), flush=True)
+        if not (fwd_err <= BANDWARP_TOL and bwd_err <= BANDWARP_TOL):
+            raise AssertionError(f"banded warp C={C} {H}x{W} B={B}: fwd err {fwd_err}, bwd rel err {bwd_err}")
+        extra_rows.append(row)
+    return rows, extra_rows
 
 
 def _counts(costvol, bandwarp):
@@ -1780,7 +1848,7 @@ def main() -> int:
 
     rows = check_cost_volume(torch, costvol)
     bwd_rows = check_cost_volume_backward(torch, costvol)
-    band_rows = check_banded_warp(torch, bandwarp)
+    band_rows, extra_band_rows = check_banded_warp(torch, bandwarp)
     rowconv_rows = check_rowconv(torch, rowconv)
     bwd_kernel_rows = check_rowconv_backward(torch, rowconv, rowconv_ad)
     stack_rows, stack_counts = check_conv_stack(torch, card)
@@ -1812,11 +1880,15 @@ def main() -> int:
     # two flow levels at B=64), launches on both main paths (serving:
     # 4 requests; train: 5 steps). The train kernels: the work of one
     # davo train step at B=4 (its 3 cost-volume levels at S*B=8; its 16
-    # banded warps, TRAIN_WARPS), launches over the 5 train steps. "ms"
-    # and "library_ms" are device times (CUDA-graph replay); "call_ms"
-    # times one call from Python, host overhead included.
+    # banded warps, TRAIN_WARPS), launches over the 5 train steps; beside
+    # them the B=64 step's share (the 3 levels at S*B=128, and one C=1
+    # 128x416 backward with d/dimg at B=64, per launch). "ms" and
+    # "library_ms" are device times (CUDA-graph replay); "call_ms" times
+    # one call from Python, host overhead included.
     per_request = [r for r in rows if r["shape"].startswith("main path")]
     per_step_cv = [r for r in bwd_rows if r["B"] == 8]
+    b64_cv = [r for r in bwd_rows if r["B"] == 128]
+    b64_warp = next(r for r in extra_band_rows if (r["C"], r["H"], r["W"], r["B"]) == (1, 128, 416, 64))
 
     def step_sum(key):
         return sum(r[key] * r["per_step"] for r in band_rows)
@@ -1849,12 +1921,14 @@ def main() -> int:
             "bound_ms": sum(r["bound_ms"] for r in per_step_cv),
             "bound_by": bound_by(r["bound_by"] for r in per_step_cv),
             "library_ms": None,
+            "b64_step_ms": sum(r["device_ms"] for r in b64_cv),
+            "b64_step_bound_ms": sum(r["bound_ms"] for r in b64_cv),
         },
         {
             "name": "banded_warp", "route": "cuda", "source": "davo_tpu_torch/csrc/bandwarp.cu",
             "replaces": "davo_tpu/kernels/bandwarp.py:161",
             "launches": train_counts["banded_warp"],
-            "max_abs_err": max(r["fwd_max_abs_err"] for r in band_rows),
+            "max_abs_err": max(r["fwd_max_abs_err"] for r in band_rows + extra_band_rows),
             "ms": step_sum("fwd_device_ms"), "call_ms": step_sum("fwd_ms"),
             "plain_ms": step_sum("fwd_plain_ms"), "bound_ms": step_sum("fwd_bound_ms"),
             "bound_by": bound_by(r["fwd_bound_by"] for r in band_rows),
@@ -1865,13 +1939,15 @@ def main() -> int:
             "name": "banded_warp_backward", "route": "cuda", "source": "davo_tpu_torch/csrc/bandwarp.cu",
             "replaces": "davo_tpu/kernels/bandwarp.py:188",
             "launches": train_counts["banded_warp_backward"],
-            "max_abs_err": max(r["bwd_max_rel_err"] for r in band_rows),
+            "max_abs_err": max(r["bwd_max_rel_err"] for r in band_rows + extra_band_rows),
             "max_err_is": "relative to the largest gradient",
             "ms": step_sum("bwd_device_ms"), "call_ms": step_sum("bwd_ms"),
             "plain_ms": step_sum("bwd_plain_ms"), "bound_ms": step_sum("bwd_bound_ms"),
             "bound_by": bound_by(r["bwd_bound_by"] for r in band_rows),
             "library_ms": step_sum("bwd_library_device_ms"),
             "library_call_ms": step_sum("bwd_library_ms"),
+            "c1_b64_ms": b64_warp["bwd_device_ms"], "c1_b64_library_ms": b64_warp["bwd_library_device_ms"],
+            "c1_b64_bound_ms": b64_warp["bwd_bound_ms"],
         },
     ]
     # The fused kernels: the work of one serving request in bf16, the

@@ -17,23 +17,53 @@
 // same function, and the same sums in the same order (ox outer, oy
 // inner), so the kernel agrees with the plain version to fma rounding.
 //
-// Backward, one thread per output pixel: d/du and d/dv contract the
+// Backward: d/du and d/dv, one thread per output pixel, contract the
 // cotangent over channels against the four taps, with the floor-cell
 // subgradient of hat (t in [0, 1) -> -1, t in [-1, 0) -> +1), times
 //   mask_u = |u - x| <= rh  and  0 <= ucp < W-1   (ucp = band-clamped u)
 // and the same for v (band bound inclusive, low frame edge inclusive,
-// high edge exclusive), as _bwd_kernel does. d/dimg, when asked for, is
-// the transpose written as a GATHER: each source pixel visits the
-// (2rh+2) x (2rv+2) output pixels whose floor cell can contain it, in the
-// TPU kernel's order, and sums their weighted cotangents. No atomics, so
-// the result is deterministic and equals the plain version's sum order.
+// high edge exclusive), as _bwd_kernel does.
+//
+// d/dimg, when asked for, is the transpose: each output pixel's weighted
+// cotangent goes to the four taps of its floor cell. The first design
+// wrote it as a gather, one thread per (source pixel, channel) visiting
+// the whole (2rh+2) x (2rv+2) window of output pixels that could reach it
+// (340 at band (4, 16)), re-reading each one's coordinates through L1
+// and recomputing its clamps: O(window) work per source element, 10x
+// slower than grid_sample's backward at C=1. Now it is a tile-local
+// scatter, as _bwd_kernel accumulates into its padded `dpad` plane: a
+// block owns a 64x16 source tile (channels in chunks of 4) with its
+// accumulator in shared memory. An output pixel's band-clamped floor
+// cell lies in columns [x-rh, x+rh+1] and rows [y-rv, y+rv+1], so only
+// the output pixels of the tile grown by rh+1 columns on the left, rh
+// on the right, rv+1 rows above and rv below reach it (97x25 at band
+// (4, 16)). The block stages that halo's coordinates and cotangents in
+// shared memory with cp.async (every load in flight at once), then
+// visits each halo pixel once: its cell and four weights computed
+// exactly as in the forward, and the taps that fall inside the tile
+// added to the accumulator (a tap past the last row or column is neither
+// read nor added). The tile is then written once, coalesced: no global
+// atomics, no second pass.
+//
+// The adds are integer atomics on a fixed-point accumulator. The card has
+// no native shared-memory float add: atomicAdd on a float is a compare-
+// and-swap loop, and where many pixels clamp to one frame edge it
+// serialises (PERF.md compares the two on phase 3c's edge frames).
+// Integer adds are native and associative, so the sum is also exact and
+// bitwise reproducible. Each term w*g is scaled by a power of two chosen
+// from the block's largest |g| and halo size, rounded to a 64-bit integer
+// (relative precision 2^-38 of that |g| at band (4, 16)) and added as a
+// signed high word and an unsigned low word, sized so that neither sum
+// can overflow; the exact total is rounded to float32 once. The result
+// differs from the plain version's float32 sums by their rounding only.
+// A non-finite cotangent in a tile's halo makes that tile's d/dimg NaN.
+// d/du and d/dv stay a separate launch of O(1) work per pixel.
 //
 // Bound on this card: memory. The forward reads 8 B of coordinates and
 // 4C B of image per pixel and writes 4C B; the taps of neighbouring
-// pixels overlap and come from L1/L2. The d/dimg gather re-reads the
-// coordinates of its window (340 pixels at band (4, 16)) through L1,
-// which the byte bound does not count; it runs only for the geometry
-// term's C=1 warps.
+// pixels overlap and come from L1/L2. The d/dimg scatter stages each
+// output pixel's 8 + 4C bytes about 2.4 times (the halo; from L2) and
+// runs only for the geometry term's C=1 warps on the train step.
 
 #include <climits>
 
@@ -142,41 +172,163 @@ banded_warp_bwd_coords_kernel(const float* __restrict__ img, const float* __rest
   }
 }
 
-// One thread per (source pixel, channel) of d/dimg.
+// 4-byte asynchronous copy global -> shared (cp.async: no register held
+// while the load is in flight).
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(to), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// d/dimg tiles: kImgTileX x kImgTileY source pixels, channels in chunks
+// of kImgChunk. A block's 48 KB of shared memory hold the tile's two
+// integer accumulators, one word for the block's largest cotangent, then
+// as much of its halo (coordinates and the chunk's cotangent channels) as
+// fits: all of it at band (4, 16) for C=1.
+constexpr int kImgTileX = 64, kImgTileY = 16, kImgChunk = 4;
+constexpr int kImgSmemWords = 12288;
+
+// The bits of the fixed-point terms of a tile whose halo has `halo`
+// pixels: each source pixel sums at most `halo` terms, each split into a
+// high part (a signed word) and `lo_bits` low bits (an unsigned word),
+// and neither word's sum may overflow.
+struct FixedPoint {
+  int lo_bits, bits;
+  __device__ explicit FixedPoint(int halo) {
+    const int halo_bits = 32 - __clz(halo);  // halo < 2^halo_bits
+    lo_bits = 32 - halo_bits;
+    bits = 62 - 2 * halo_bits;  // |term| <= 2^bits, so each sum fits
+  }
+};
+
+// One block per source tile, grid-stride.
 __global__ void __launch_bounds__(kThreads)
 banded_warp_bwd_img_kernel(const float* __restrict__ coords, const float* __restrict__ g,
                            float* __restrict__ dimg, int H, int W, int C, int rv, int rh,
-                           long long elements) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+                           int tiles_x, int tiles_y, long long tiles) {
+  __shared__ int smem[kImgSmemWords];
   const float frv = static_cast<float>(rv), frh = static_cast<float>(rh);
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < elements;
-       i += stride) {
-    const int c = static_cast<int>(i % C);
-    const long long qp = i / C;  // source pixel
-    const int xq = static_cast<int>(qp % W);
-    const long long row = qp / W;  // b*H + yq
-    const int yq = static_cast<int>(row % H);
-    const long long base = row - yq;  // b*H
-    const float fxq = static_cast<float>(xq), fyq = static_cast<float>(yq);
-    float acc = 0.0f;
-    for (int ox = -rh; ox <= rh + 1; ++ox) {
-      const int xp = xq - ox;
-      if (xp < 0 || xp >= W) continue;
-      for (int oy = -rv; oy <= rv + 1; ++oy) {
-        const int yp = yq - oy;
-        if (yp < 0 || yp >= H) continue;
-        const long long p = (base + yp) * W + xp;
-        const float uc = frame(band(__ldg(coords + 2 * p), static_cast<float>(xp), frh), W - 1.0f);
-        const float wu = hat(uc - fxq);
-        if (wu == 0.0f) continue;
-        const float vc =
-            frame(band(__ldg(coords + 2 * p + 1), static_cast<float>(yp), frv), H - 1.0f);
-        const float wv = hat(vc - fyq);
-        if (wv == 0.0f) continue;
-        acc += (wv * wu) * __ldg(g + p * C + c);
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int x0 = static_cast<int>(t % tiles_x) * kImgTileX;
+    const long long r = t / tiles_x;
+    const int y0 = static_cast<int>(r % tiles_y) * kImgTileY;
+    const long long row0 = (r / tiles_y) * H;  // b*H
+    const int x1 = min(x0 + kImgTileX, W), y1 = min(y0 + kImgTileY, H);
+    // Output pixels whose floor cell can reach the tile, clipped to the frame.
+    const int hx0 = max(x0 - rh - 1, 0), hx1 = min(x1 + rh, W);
+    const int hy0 = max(y0 - rv - 1, 0), hy1 = min(y1 + rv, H);
+    const int hw = hx1 - hx0, halo = hw * (hy1 - hy0);
+    const FixedPoint fix(halo);
+    for (int c0 = 0; c0 < C; c0 += kImgChunk) {
+      const int cc = min(kImgChunk, C - c0);
+      const int tile = kImgTileX * kImgTileY * cc;
+      int* acc_hi = smem;  // (kImgTileY, kImgTileX, cc) each
+      unsigned* acc_lo = reinterpret_cast<unsigned*>(smem + tile);
+      int* gmax_bits = smem + 2 * tile;
+      const int cap = (kImgSmemWords - 2 * tile - 1) / (2 + cc);
+      float* su = reinterpret_cast<float*>(smem + 2 * tile + 1);  // staged halo:
+      float* sv = su + cap;  // u, v, then the chunk's cotangent channels,
+      float* sg = sv + cap;  // cap pixels each
+      __syncthreads();  // the previous chunk is written out
+      for (int i = threadIdx.x; i < 2 * tile; i += kThreads) smem[i] = 0;
+      if (threadIdx.x == 0) *gmax_bits = 0;
+      __syncthreads();
+      // The halo's largest |cotangent| sets the fixed-point scale: from the
+      // staged halo when it fits at once, else from a pass over it.
+      const bool one_part = halo <= cap;
+      float gmax = 0.0f;
+      if (one_part) {
+        for (int i = threadIdx.x; i < halo; i += kThreads) {
+          const long long p = (row0 + hy0 + i / hw) * W + hx0 + i % hw;
+          copy_async(su + i, coords + 2 * p);
+          copy_async(sv + i, coords + 2 * p + 1);
+          for (int c = 0; c < cc; ++c) copy_async(sg + c * cap + i, g + p * C + c0 + c);
+        }
+        copy_async_wait();
+        __syncthreads();
+        for (int i = threadIdx.x; i < halo * cc; i += kThreads) {
+          gmax = fmaxf(gmax, fabsf(sg[(i / halo) * cap + i % halo]));
+        }
+      } else {
+        for (int i = threadIdx.x; i < halo; i += kThreads) {
+          const long long p = (row0 + hy0 + i / hw) * W + hx0 + i % hw;
+          for (int c = 0; c < cc; ++c) gmax = fmaxf(gmax, fabsf(__ldg(g + p * C + c0 + c)));
+        }
+      }
+      for (int o = 16; o > 0; o >>= 1) gmax = fmaxf(gmax, __shfl_xor_sync(0xffffffffu, gmax, o));
+      if ((threadIdx.x & 31) == 0) atomicMax(gmax_bits, __float_as_int(gmax));  // gmax >= 0
+      __syncthreads();
+      // A non-finite cotangent has no fixed-point scale: the chunk's
+      // outputs are then NaN.
+      const bool finite = isfinite(__int_as_float(*gmax_bits));
+      int gmax_exp = 0;  // gmax < 2^gmax_exp
+      if (finite) frexpf(__int_as_float(*gmax_bits), &gmax_exp);
+      const double scale = ldexp(1.0, fix.bits - gmax_exp);
+      const long long lo_mask = (1LL << fix.lo_bits) - 1;
+      for (int h0 = 0; h0 < halo; h0 += cap) {
+        const int n = min(cap, halo - h0);
+        if (!one_part) {
+          __syncthreads();  // the previous part of the halo is consumed
+          for (int i = threadIdx.x; i < n; i += kThreads) {
+            const int hi = h0 + i;
+            const long long p = (row0 + hy0 + hi / hw) * W + hx0 + hi % hw;
+            copy_async(su + i, coords + 2 * p);
+            copy_async(sv + i, coords + 2 * p + 1);
+            for (int c = 0; c < cc; ++c) copy_async(sg + c * cap + i, g + p * C + c0 + c);
+          }
+          copy_async_wait();
+          __syncthreads();
+        }
+        for (int i = threadIdx.x; i < n; i += kThreads) {
+          const int hi = h0 + i;
+          const int yp = hy0 + hi / hw, xp = hx0 + hi % hw;
+          const float uc = frame(band(su[i], static_cast<float>(xp), frh), W - 1.0f);
+          const float vc = frame(band(sv[i], static_cast<float>(yp), frv), H - 1.0f);
+          const int xa = static_cast<int>(floorf(uc));
+          const int ya = static_cast<int>(floorf(vc));
+          // Which taps of the cell lie in the tile (and so in the frame).
+          const bool ix0 = xa >= x0 && xa < x1, ix1 = xa + 1 >= x0 && xa + 1 < x1;
+          const bool iy0 = ya >= y0 && ya < y1, iy1 = ya + 1 >= y0 && ya + 1 < y1;
+          if (!((ix0 || ix1) && (iy0 || iy1))) continue;
+          const float wu0 = hat(uc - static_cast<float>(xa));
+          const float wu1 = hat(uc - static_cast<float>(xa + 1));
+          const float wv0 = hat(vc - static_cast<float>(ya));
+          const float wv1 = hat(vc - static_cast<float>(ya + 1));
+          const float w[4] = {wv0 * wu0, wv0 * wu1, wv1 * wu0, wv1 * wu1};
+          const bool in[4] = {iy0 && ix0, iy0 && ix1, iy1 && ix0, iy1 && ix1};
+          const int o00 = ((ya - y0) * kImgTileX + (xa - x0)) * cc;
+          const int off[4] = {o00, o00 + cc, o00 + kImgTileX * cc, o00 + (kImgTileX + 1) * cc};
+          for (int c = 0; c < cc; ++c) {
+            const float gv = sg[c * cap + i];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              // The term (w * g), in fixed point; zero terms add nothing.
+              const long long q = __double2ll_rn(static_cast<double>(w[k] * gv) * scale);
+              if (!in[k] || q == 0) continue;
+              atomicAdd(acc_hi + off[k] + c, static_cast<int>(q >> fix.lo_bits));
+              atomicAdd(acc_lo + off[k] + c, static_cast<unsigned>(q & lo_mask));
+            }
+          }
+        }
+      }
+      __syncthreads();
+      // Write the tile's chunk once: consecutive threads, consecutive
+      // (pixel, channel) of a tile row.
+      const double unscale = ldexp(1.0, gmax_exp - fix.bits);
+      const int tw = x1 - x0;
+      for (int i = threadIdx.x; i < (y1 - y0) * tw * cc; i += kThreads) {
+        const int c = i % cc, pix = i / cc;
+        const int ly = pix / tw, lx = pix % tw;
+        const int a = (ly * kImgTileX + lx) * cc + c;
+        const long long sum = static_cast<long long>(acc_hi[a]) * (1LL << fix.lo_bits) +
+                              static_cast<long long>(acc_lo[a]);
+        dimg[((row0 + y0 + ly) * W + x0 + lx) * C + c0 + c] =
+            finite ? static_cast<float>(static_cast<double>(sum) * unscale) : nanf("");
       }
     }
-    dimg[i] = acc;
   }
 }
 
@@ -206,7 +358,8 @@ int davo_banded_warp_f32(const void* img, const void* coords, void* out, int B, 
 }
 
 // g: (B, H, W, C) cotangent of out; dcoords: (B, H, W, 2); dimg:
-// (B, H, W, C) or null when the image needs no gradient. Same contract.
+// (B, H, W, C) or null when the image needs no gradient. Same contract;
+// with dimg, a band whose tile halo reaches 2^20 pixels is refused.
 int davo_banded_warp_bwd_f32(const void* img, const void* coords, const void* g, void* dcoords,
                              void* dimg, int B, int H, int W, int C, int rv, int rh,
                              void* stream) {
@@ -220,9 +373,18 @@ int davo_banded_warp_bwd_f32(const void* img, const void* coords, const void* g,
       static_cast<float>(rv), static_cast<float>(rh), pixels);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || dimg == nullptr) return static_cast<int>(err);
-  banded_warp_bwd_img_kernel<<<static_cast<int>(grid_for(pixels * C)), kThreads, 0, s>>>(
+  // The fixed point keeps 2^-22 of a tile's largest cotangent or better
+  // while a tile's halo stays under 2^20 pixels.
+  if ((2LL * rh + kImgTileX + 1) * (2LL * rv + kImgTileY + 1) >= (1LL << 20)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tiles_x = (W + kImgTileX - 1) / kImgTileX;
+  const int tiles_y = (H + kImgTileY - 1) / kImgTileY;
+  const long long tiles = static_cast<long long>(B) * tiles_y * tiles_x;
+  const int grid = static_cast<int>(tiles < (1LL << 20) ? tiles : (1LL << 20));
+  banded_warp_bwd_img_kernel<<<grid, kThreads, 0, s>>>(
       static_cast<const float*>(coords), static_cast<const float*>(g),
-      static_cast<float*>(dimg), H, W, C, rv, rh, pixels * C);
+      static_cast<float*>(dimg), H, W, C, rv, rh, tiles_x, tiles_y, tiles);
   return static_cast<int>(cudaGetLastError());
 }
 

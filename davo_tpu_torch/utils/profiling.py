@@ -38,14 +38,19 @@ def block_until_ready(out):
 @contextlib.contextmanager
 def profile_trace(log_dir: str):
     """Capture a torch.profiler trace (host, and the GPU when there is one)
-    into `log_dir/trace.json` (Chrome trace format, Perfetto-readable)."""
+    into `log_dir/trace.json` (Chrome trace format, Perfetto-readable).
+    The trace is written even when the body raises, as the reference's
+    stops in a `finally`; the exception still propagates."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    prof = torch.profiler.profile(activities=activities)
+    try:
+        with prof:
+            yield
+    finally:
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 def timed(fn, *args, iters: int = 20, loops: int = 5) -> dict:

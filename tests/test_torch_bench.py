@@ -70,6 +70,17 @@ def test_timed_and_profile_trace_on_the_cpu(tmp_path):
     assert trace.exists() and "traceEvents" in json.loads(trace.read_text())
 
 
+def test_profile_trace_writes_its_trace_when_the_body_raises(tmp_path):
+    # The reference stops its trace in a `finally`: the trace is kept and
+    # the exception still reaches the caller.
+    with pytest.raises(ZeroDivisionError):
+        with profiling.profile_trace(str(tmp_path / "trace")):
+            torch.relu(torch.randn(64, 64) @ torch.randn(64, 64))
+            raise ZeroDivisionError("body failed")
+    trace = tmp_path / "trace" / "trace.json"
+    assert trace.exists() and "traceEvents" in json.loads(trace.read_text())
+
+
 def test_bench_inference_and_train_step_keys_on_tiny():
     cfg = presets.get("tiny")
     inference = throughput.bench_inference(cfg, batch=2, iters=1, device="cpu")

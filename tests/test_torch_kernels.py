@@ -6,6 +6,10 @@ chip_smoke.py. Inputs come from numpy with a fixed seed and go to both
 packages.
 """
 
+import ctypes
+import re
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -78,6 +82,25 @@ def test_cost_volume_backward_matches_reference(search, channels):
     assert only2[0] is None and torch.equal(only2[1], got2)
 
 
+@pytest.mark.parametrize("need", [(True, True), (True, False), (False, True)])
+def test_cost_volume_backward_at_the_train_search_on_an_odd_frame(need):
+    """s=4 (D=81) with C=20 on a 5x9 frame: smaller than the CUDA
+    kernel's 8x16 tile, channels short of its 32-channel slice, every
+    shift row partly out of frame. The plain backward against jax.vjp of
+    the XLA cost volume (1e-5), each gradient alone or both."""
+    search, d = 4, 81
+    a, b = _maps(45, (2, 5, 9, 20))
+    g = np.random.default_rng(46).normal(size=(2, 5, 9, d)).astype(np.float32)
+    _, vjp = jax.vjp(lambda x, y: j_cost_volume(x, y, search), jnp.asarray(a), jnp.asarray(b))
+    want = vjp(jnp.asarray(g))
+    got = costvol.cost_volume_plain_bwd(*(torch.from_numpy(x) for x in (a, b, g)), search, *need)
+    for asked, x, y in zip(need, got, want):
+        if asked:
+            np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=0, atol=1e-5)
+        else:
+            assert x is None
+
+
 def test_cost_volume_wrapper_on_cpu_is_plain_and_uncounted():
     a, b = (torch.from_numpy(x) for x in _maps(1, (2, 5, 9, 8)))
     before = costvol.launches
@@ -105,6 +128,52 @@ def test_kernel_build_failure_raises_and_leaves_no_library(tmp_path, monkeypatch
     with pytest.raises(RuntimeError, match="costvol.cu .nvcc exit 1"):
         cuda_build.load("costvol")
     assert not list(tmp_path.iterdir()) and not cuda_build._LOADED
+
+
+class _StubLibrary:
+    """Takes `argtypes` and `restype` for any function name, as a CDLL does."""
+
+    def __init__(self):
+        self.functions = {}
+
+    def __getattr__(self, name):
+        return self.functions.setdefault(name, types.SimpleNamespace())
+
+
+def _c_prototypes(source: str) -> dict[str, list[str]]:
+    """The parameter types of each function of the `extern "C"` block."""
+    block = source[source.index('extern "C"'):]
+    found = re.findall(r"^(?:int|const char\*)\s+(davo_\w+)\(([^)]*)\)\s*\{", block, re.M)
+    return {name: [" ".join(p.split()[:-1]) for p in params.split(",")] for name, params in found}
+
+
+def test_ctypes_argtypes_match_the_c_prototypes(monkeypatch):
+    """Each wrapper module's `_library()` declares, for every function of
+    its source's C interface, one ctypes type per C parameter, c_void_p
+    for each pointer: a mismatch would silently cut a pointer to 32 bits."""
+    from davo_tpu_torch.kernels import bandwarp, conv_stack, rowconv, rowconv_ad
+
+    modules = (costvol, bandwarp, rowconv, rowconv_ad, conv_stack)
+    stubs = {}
+    monkeypatch.setattr(cuda_build, "load", lambda name: stubs.setdefault(name, _StubLibrary()))
+    for module in modules:
+        module._library.cache_clear()
+    try:
+        for module in modules:
+            module._library()
+    finally:
+        for module in modules:
+            module._library.cache_clear()
+    assert sorted(stubs) == sorted(p.stem for p in cuda_build.CSRC_DIR.glob("*.cu"))
+    for name, lib in stubs.items():
+        prototypes = _c_prototypes((cuda_build.CSRC_DIR / f"{name}.cu").read_text())
+        assert prototypes and sorted(prototypes) == sorted(lib.functions), name
+        for fn, params in prototypes.items():
+            argtypes = lib.functions[fn].argtypes
+            assert len(argtypes) == len(params), (name, fn)
+            for param, argtype in zip(params, argtypes):
+                assert "*" in param or param == "int", (fn, param)
+                assert argtype is (ctypes.c_void_p if "*" in param else ctypes.c_int), (name, fn, param)
 
 
 def test_cost_volume_rows_matches_pallas_rows():
