@@ -2,6 +2,9 @@
 """Drive the PyTorch/CUDA port (davo_tpu_torch) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py        # from the repository root, one GPU
+    python3 chip_smoke.py --costvol-against OTHER/davo_tpu_torch/csrc/costvol.cu
+        # only the cost-volume forward of another checkout against this
+        # one's, timed in turns on the main paths' shapes
 
 Phases, in order; any failure exits non-zero:
   1. environment: card name and power limit, torch/CUDA versions, TF32 flags
@@ -9,10 +12,14 @@ Phases, in order; any failure exits non-zero:
      per source, all started together)
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it, with times, the card's bound and, for
-     the banded warp, F.grid_sample as the library yardstick; (3b) the
+     the banded warp, F.grid_sample as the library yardstick: the cost
+     volume on float32 and bf16 maps at one serving request's levels,
+     one davo train step's levels at S*B=8 and 128, B=256 forwards, and
+     odd frames, unaligned maps and searches 7 and 12; (3b) the
      cost-volume backward also at S*B=128 and on an odd frame (11x29,
-     C=20), (3c) the banded backward with d/dimg also at C=1 128x416
-     B=64 and on two edge frames (37x61, 5x7); (3d) the
+     C=20), (3c) the banded forward and backward at B=64 (C=3 and C=1
+     128x416, the backward with d/dimg) and on two edge frames (37x61,
+     5x7); (3d) the
      fused serving kernels at one fused request's shapes in bf16, f32 and
      bf16_dot, with the port's unfused route as the yardstick; (3e) the
      training chains' backward kernels against their plain backwards at
@@ -123,71 +130,108 @@ def _graph_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def _costvol_bound_ms(B, H, W, C, search):
+def _costvol_bound_ms(B, H, W, C, search, elem=4):
+    """Each map read once at its element size, the float32 volume written
+    once; the FMAs at the float32 rate."""
     D = (2 * search + 1) ** 2
-    bytes_ms = 4.0 * B * H * W * (2 * C + D) / HBM_BYTES_PER_S * 1e3
+    bytes_ms = B * H * W * (2.0 * C * elem + 4.0 * D) / HBM_BYTES_PER_S * 1e3
     flops_ms = 2.0 * B * H * W * D * C / F32_FLOPS * 1e3
     return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations")
 
 
+# Phase 3's shapes, (label, B, H, W, C, search), each in float32 and
+# bfloat16 (the presets' compute dtype, which the main paths give the
+# kernel). "main path": one request of the serving path (phase 4, 64
+# pairs); "train": `davo`'s three levels of one train step at S*B = 8
+# and 128 (B = 4 and 64, two sources), as phase 3b; then B=256 forwards,
+# and shapes for the kernel's other paths: a frame smaller than its tile
+# with odd C (plain loads), maps 4 bytes off a 16-byte boundary (plain
+# loads), and searches beyond the presets' (the generic instantiation:
+# dx in chunks of 8; at s=12 the tile shrinks to one row, 800 threads).
+COSTVOL_SHAPES = [
+    ("main path /8", 64, 16, 52, 8, 3),
+    ("main path /4", 64, 32, 104, 8, 3),
+    *[(f"train S*B={B} {label}", B, H, W, C, 4) for B in (8, 128)
+      for label, H, W, C in (("/16", 8, 26, 96), ("/8", 16, 52, 64), ("/4", 32, 104, 32))],
+    ("davo-fast /8", 256, 16, 52, 8, 3),
+    ("davo-fast /4", 256, 32, 104, 8, 3),
+    ("davo /16", 256, 8, 26, 96, 4),
+    ("davo /8", 256, 16, 52, 64, 4),
+    ("davo /4", 256, 32, 104, 32, 4),
+    ("ragged, odd C", 3, 7, 13, 5, 2),
+    ("ragged, unaligned", 2, 9, 26, 8, 3),
+    ("search 7", 2, 11, 29, 12, 7),
+    ("search 12", 1, 5, 40, 8, 12),
+]
+
+
 def check_cost_volume(torch, costvol):
-    """Phase 3: the kernel against `cost_volume_plain` on the card."""
+    """Phase 3: the kernel against `cost_volume_plain` on the card, at
+    COSTVOL_SHAPES in float32 and bfloat16 maps."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = [
-        # (label, B, H, W, C, search). The first two are the shapes the
-        # main path (phase 4, requests of 64 pairs) gives the kernel.
-        ("main path /8", 64, 16, 52, 8, 3),
-        ("main path /4", 64, 32, 104, 8, 3),
-        ("davo-fast /8", 256, 16, 52, 8, 3),
-        ("davo-fast /4", 256, 32, 104, 8, 3),
-        ("davo /16", 256, 8, 26, 96, 4),
-        ("davo /8", 256, 16, 52, 64, 4),
-        ("davo /4", 256, 32, 104, 32, 4),
-        ("ragged, odd C", 3, 7, 13, 5, 2),
-        ("ragged, unaligned", 2, 9, 26, 8, 3),
-    ]
     rows = []
-    for label, B, H, W, C, s in cases:
-        n = B * H * W * C
-        if label == "ragged, unaligned":
-            # Contiguous maps that start 4 bytes off a 16-byte boundary:
-            # the kernel's scalar path.
-            f1 = torch.randn(n + 1, device="cuda", generator=gen)[1:].view(B, H, W, C)
-            f2 = torch.randn(n + 1, device="cuda", generator=gen)[1:].view(B, H, W, C)
-        else:
-            f1 = torch.randn(B, H, W, C, device="cuda", generator=gen)
-            f2 = torch.randn(B, H, W, C, device="cuda", generator=gen)
-        got = costvol.cost_volume(f1, f2, s)
-        torch.cuda.synchronize()
-        want = costvol.cost_volume_plain(f1, f2, s)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        ms = _event_ms(lambda: costvol.cost_volume(f1, f2, s), 30)
-        device_ms = _graph_ms(lambda: costvol.cost_volume(f1, f2, s))
-        plain_ms = _event_ms(lambda: costvol.cost_volume_plain(f1, f2, s), 20)
-        bound_ms, bound_by = _costvol_bound_ms(B, H, W, C, s)
-        row = {
-            "shape": label, "B": B, "H": H, "W": W, "C": C, "search": s,
-            "max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        }
-        print(json.dumps({"phase": "costvol", **row}), flush=True)
-        if not err <= COSTVOL_TOL:
-            raise AssertionError(f"cost volume {label}: max abs err {err} > {COSTVOL_TOL}")
-        rows.append(row)
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, B, H, W, C, s in COSTVOL_SHAPES:
+            n = B * H * W * C
+            if label == "ragged, unaligned":
+                # Contiguous maps that start 4 bytes off a 16-byte boundary.
+                k = 32 // torch.finfo(dtype).bits  # elements in 4 bytes
+                f1 = torch.randn(n + k, device="cuda", generator=gen).to(dtype)[k:].view(B, H, W, C)
+                f2 = torch.randn(n + k, device="cuda", generator=gen).to(dtype)[k:].view(B, H, W, C)
+                if f1.data_ptr() % 16 != 4 or f2.data_ptr() % 16 != 4:
+                    raise AssertionError(f"unaligned case at offsets {f1.data_ptr() % 16}, {f2.data_ptr() % 16}")
+            else:
+                f1 = torch.randn(B, H, W, C, device="cuda", generator=gen).to(dtype)
+                f2 = torch.randn(B, H, W, C, device="cuda", generator=gen).to(dtype)
+            got = costvol.cost_volume(f1, f2, s)
+            torch.cuda.synchronize()
+            want = costvol.cost_volume_plain(f1, f2, s)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if got.dtype != torch.float32 or got.shape != (B, H, W, (2 * s + 1) ** 2):
+                raise AssertionError(f"cost volume {label}: {got.dtype} {tuple(got.shape)}")
+            ms = _event_ms(lambda: costvol.cost_volume(f1, f2, s), 30)
+            device_ms = _graph_ms(lambda: costvol.cost_volume(f1, f2, s))
+            plain_ms = _event_ms(lambda: costvol.cost_volume_plain(f1, f2, s), 5 if B == 256 else 20)
+            bound_ms, bound_by = _costvol_bound_ms(B, H, W, C, s, f1.element_size())
+            row = {
+                "shape": label, "dtype": str(dtype).split(".")[-1], "B": B, "H": H, "W": W, "C": C,
+                "search": s, "max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            }
+            print(json.dumps({"phase": "costvol", **row}), flush=True)
+            if not err <= COSTVOL_TOL:
+                raise AssertionError(f"cost volume {label} {dtype}: max abs err {err} > {COSTVOL_TOL}")
+            rows.append(row)
+
+    # The largest search whose smallest (1x4) tile fits a block's shared
+    # memory, and the first the wrapper refuses, saying why.
+    for dtype in (torch.float32, torch.bfloat16):
+        f1 = torch.randn(1, 3, 5, 8, device="cuda", generator=gen).to(dtype)
+        f2 = torch.randn(1, 3, 5, 8, device="cuda", generator=gen).to(dtype)
+        err = float((costvol.cost_volume(f1, f2, 43) - costvol.cost_volume_plain(f1, f2, 43)).abs().max())
+        try:
+            costvol.cost_volume(f1, f2, 44)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        print(json.dumps({"phase": "costvol_limit", "dtype": str(dtype).split(".")[-1], "search": 43,
+                          "max_abs_err": err, "search_44_refused": refused}), flush=True)
+        if not err <= COSTVOL_TOL or refused is None or "shared memory" not in refused:
+            raise AssertionError(f"cost volume search limit {dtype}: err {err}, refusal {refused!r}")
 
     # The rows layout (B, H*W, C) is the same kernel behind a reshape;
-    # timed at the main path's /4 shape.
+    # timed at the main path's /4 shape, in the presets' bf16.
     B, H, W, C, s = 64, 32, 104, 8, 3
-    f1 = torch.randn(B, H * W, C, device="cuda", generator=gen)
-    f2 = torch.randn(B, H * W, C, device="cuda", generator=gen)
+    f1 = torch.randn(B, H * W, C, device="cuda", generator=gen).bfloat16()
+    f2 = torch.randn(B, H * W, C, device="cuda", generator=gen).bfloat16()
     got = costvol.cost_volume_rows(f1, f2, H, W, s)
     torch.cuda.synchronize()
     want = costvol.cost_volume_plain(f1.view(B, H, W, C), f2.view(B, H, W, C), s)
     err = float((got - want.view(B, H * W, -1)).abs().max())
-    bound_ms, bound_by = _costvol_bound_ms(B, H, W, C, s)
+    bound_ms, bound_by = _costvol_bound_ms(B, H, W, C, s, 2)
     print(json.dumps({
-        "phase": "costvol_rows", "B": B, "H": H, "W": W, "C": C, "search": s,
+        "phase": "costvol_rows", "dtype": "bfloat16", "B": B, "H": H, "W": W, "C": C, "search": s,
         "max_abs_err": err,
         "ms": _event_ms(lambda: costvol.cost_volume_rows(f1, f2, H, W, s), 30),
         "device_ms": _graph_ms(lambda: costvol.cost_volume_rows(f1, f2, H, W, s)),
@@ -196,6 +240,63 @@ def check_cost_volume(torch, costvol):
     if not err <= COSTVOL_TOL:
         raise AssertionError(f"cost volume rows: max abs err {err} > {COSTVOL_TOL}")
     return rows
+
+
+def compare_cost_volume(torch, costvol, other_source):
+    """`--costvol-against FILE`: the forward kernel built from another
+    checkout's csrc/costvol.cu (through its float32 C entry point; bf16
+    maps are cast to float32 first, as that checkout's model did) against
+    this checkout's, at phase 3's shapes of the main paths, in both
+    dtypes: both held to `cost_volume_plain`, then device times in turns
+    (other, this, this, other)."""
+    import ctypes
+    import hashlib
+
+    from davo_tpu_torch.kernels import cuda_build
+
+    src = Path(other_source).resolve()
+    lib_path = cuda_build.BUILD_DIR / f"libcostvol-other-{hashlib.sha256(src.read_bytes()).hexdigest()[:16]}.so"
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib_path), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"building {src}: {proc.stdout}{proc.stderr}")
+    other = ctypes.CDLL(str(lib_path)).davo_cost_volume_f32
+    other.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    other.restype = ctypes.c_int
+
+    def other_call(f1, f2, s):
+        f1, f2 = f1.float(), f2.float()
+        B, H, W, C = f1.shape
+        out = torch.empty(B, H, W, (2 * s + 1) ** 2, device="cuda")
+        err = other(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), B, H, W, C, s,
+                    torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise AssertionError(f"{src}: launch failed ({err})")
+        return out
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, B, H, W, C, s in COSTVOL_SHAPES:
+            if not label.startswith(("main path", "train", "davo")):
+                continue
+            f1 = torch.randn(B, H, W, C, device="cuda", generator=gen).to(dtype)
+            f2 = torch.randn(B, H, W, C, device="cuda", generator=gen).to(dtype)
+            want = costvol.cost_volume_plain(f1, f2, s)
+            errs = [float((fn(f1, f2, s) - want).abs().max()) for fn in (other_call, costvol.cost_volume)]
+            if not max(errs) <= COSTVOL_TOL:
+                raise AssertionError(f"cost volume {label} {dtype}: errors (other, this) {errs}")
+            times = {"other": [], "this": []}
+            for name in ("other", "this", "this", "other"):
+                fn = other_call if name == "other" else costvol.cost_volume
+                times[name].append(_graph_ms(lambda: fn(f1, f2, s)))
+            bound_ms, bound_by = _costvol_bound_ms(B, H, W, C, s, f1.element_size())
+            print(json.dumps({
+                "phase": "costvol_against", "other": str(other_source), "shape": label,
+                "dtype": str(dtype).split(".")[-1], "B": B, "H": H, "W": W, "C": C, "search": s,
+                "max_abs_err": errs, "other_ms": times["other"], "this_ms": times["this"],
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            }), flush=True)
 
 
 def main_path(torch, costvol):
@@ -495,10 +596,13 @@ TRAIN_WARPS = {
 
 
 # Phase 3c's further shapes at band (4, 16), (C, H, W, B, fill): the
-# geometry term's C=1 warp with d/dimg at B=64, the batch users train at,
-# and two edge frames for the d/dimg tiles (64x16 source pixels): one
-# ragged in both axes, one smaller than the halo.
-EXTRA_WARPS = [(1, 128, 416, 64, "zeros"), (1, 37, 61, 4, "zeros"), (3, 5, 7, 4, "border")]
+# train step's full-resolution warps at B=64, the batch users train at
+# (the photometric C=3 "border" warp and the geometry term's C=1 warp,
+# forward and, with d/dimg, backward), and two edge frames for the d/dimg
+# tiles (64x16 source pixels): one ragged in both axes, one smaller than
+# the halo.
+EXTRA_WARPS = [(3, 128, 416, 64, "border"), (1, 128, 416, 64, "zeros"), (1, 37, 61, 4, "zeros"),
+               (3, 5, 7, 4, "border")]
 
 
 def _warp_errors(torch, bandwarp, img, coords, g, fill):
@@ -543,7 +647,8 @@ def check_banded_warp(torch, bandwarp):
     plain versions at every shape of the train step (B=4, band (4, 16)),
     with F.grid_sample on band-clamped coordinates as the library
     yardstick (the same forward; its backward follows other edge rules);
-    then EXTRA_WARPS, forward and backward with d/dimg (no plain timing)."""
+    then EXTRA_WARPS, forward and backward with d/dimg, timed beside
+    grid_sample and its backward (no plain timing)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -597,11 +702,19 @@ def check_banded_warp(torch, bandwarp):
         coords = _band_coords(torch, gen, B, H, W)
         g = torch.randn(B, H, W, C, device="cuda", generator=gen)
         fwd_err, bwd_err = _warp_errors(torch, bandwarp, img, coords, g, fill)
-        library_bwd = _grid_sample_bwd(torch, bandwarp, img, coords, g, True)[-1]
+        grid, nchw, _, library_bwd = _grid_sample_bwd(torch, bandwarp, img, coords, g, True)
+
+        def library_fwd():
+            return F.grid_sample(nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)
+
+        fwd_bound = _bound_ms(4.0 * B * H * W * (2 + 2 * C), 8.0 * B * H * W * C)
         bwd_bound = _bound_ms(4.0 * B * H * W * (4 + 3 * C), 16.0 * B * H * W * C)
         row = {
             "C": C, "H": H, "W": W, "B": B, "fill": fill, "per_step": 0,
             "fwd_max_abs_err": fwd_err, "bwd_max_rel_err": bwd_err, "bwd_need_img": True,
+            "fwd_device_ms": _graph_ms(lambda: bandwarp._launch_fwd(img, coords, rv, rh)),
+            "fwd_library_device_ms": _graph_ms(library_fwd),
+            "fwd_bound_ms": fwd_bound[0], "fwd_bound_by": fwd_bound[1],
             "bwd_device_ms": _graph_ms(lambda: bandwarp._launch_bwd(img, coords, g, rv, rh, True)),
             "bwd_library_device_ms": _graph_ms(library_bwd),
             "bwd_bound_ms": bwd_bound[0], "bwd_bound_by": bwd_bound[1],
@@ -1821,6 +1934,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--costvol-against"] and len(sys.argv) == 3:
+        from davo_tpu_torch.kernels import costvol
+
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True, timeout=60).stdout.strip(), flush=True)
+        compare_cost_volume(torch, costvol, sys.argv[2])
+        return 0
+    if sys.argv[1:]:
+        print("usage: python3 chip_smoke.py [--costvol-against PATH/csrc/costvol.cu]", file=sys.stderr)
+        return 2
     from davo_tpu_torch import exact_f32
     from davo_tpu_torch.kernels import bandwarp, costvol, cuda_build, rowconv, rowconv_ad
 
@@ -1877,18 +2000,27 @@ def main() -> int:
     bench_entry(torch, card, phase6_fps)
 
     # The kernels' line. cost_volume: the work of one serving request (its
-    # two flow levels at B=64), launches on both main paths (serving:
-    # 4 requests; train: 5 steps). The train kernels: the work of one
-    # davo train step at B=4 (its 3 cost-volume levels at S*B=8; its 16
-    # banded warps, TRAIN_WARPS), launches over the 5 train steps; beside
-    # them the B=64 step's share (the 3 levels at S*B=128, and one C=1
-    # 128x416 backward with d/dimg at B=64, per launch). "ms" and
-    # "library_ms" are device times (CUDA-graph replay); "call_ms" times
-    # one call from Python, host overhead included.
-    per_request = [r for r in rows if r["shape"].startswith("main path")]
+    # two flow levels at B=64) on bf16 maps, the presets' dtype, beside the
+    # same in float32 and the forward's share of one davo train step at
+    # B=4 and B=64 (its 3 levels at S*B=8 and 128, bf16); launches on both
+    # main paths (serving: 4 requests; train: 5 steps). The other train
+    # kernels: the work of one davo train step at B=4 (its 3 cost-volume
+    # levels at S*B=8; its 16 banded warps, TRAIN_WARPS), launches over
+    # the 5 train steps; beside them the B=64 step's share (the 3 levels at
+    # S*B=128; one C=1 128x416 backward with d/dimg and the C=3 and C=1
+    # forwards at B=64, per launch). "ms" and "library_ms" are device
+    # times (CUDA-graph replay); "call_ms" times one call from Python,
+    # host overhead included.
+    def cv_rows(prefix, dtype="bfloat16"):
+        return [r for r in rows if r["shape"].startswith(prefix) and r["dtype"] == dtype]
+
+    per_request = cv_rows("main path")
+    per_request32 = cv_rows("main path", "float32")
+    train_cv, b64_fwd_cv = cv_rows("train S*B=8 "), cv_rows("train S*B=128 ")
     per_step_cv = [r for r in bwd_rows if r["B"] == 8]
     b64_cv = [r for r in bwd_rows if r["B"] == 128]
     b64_warp = next(r for r in extra_band_rows if (r["C"], r["H"], r["W"], r["B"]) == (1, 128, 416, 64))
+    b64_warp3 = next(r for r in extra_band_rows if (r["C"], r["H"], r["W"], r["B"]) == (3, 128, 416, 64))
 
     def step_sum(key):
         return sum(r[key] * r["per_step"] for r in band_rows)
@@ -1909,6 +2041,13 @@ def main() -> int:
             "bound_ms": sum(r["bound_ms"] for r in per_request),
             "bound_by": bound_by(r["bound_by"] for r in per_request),
             "library_ms": None,
+            "dtype": "bfloat16",
+            "float32_ms": sum(r["device_ms"] for r in per_request32),
+            "float32_bound_ms": sum(r["bound_ms"] for r in per_request32),
+            "train_step_ms": sum(r["device_ms"] for r in train_cv),
+            "train_step_bound_ms": sum(r["bound_ms"] for r in train_cv),
+            "b64_step_ms": sum(r["device_ms"] for r in b64_fwd_cv),
+            "b64_step_bound_ms": sum(r["bound_ms"] for r in b64_fwd_cv),
         },
         {
             "name": "cost_volume_backward", "route": "cuda", "source": "davo_tpu_torch/csrc/costvol.cu",
@@ -1934,6 +2073,10 @@ def main() -> int:
             "bound_by": bound_by(r["fwd_bound_by"] for r in band_rows),
             "library_ms": step_sum("fwd_library_device_ms"),
             "library_call_ms": step_sum("fwd_library_ms"),
+            "c3_b64_ms": b64_warp3["fwd_device_ms"], "c3_b64_library_ms": b64_warp3["fwd_library_device_ms"],
+            "c3_b64_bound_ms": b64_warp3["fwd_bound_ms"],
+            "c1_b64_ms": b64_warp["fwd_device_ms"], "c1_b64_library_ms": b64_warp["fwd_library_device_ms"],
+            "c1_b64_bound_ms": b64_warp["fwd_bound_ms"],
         },
         {
             "name": "banded_warp_backward", "route": "cuda", "source": "davo_tpu_torch/csrc/bandwarp.cu",

@@ -3,10 +3,13 @@
 out[b, h, w, k] = mean_c f1[b, h, w, c] * f2[b, h+dy_k, w+dx_k, c]
 
 k runs over the (2s+1)^2 shifts, dy-major; f2 outside the frame counts
-as 0. The forward kernel (`csrc/costvol.cu`) replaces the TPU kernels
+as 0. The maps are float32 or bfloat16 (both the same); the volume is
+float32, computed from the maps widened to float32, as the TPU kernel
+does. The forward kernel (`csrc/costvol.cu`) replaces the TPU kernels
 `davo_tpu/kernels/costvol.py::cost_volume_pallas` and
-`::cost_volume_pallas_rows`; the backward kernel computes d f1 and d f2
-of the same function (the JAX train step differentiates its XLA form).
+`::cost_volume_pallas_rows` and reads either dtype in place; the
+backward kernel computes d f1 and d f2 of the same function in float32
+(the JAX train step differentiates its XLA form).
 `cost_volume` goes through `_CostVolume`, which launches the kernels for
 CUDA tensors (or raises) and runs `cost_volume_plain` /
 `cost_volume_plain_bwd` for CPU tensors; `chip_smoke.py` holds each
@@ -28,10 +31,18 @@ from davo_tpu_torch.kernels import cuda_build
 launches = 0
 backward_launches = 0
 
+# The forward kernel's C entry point for each map dtype, and the code it
+# returns when no tile's window fits a block's shared memory
+# (cudaErrorLaunchOutOfResources).
+_ENTRY_POINTS = {torch.float32: "davo_cost_volume_f32", torch.bfloat16: "davo_cost_volume_bf16"}
+_OUT_OF_RESOURCES = 701
+
 
 def cost_volume_plain(f1: torch.Tensor, f2: torch.Tensor, search: int) -> torch.Tensor:
-    """(B, H, W, C) x2 -> (B, H, W, (2*search+1)^2): pad + shifted
-    multiply-mean, as `davo_tpu.models.flownet.cost_volume`."""
+    """(B, H, W, C) x2 -> (B, H, W, (2*search+1)^2) float32: pad +
+    shifted multiply-mean of the maps widened to float32, as
+    `davo_tpu.models.flownet.cost_volume` on float32 maps."""
+    f1, f2 = f1.float(), f2.float()
     B, H, W, C = f1.shape
     f2p = F.pad(f2, (0, 0, search, search, search, search))
     d = 2 * search + 1
@@ -71,8 +82,10 @@ def cost_volume_plain_bwd(
 def _check(f1: torch.Tensor, f2: torch.Tensor, search: int) -> None:
     if f1.device != f2.device:
         raise ValueError(f"f1 on {f1.device}, f2 on {f2.device}")
-    if f1.dtype != torch.float32 or f2.dtype != torch.float32:
-        raise TypeError(f"cost volume kernel takes float32, got {f1.dtype}/{f2.dtype}")
+    if f1.dtype != f2.dtype:
+        raise TypeError(f"cost volume maps must share a dtype, got f1 {f1.dtype} and f2 {f2.dtype}")
+    if f1.dtype not in _ENTRY_POINTS:
+        raise TypeError(f"cost volume kernel takes float32 or bfloat16 maps, got {f1.dtype}")
     if f1.dim() != 4 or f1.shape != f2.shape:
         raise ValueError(f"need two equal (B, H, W, C) maps, got {tuple(f1.shape)}/{tuple(f2.shape)}")
     if f1.shape[3] < 1 or search < 0:
@@ -89,8 +102,13 @@ def _launch(f1: torch.Tensor, f2: torch.Tensor, search: int) -> torch.Tensor:
     out = torch.empty((B, H, W, (2 * search + 1) ** 2), dtype=torch.float32, device=f1.device)
     with torch.cuda.device(f1.device):
         stream = torch.cuda.current_stream(f1.device).cuda_stream
-        err = lib.davo_cost_volume_f32(
+        err = getattr(lib, _ENTRY_POINTS[f1.dtype])(
             f1.data_ptr(), f2.data_ptr(), out.data_ptr(), B, H, W, C, search, stream
+        )
+    if err == _OUT_OF_RESOURCES:
+        raise ValueError(
+            f"cost volume kernel: search {search} is too large; even a 1x4-pixel tile's "
+            f"{2 * search + 1}x{2 * search + 4} window and outputs exceed a block's shared memory"
         )
     if err:
         raise RuntimeError(
@@ -130,10 +148,10 @@ def _launch_bwd(
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("costvol")
-    lib.davo_cost_volume_f32.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    )
-    lib.davo_cost_volume_f32.restype = ctypes.c_int
+    for name in _ENTRY_POINTS.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.davo_cost_volume_bwd_f32.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     )
@@ -151,7 +169,9 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 class _CostVolume(torch.autograd.Function):
     """Kernels for CUDA tensors, plain versions for CPU tensors; the
-    backward computes only the maps that need a gradient."""
+    backward computes only the maps that need a gradient, in float32 on
+    the maps widened to float32, and returns each in its map's dtype (as
+    autograd through a `.float()` of the maps would)."""
 
     @staticmethod
     def forward(ctx, f1, f2, search):
@@ -166,17 +186,22 @@ class _CostVolume(torch.autograd.Function):
         f1, f2 = ctx.saved_tensors
         need_f1, need_f2 = ctx.needs_input_grad[:2]
         g = g.contiguous()
+        w1, w2 = f1.float(), f2.float()
         if _on_cuda(f1):
-            df1, df2 = _launch_bwd(f1, f2, g, ctx.search, need_f1, need_f2)
+            df1, df2 = _launch_bwd(w1, w2, g, ctx.search, need_f1, need_f2)
         else:
-            df1, df2 = cost_volume_plain_bwd(f1, f2, g, ctx.search, need_f1, need_f2)
-        return df1, df2, None
+            df1, df2 = cost_volume_plain_bwd(w1, w2, g, ctx.search, need_f1, need_f2)
+        return (
+            None if df1 is None else df1.to(f1.dtype),
+            None if df2 is None else df2.to(f2.dtype),
+            None,
+        )
 
 
 def cost_volume(f1: torch.Tensor, f2: torch.Tensor, search: int) -> torch.Tensor:
-    """(B, H, W, C) float32 x2 -> (B, H, W, (2*search+1)^2) float32,
-    differentiable in both maps (CUDA tensors through the kernels, CPU
-    tensors through the plain versions)."""
+    """(B, H, W, C) x2, both float32 or both bfloat16 -> (B, H, W,
+    (2*search+1)^2) float32, differentiable in both maps (CUDA tensors
+    through the kernels, CPU tensors through the plain versions)."""
     return _CostVolume.apply(f1, f2, search)
 
 

@@ -180,9 +180,12 @@ class FlowNetLite(nn.Module):
                 )
                 flow = flow_up + delta
             else:
-                cv = torch.relu(
-                    cost_volume(f1c.float().contiguous(), f2c.float().contiguous(), self.search)
-                )
+                # The kernel reads the maps in their own dtype (float32
+                # or bf16) and widens them; only differing dtypes meet
+                # in float32.
+                if f1c.dtype != f2c.dtype:
+                    f1c, f2c = f1c.float(), f2c.float()
+                cv = torch.relu(cost_volume(f1c.contiguous(), f2c.contiguous(), self.search))
                 flow = estimator(cv, f1, flow_up)
             flows.append(flow)
         return flows[::-1]  # fine (/4) first

@@ -101,6 +101,60 @@ def test_cost_volume_backward_at_the_train_search_on_an_odd_frame(need):
             assert x is None
 
 
+@pytest.mark.parametrize("search", [3, 4])
+@pytest.mark.parametrize("channels", [8, 20])
+def test_cost_volume_plain_on_bf16_maps_matches_pallas(search, channels):
+    """bf16 maps, as the presets give them: the plain version widens them
+    to float32, as the TPU kernel does inside; against cost_volume_pallas
+    (interpret mode) on the same bf16 maps (1e-5: the same products,
+    summed in another order)."""
+    a, b = _maps(search * 1000 + channels, (2, 5, 9, channels))
+    got = costvol.cost_volume_plain(
+        torch.from_numpy(a).bfloat16(), torch.from_numpy(b).bfloat16(), search
+    )
+    assert got.dtype == torch.float32
+    want = cost_volume_pallas(
+        jnp.asarray(a).astype(jnp.bfloat16), jnp.asarray(b).astype(jnp.bfloat16), search
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("need", [(True, True), (True, False), (False, True)])
+def test_cost_volume_autograd_on_bf16_maps_matches_the_float32_route(need):
+    """Autograd through cost_volume with bf16 leaves gives bf16 gradients,
+    bitwise those of the route that cast the maps first,
+    cost_volume(x.float(), y.float(), s)."""
+    a, b = _maps(7, (2, 5, 9, 8))
+    g = torch.from_numpy(np.random.default_rng(8).normal(size=(2, 5, 9, 49)).astype(np.float32))
+    x, y = (torch.from_numpy(m).bfloat16().requires_grad_(n) for m, n in zip((a, b), need))
+    leaves = [t for t in (x, y) if t.requires_grad]
+    got = torch.autograd.grad(costvol.cost_volume(x, y, 3), leaves, g)
+    want = torch.autograd.grad(costvol.cost_volume(x.float(), y.float(), 3), leaves, g)
+    for leaf, gg, ww in zip(leaves, got, want):
+        assert gg.dtype == leaf.dtype == torch.bfloat16
+        assert torch.equal(gg, ww)
+
+
+@pytest.mark.parametrize(
+    "dtypes, match",
+    [
+        ((torch.bfloat16, torch.float32), "share a dtype"),
+        ((torch.float32, torch.bfloat16), "share a dtype"),
+        ((torch.float16, torch.float16), "float32 or bfloat16"),
+        ((torch.float64, torch.float64), "float32 or bfloat16"),
+    ],
+)
+def test_cost_volume_check_refuses_other_dtypes(dtypes, match):
+    f1, f2 = (torch.zeros(1, 3, 4, 8, dtype=dt) for dt in dtypes)
+    with pytest.raises(TypeError, match=match):
+        costvol._check(f1, f2, 3)
+
+
+def test_cost_volume_check_takes_float32_and_bf16():
+    for dt in (torch.float32, torch.bfloat16):
+        costvol._check(torch.zeros(1, 3, 4, 8, dtype=dt), torch.zeros(1, 3, 4, 8, dtype=dt), 3)
+
+
 def test_cost_volume_wrapper_on_cpu_is_plain_and_uncounted():
     a, b = (torch.from_numpy(x) for x in _maps(1, (2, 5, 9, 8)))
     before = costvol.launches
