@@ -2,9 +2,10 @@
 """Drive the PyTorch/CUDA port (davo_tpu_torch) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py        # from the repository root, one GPU
-    python3 chip_smoke.py --costvol-against OTHER/davo_tpu_torch/csrc/costvol.cu
-        # only the cost-volume forward of another checkout against this
-        # one's, timed in turns on the main paths' shapes
+    python3 chip_smoke.py --against OTHER/davo_tpu_torch/csrc
+        # only the cost-volume forward, the banded forward and the fused
+        # layer kernel of another checkout against this one's, timed in
+        # turns on the main paths' shapes
 
 Phases, in order; any failure exits non-zero:
   1. environment: card name and power limit, torch/CUDA versions, TF32 flags
@@ -19,9 +20,12 @@ Phases, in order; any failure exits non-zero:
      cost-volume backward also at S*B=128 and on an odd frame (11x29,
      C=20), (3c) the banded forward and backward at B=64 (C=3 and C=1
      128x416, the backward with d/dimg) and on two edge frames (37x61,
-     5x7); (3d) the
+     5x7), and the forward on the coordinates of a davo train step at
+     B=64 and B=4, beside grid_sample; (3d) the
      fused serving kernels at one fused request's shapes in bf16, f32 and
-     bf16_dot, with the port's unfused route as the yardstick; (3e) the
+     bf16_dot, with the port's unfused route as the yardstick, and each
+     bf16 layer alone beside its bound and one cuDNN bf16 convolution;
+     (3e) the
      training chains' backward kernels against their plain backwards at
      one fused davo train step's shapes, bf16 and f32, with the port's
      unfused route backward as the yardstick; (3f) the conv stack (one
@@ -242,61 +246,195 @@ def check_cost_volume(torch, costvol):
     return rows
 
 
-def compare_cost_volume(torch, costvol, other_source):
-    """`--costvol-against FILE`: the forward kernel built from another
-    checkout's csrc/costvol.cu (through its float32 C entry point; bf16
-    maps are cast to float32 first, as that checkout's model did) against
-    this checkout's, at phase 3's shapes of the main paths, in both
-    dtypes: both held to `cost_volume_plain`, then device times in turns
-    (other, this, this, other)."""
+def _build_other(src):
+    """A ctypes library built from another checkout's source `src`."""
     import ctypes
     import hashlib
 
     from davo_tpu_torch.kernels import cuda_build
 
-    src = Path(other_source).resolve()
-    lib_path = cuda_build.BUILD_DIR / f"libcostvol-other-{hashlib.sha256(src.read_bytes()).hexdigest()[:16]}.so"
+    src = Path(src).resolve()
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    lib_path = cuda_build.BUILD_DIR / f"lib{src.stem}-other-{digest.hexdigest()[:16]}.so"
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib_path), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise AssertionError(f"building {src}: {proc.stdout}{proc.stderr}")
-    other = ctypes.CDLL(str(lib_path)).davo_cost_volume_f32
-    other.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    other.restype = ctypes.c_int
+    return ctypes.CDLL(str(lib_path))
 
-    def other_call(f1, f2, s):
-        f1, f2 = f1.float(), f2.float()
-        B, H, W, C = f1.shape
-        out = torch.empty(B, H, W, (2 * s + 1) ** 2, device="cuda")
-        err = other(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), B, H, W, C, s,
-                    torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise AssertionError(f"{src}: launch failed ({err})")
-        return out
+
+def _turns(fns):
+    """Device ms of each callable in `fns` ({"other": f, "this": g}),
+    timed in turns: other, this, this, other."""
+    times = {name: [] for name in fns}
+    for name in ("other", "this", "this", "other"):
+        times[name].append(_graph_ms(fns[name]))
+    return times
+
+
+def compare_against(torch, other_csrc):
+    """`--against OTHER/davo_tpu_torch/csrc`: the kernels built from
+    another checkout's sources against this checkout's, on the same card
+    in turns (other, this, this, other), each held to this checkout's
+    plain version first: the cost-volume forward (costvol.cu, through its
+    float32 entry; bf16 maps cast to float32 first, as that checkout's
+    model did) at phase 3's main-path shapes in both dtypes; the banded
+    forward (bandwarp.cu) per B=4 train step on random coordinates, at
+    B=64 128x416 on random ones, and per B=4 and B=64 step on the
+    coordinates of a `davo` train step; the fused layer kernel (rowconv.cu's
+    `davo_conv_layer`, weights packed once in its (k, k, Cin, Cout) float32
+    layout) in phase 3d's units, bf16, float32 and bf16_dot, the wrappers
+    and the flow level's input kernel being this checkout's."""
+    import ctypes
+
+    from davo_tpu_torch.kernels import bandwarp, costvol, rowconv
+    from davo_tpu_torch.models import presets
+    from davo_tpu_torch.models.common import same_pads
+    from davo_tpu_torch.models.davo import DavoModel
+
+    other_csrc = Path(other_csrc)
+    names = [n for n in ("costvol", "bandwarp", "rowconv") if (other_csrc / f"{n}.cu").exists()]
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        libs = dict(zip(names, pool.map(lambda n: _build_other(other_csrc / f"{n}.cu"), names)))
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
 
     gen = torch.Generator(device="cuda").manual_seed(7)
-    for dtype in (torch.bfloat16, torch.float32):
-        for label, B, H, W, C, s in COSTVOL_SHAPES:
-            if not label.startswith(("main path", "train", "davo")):
-                continue
-            f1 = torch.randn(B, H, W, C, device="cuda", generator=gen).to(dtype)
-            f2 = torch.randn(B, H, W, C, device="cuda", generator=gen).to(dtype)
-            want = costvol.cost_volume_plain(f1, f2, s)
-            errs = [float((fn(f1, f2, s) - want).abs().max()) for fn in (other_call, costvol.cost_volume)]
-            if not max(errs) <= COSTVOL_TOL:
-                raise AssertionError(f"cost volume {label} {dtype}: errors (other, this) {errs}")
-            times = {"other": [], "this": []}
-            for name in ("other", "this", "this", "other"):
-                fn = other_call if name == "other" else costvol.cost_volume
-                times[name].append(_graph_ms(lambda: fn(f1, f2, s)))
-            bound_ms, bound_by = _costvol_bound_ms(B, H, W, C, s, f1.element_size())
+
+    if "costvol" in libs:
+        other = libs["costvol"].davo_cost_volume_f32
+        other.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        other.restype = ctypes.c_int
+
+        def other_call(f1, f2, s):
+            f1, f2 = f1.float(), f2.float()
+            B, H, W, C = f1.shape
+            out = torch.empty(B, H, W, (2 * s + 1) ** 2, device="cuda")
+            if other(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), B, H, W, C, s, stream()):
+                raise AssertionError("other cost volume: launch failed")
+            return out
+
+        for dtype in (torch.bfloat16, torch.float32):
+            for label, B, H, W, C, s in COSTVOL_SHAPES:
+                if not label.startswith(("main path", "train", "davo")):
+                    continue
+                f1 = torch.randn(B, H, W, C, device="cuda", generator=gen).to(dtype)
+                f2 = torch.randn(B, H, W, C, device="cuda", generator=gen).to(dtype)
+                want = costvol.cost_volume_plain(f1, f2, s)
+                errs = [float((fn(f1, f2, s) - want).abs().max()) for fn in (other_call, costvol.cost_volume)]
+                if not max(errs) <= COSTVOL_TOL:
+                    raise AssertionError(f"cost volume {label} {dtype}: errors (other, this) {errs}")
+                times = _turns({"other": lambda: other_call(f1, f2, s), "this": lambda: costvol.cost_volume(f1, f2, s)})
+                bound_ms, bound_by = _costvol_bound_ms(B, H, W, C, s, f1.element_size())
+                print(json.dumps({
+                    "phase": "costvol_against", "other": str(other_csrc), "shape": label,
+                    "dtype": str(dtype).split(".")[-1], "B": B, "H": H, "W": W, "C": C, "search": s,
+                    "max_abs_err": errs, "other_ms": times["other"], "this_ms": times["this"],
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                }), flush=True)
+
+    if "bandwarp" in libs:
+        other = libs["bandwarp"].davo_banded_warp_f32
+        other.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        other.restype = ctypes.c_int
+        rv, rh = BAND
+
+        def other_warp(img, coords):
+            out = torch.empty_like(img)
+            if other(img.data_ptr(), coords.data_ptr(), out.data_ptr(), *img.shape, rv, rh, stream()):
+                raise AssertionError("other banded warp: launch failed")
+            return out
+
+        # (sum it adds to or None, coordinates, img, coords, launches per step)
+        cases = [("B=4 step", "random", torch.rand(4, H, W, C, device="cuda", generator=gen),
+                  _band_coords(torch, gen, 4, H, W), per_step)
+                 for (C, H, W, _), per_step in TRAIN_WARPS.items()]
+        cases += [(None, "random", torch.rand(64, 128, 416, C, device="cuda", generator=gen),
+                   _band_coords(torch, gen, 64, 128, 416), 0) for C in (3, 1)]
+        step_inputs = _step_warp_inputs(torch, bandwarp)
+        cases += [(f"B={B} step", "davo train step", img[:B].contiguous(), coords[:B].contiguous(), 1)
+                  for B in (4, 64) for img, coords in step_inputs]
+        sums = {}
+        for group, pattern, img, coords, per_step in cases:
+            B, H, W, C = img.shape
+            want = bandwarp.banded_warp_plain_fwd(img, coords, rv, rh)
+            errs = [float((fn(img, coords) - want).abs().max())
+                    for fn in (other_warp, lambda i, c: bandwarp._launch_fwd(i, c, rv, rh))]
+            del want
+            if not max(errs) <= BANDWARP_TOL:
+                raise AssertionError(f"banded warp B={B} C={C} {H}x{W} {pattern}: errors (other, this) {errs}")
+            times = _turns({"other": lambda: other_warp(img, coords),
+                            "this": lambda: bandwarp._launch_fwd(img, coords, rv, rh)})
             print(json.dumps({
-                "phase": "costvol_against", "other": str(other_source), "shape": label,
-                "dtype": str(dtype).split(".")[-1], "B": B, "H": H, "W": W, "C": C, "search": s,
-                "max_abs_err": errs, "other_ms": times["other"], "this_ms": times["this"],
-                "bound_ms": bound_ms, "bound_by": bound_by,
+                "phase": "bandwarp_against", "other": str(other_csrc), "B": B, "C": C, "H": H, "W": W,
+                "coords": pattern, "max_abs_err": errs, "other_ms": times["other"], "this_ms": times["this"],
+                "bound_ms": _bound_ms(4.0 * B * H * W * (2 + 2 * C), 8.0 * B * H * W * C)[0],
             }), flush=True)
+            if group:
+                total = sums.setdefault(f"{group}, {pattern} coordinates", {"other": [0.0, 0.0], "this": [0.0, 0.0]})
+                for name in ("other", "this"):
+                    for i in (0, 1):
+                        total[name][i] += per_step * times[name][i]
+        del cases, step_inputs
+        torch.cuda.empty_cache()
+        print(json.dumps({"phase": "bandwarp_step_against", "other": str(other_csrc), "ms_per_step": sums}),
+              flush=True)
+
+    if "rowconv" in libs:
+        other = libs["rowconv"].davo_conv_layer
+        P, I = ctypes.c_void_p, ctypes.c_int
+        other.argtypes = [P, I, P, P, P, I] + [I] * 14 + [P]
+        other.restype = I
+        packs = {}
+
+        def other_layer(x, w, b, out, stride, relu, act, dot):
+            B, H, W, cin = x.shape
+            _, Ho, Wo, cout = out.shape
+            k = w.shape[-1]
+            key = (id(w), cin, dot)
+            if key not in packs:
+                packs[key] = (w, rowconv._pack(w, dot, cin), b.detach().float().contiguous())
+            _, wp, bias = packs[key]
+            err = other(x.data_ptr(), int(x.dtype == torch.bfloat16), wp.data_ptr(), bias.data_ptr(),
+                        out.data_ptr(), int(out.dtype == torch.bfloat16), B, H, W, cin, Ho, Wo, cout, k, stride,
+                        same_pads(H, k, stride)[0], same_pads(W, k, stride)[0], int(dot == torch.bfloat16),
+                        int(act == torch.bfloat16), int(bool(relu)), stream())
+            if err:
+                raise AssertionError(f"other conv layer: launch failed ({err})")
+
+        this_layer = rowconv._launch_layer
+        model = DavoModel(presets.with_overrides("davo-fast", **FUSED_FLAGS).model, device="cuda", seed=0)
+        for unit in _rowconv_units(torch, model, 64):
+            for mode in ("bfloat16", "float32", "bf16_dot"):
+                inputs = _unit_inputs(torch, unit, mode)
+                with torch.inference_mode():
+                    want, _ = _unit_plain(torch, rowconv, unit, mode, inputs)
+                    errs = {}
+                    for name, layer in (("other", other_layer), ("this", this_layer)):
+                        rowconv._launch_layer = layer
+                        try:
+                            errs[name] = _rel_err(_unit_call(rowconv, unit, mode, inputs), want)
+                        finally:
+                            rowconv._launch_layer = this_layer
+                    times = {"other": [], "this": []}
+                    for name in ("other", "this", "this", "other"):
+                        rowconv._launch_layer = other_layer if name == "other" else this_layer
+                        try:
+                            times[name].append(_graph_ms(lambda: _unit_call(rowconv, unit, mode, inputs), reps=5))
+                        finally:
+                            rowconv._launch_layer = this_layer
+                print(json.dumps({
+                    "phase": "rowconv_against", "other": str(other_csrc), "kernel": unit["kernel"],
+                    "unit": unit["unit"], "mode": mode, "max_rel_err": errs, "other_ms": times["other"],
+                    "this_ms": times["this"],
+                }), flush=True)
+                if mode == "float32" and not max(errs.values()) <= ROWCONV_F32_TOL:
+                    raise AssertionError(f"{unit['unit']} float32: errors {errs}")
+        torch.cuda.empty_cache()
 
 
 def main_path(torch, costvol):
@@ -726,6 +864,87 @@ def check_banded_warp(torch, bandwarp):
     return rows, extra_rows
 
 
+def _step_warp_inputs(torch, bandwarp, B=64):
+    """The banded forward's inputs, (img, coords) in launch order (16), in
+    one `davo` train step at batch B: phase 8's synthetic worlds (a B=4
+    batch tiled), seeded weights. These are the coordinates a step warps
+    by: smooth flows from depth and pose and from the flow net."""
+    import dataclasses
+
+    from davo_tpu_torch.data.snippets import MultiSourceDataset
+    from davo_tpu_torch.data.synthetic import SyntheticSequence
+    from davo_tpu_torch.models import presets
+    from davo_tpu_torch.train import loop
+
+    cfg = presets.with_overrides("davo")
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, batch_size=B))
+    m = cfg.model
+    worlds = [SyntheticSequence(n_frames=8, height=m.img_height, width=m.img_width, seed=i) for i in range(2)]
+    batch4 = next(MultiSourceDataset(worlds, batch_size=4, with_seg=True, augment=True, seed=0).batches(steps=1))
+    state = loop.create_state(cfg, "cuda")
+    step_fn = loop.make_train_step(cfg, "cuda")
+    seen = []
+    launch = bandwarp._launch_fwd
+
+    def grab(img, coords, rv, rh):
+        seen.append((img.detach().clone(), coords.detach().clone()))
+        return launch(img, coords, rv, rh)
+
+    bandwarp._launch_fwd = grab
+    try:
+        step_fn(state, _device_batch(torch, batch4, B // 4))
+    finally:
+        bandwarp._launch_fwd = launch
+    torch.cuda.synchronize()
+    del state, step_fn
+    torch.cuda.empty_cache()
+    if len(seen) != 16:
+        raise AssertionError(f"a davo train step launched the banded forward {len(seen)} times, not 16")
+    return seen
+
+
+def check_banded_warp_on_step(torch, bandwarp, step_inputs):
+    """Phase 3c on the coordinates of a `davo` train step at B=64
+    (`_step_warp_inputs`; phase 3c's other shapes take random per-pixel
+    coordinates): each of the step's 16 forwards against its plain
+    version, with device ms, grid_sample's on the band-clamped
+    coordinates and the bound; then the same 16 on the first 4 images
+    (the B=4 step). Returns (rows, per-step sums at B=4 and B=64)."""
+    import torch.nn.functional as F
+
+    rv, rh = BAND
+    rows = []
+    sums = {}
+    for B in (64, 4):
+        for img, coords in step_inputs:
+            img, coords = img[:B].contiguous(), coords[:B].contiguous()
+            _, H, W, C = img.shape
+            want = bandwarp.banded_warp_plain_fwd(img, coords, rv, rh)
+            err = float((bandwarp._launch_fwd(img, coords, rv, rh) - want).abs().max())
+            del want
+            _, _, _, _, uc, vc, _, _ = bandwarp._clamped(coords, rv, rh)
+            grid = torch.stack([uc / (W - 1) * 2 - 1, vc / (H - 1) * 2 - 1], -1)
+            nchw = img.permute(0, 3, 1, 2).contiguous()
+            bound = _bound_ms(4.0 * B * H * W * (2 + 2 * C), 8.0 * B * H * W * C)
+            row = {
+                "B": B, "C": C, "H": H, "W": W, "coords": "davo train step", "max_abs_err": err,
+                "ms": _graph_ms(lambda: bandwarp._launch_fwd(img, coords, rv, rh)),
+                "library_ms": _graph_ms(lambda: F.grid_sample(nchw, grid, mode="bilinear", padding_mode="border",
+                                                              align_corners=True)),
+                "bound_ms": bound[0], "bound_by": bound[1],
+            }
+            print(json.dumps({"phase": "bandwarp_step_coords", **row}), flush=True)
+            if not err <= BANDWARP_TOL:
+                raise AssertionError(f"banded warp on step coordinates B={B} C={C} {H}x{W}: error {err}")
+            rows.append(row)
+            for key in ("ms", "library_ms", "bound_ms"):
+                sums[f"b{B}_step_{key}"] = sums.get(f"b{B}_step_{key}", 0.0) + row[key]
+            del uc, vc, grid, nchw
+    print(json.dumps({"phase": "bandwarp_step_coords_per_step", **sums}), flush=True)
+    torch.cuda.empty_cache()
+    return rows, sums
+
+
 def _counts(costvol, bandwarp):
     return {
         "cost_volume": costvol.launches, "cost_volume_backward": costvol.backward_launches,
@@ -894,18 +1113,20 @@ def check_rowconv(torch, rowconv, N=64):
     """Phase 3d: the fused kernels against their plain versions on the
     card, at the fused serving path's shapes for one request of N pairs:
     bfloat16 (the path's mode: every layer by the ulp criterion, the chain
-    by the gap criterion), float32 (1e-5 of the largest), and bf16_dot at
-    the /4 flow level. Device ms by CUDA-graph replay of the wrapper
-    (weight repacking included), the plain version's ms by CUDA events,
-    and, as the library yardstick, the device ms of the port's unfused
-    route for the same function. Weights: the seeded fused davo-fast."""
+    by the gap criterion), float32 (1e-5 of the largest), and bf16_dot
+    (every layer within the float32 limit). Device ms by CUDA-graph replay
+    of the wrapper (weights packed once, as the wrappers keep them), the
+    plain version's ms by CUDA events, and, as the library yardstick, the
+    device ms of the port's unfused route for the same function; each
+    bf16 layer alone beside its bound and one cuDNN bf16 convolution of
+    its shape. Weights: the seeded fused davo-fast."""
     from davo_tpu_torch.models import presets
     from davo_tpu_torch.models.davo import DavoModel
 
     model = DavoModel(presets.with_overrides("davo-fast", **FUSED_FLAGS).model, device="cuda", seed=0)
     rows = []
     for unit in _rowconv_units(torch, model, N):
-        modes = ["bfloat16", "float32"] + (["bf16_dot"] if unit["unit"].startswith("flow level /4") else [])
+        modes = ["bfloat16", "float32", "bf16_dot"]
         for mode in modes:
             inputs = _unit_inputs(torch, unit, mode)
             with torch.inference_mode():
@@ -920,12 +1141,34 @@ def check_rowconv(torch, rowconv, N=64):
                     layer_err = []
                     for i, (x, y) in enumerate(layers):
                         strides = unit.get("strides", (1,) * len(unit["ws"]))
-                        g = rowconv.conv_chain_strided(
-                            x.contiguous(), [unit["ws"][i]], [unit["bs"][i]], (strides[i],),
-                            (unit["relus"][i],), None, mode)
+                        w, b, s = unit["ws"][i], unit["bs"][i], strides[i]
+
+                        def one(x=x, w=w, b=b, s=s, r=unit["relus"][i]):
+                            return rowconv.conv_chain_strided(x.contiguous(), [w], [b], (s,), (r,), None, mode)
+
+                        g = one()
                         d = (g.float() - y.float()).abs()
-                        layer_err.append({"differ_share": float((d > 0).float().mean()),
-                                          "max_err_in_ulps": float(d.max() / (2.0**-7 * y.float().abs().max()))})
+                        entry = {"differ_share": float((d > 0).float().mean()),
+                                 "max_err_in_ulps": float(d.max() / (2.0**-7 * y.float().abs().max()))}
+                        if mode == "bfloat16":
+                            # The layer alone, beside one cuDNN bf16 convolution of the
+                            # same shape (channels-last; symmetric k // 2 padding), and
+                            # its bound: input, bf16 weights and bias read once, output
+                            # written once; the products at the bf16 tensor-core rate.
+                            k = w.shape[-1]
+                            xn = x.to(torch.bfloat16).permute(0, 3, 1, 2)  # NHWC storage: channels-last
+                            wn = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+                            bn = b.to(torch.bfloat16)
+                            flops = 2.0 * g.numel() * w[0].numel()
+                            nbytes = (x.numel() * x.element_size() + w.numel() * 2 + b.numel() * 4
+                                      + g.numel() * g.element_size())
+                            bound_ms, bound_by = _bound_ms(nbytes, flops, BF16_FLOPS)
+                            entry.update(
+                                shape=[*x.shape, w.shape[0], k, s], ms=_graph_ms(one, reps=5),
+                                conv2d_ms=_graph_ms(lambda xn=xn, wn=wn, bn=bn, s=s, k=k: torch.nn.functional.conv2d(
+                                    xn, wn, bn, stride=s, padding=k // 2), reps=5),
+                                flops=flops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
+                        layer_err.append(entry)
                     want32, _ = _unit_plain(torch, rowconv, unit, "float32", _unit_inputs(torch, unit, "float32"))
 
                     def gaps(a, b):  # (mean, max) |a - b| over every element of the outputs
@@ -1541,7 +1784,8 @@ def fused_throughput(torch, card, unfused, fused):
     y = torch.rand(64, 1, cfg.img_height, cfg.img_width, 3, device="cuda", generator=gen)
     s = torch.randint(0, 19, (64, cfg.img_height, cfg.img_width), device="cuda", generator=gen)
     rows, device_ms, wall_ms = _kernel_profile(torch, lambda: fused(x, y, seg=s), 3)
-    ours = sum(ms for k, ms, _ in rows if "conv_layer_kernel" in k or "flow_level_input_kernel" in k)
+    ours = sum(ms for k, ms, _ in rows if any(part in k for part in (
+        "conv_layer_kernel", "conv_mma_", "flow_level_input_kernel")))
     print(json.dumps({
         "phase": "fused_profile_kernels", "batch": 64, "device_ms_per_forward": device_ms,
         "wall_ms_per_forward": wall_ms, "device_busy_share": device_ms / wall_ms,
@@ -1876,6 +2120,7 @@ def train_step_time(torch, card, batch4, phase="train_step_time", flags=None):
                            ("cost_volume_backward", "cost_volume_bwd_kernel"),
                            ("cost_volume", "cost_volume_kernel<"),
                            ("rowconv_layers", "conv_layer_kernel<"),
+                           ("rowconv_mma_layers", "conv_mma_"),
                            ("flow_level_input", "flow_level_input_kernel<"),
                            ("conv_layer_dgrad", "conv_dgrad_kernel<"),
                            ("conv_layer_wgrad", "conv_wgrad_partial_kernel"),
@@ -1934,15 +2179,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
         return 1
-    if sys.argv[1:2] == ["--costvol-against"] and len(sys.argv) == 3:
-        from davo_tpu_torch.kernels import costvol
+    if sys.argv[1:2] == ["--against"] and len(sys.argv) == 3:
+        from davo_tpu_torch import exact_f32
 
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True, check=True, timeout=60).stdout.strip(), flush=True)
-        compare_cost_volume(torch, costvol, sys.argv[2])
+        exact_f32()
+        compare_against(torch, sys.argv[2])
         return 0
     if sys.argv[1:]:
-        print("usage: python3 chip_smoke.py [--costvol-against PATH/csrc/costvol.cu]", file=sys.stderr)
+        print("usage: python3 chip_smoke.py [--against OTHER/davo_tpu_torch/csrc]", file=sys.stderr)
         return 2
     from davo_tpu_torch import exact_f32
     from davo_tpu_torch.kernels import bandwarp, costvol, cuda_build, rowconv, rowconv_ad
@@ -1972,6 +2218,7 @@ def main() -> int:
     rows = check_cost_volume(torch, costvol)
     bwd_rows = check_cost_volume_backward(torch, costvol)
     band_rows, extra_band_rows = check_banded_warp(torch, bandwarp)
+    _, warp_step_sums = check_banded_warp_on_step(torch, bandwarp, _step_warp_inputs(torch, bandwarp))
     rowconv_rows = check_rowconv(torch, rowconv)
     bwd_kernel_rows = check_rowconv_backward(torch, rowconv, rowconv_ad)
     stack_rows, stack_counts = check_conv_stack(torch, card)
@@ -2077,6 +2324,7 @@ def main() -> int:
             "c3_b64_bound_ms": b64_warp3["fwd_bound_ms"],
             "c1_b64_ms": b64_warp["fwd_device_ms"], "c1_b64_library_ms": b64_warp["fwd_library_device_ms"],
             "c1_b64_bound_ms": b64_warp["fwd_bound_ms"],
+            "on_step_coords": warp_step_sums,
         },
         {
             "name": "banded_warp_backward", "route": "cuda", "source": "davo_tpu_torch/csrc/bandwarp.cu",

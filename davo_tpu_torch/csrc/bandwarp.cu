@@ -59,17 +59,39 @@
 // A non-finite cotangent in a tile's halo makes that tile's d/dimg NaN.
 // d/du and d/dv stay a separate launch of O(1) work per pixel.
 //
-// Bound on this card: memory. The forward reads 8 B of coordinates and
-// 4C B of image per pixel and writes 4C B; the taps of neighbouring
-// pixels overlap and come from L1/L2. The d/dimg scatter stages each
-// output pixel's 8 + 4C bytes about 2.4 times (the halo; from L2) and
-// runs only for the geometry term's C=1 warps on the train step.
+// The forward, as redesigned for this card. A block of 8 warps owns a
+// tile of 32 columns x 8*PY rows of one image (a 2-D grid: tiles x
+// images, 32-bit offsets within an image); lane l of warp w takes column
+// l of rows w, w + 8, ... (PY pixels), so every coordinate load is one
+// coalesced float2 per lane, and all PY of them are issued before any is
+// used. PY is 4 where the grid still gives every SM four blocks (B=64 at
+// 128x416: 3,328 blocks), else 2 or 1 (the B=4 step's levels). The taps
+// are __ldg gathers through L1: a step's flows are smooth, so a warp's
+// taps fall on a few neighbouring rows. With C fixed (1, 3) every tap
+// load of a thread is issued before its first sum is stored. C=1 stores
+// one coalesced float a lane; C <= 16 passes each warp's output row
+// through shared memory and leaves as 16-byte stores where the row is
+// aligned. (Staging each block's box of floor cells in shared memory by
+// cp.async was tried: faster on random per-pixel coordinates, 7 % slower
+// over the 16 warps of a B=64 train step on its own coordinates; PERF.md
+// §6.)
+//
+// Bound on this card: memory. The forward must read 8 B of coordinates
+// and 4C B of image per pixel and write 4C B (B=64, 128x416: 109 MB for
+// C=3, 0.0326 ms at 3.35 TB/s). The d/dimg scatter stages each output
+// pixel's 8 + 4C bytes about 2.4 times (the halo; from L2) and runs only
+// for the geometry term's C=1 warps on the train step.
 
 #include <climits>
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
+
+using namespace davo;
 
 constexpr int kThreads = 256;
 
@@ -91,34 +113,133 @@ long long grid_for(long long n) {
   return want < (1LL << 20) ? want : (1LL << 20);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Forward tiles: kFwdWarps warps, each a 32-pixel row segment in PY rows
+// (warp, warp + kFwdWarps, ...), so a tile is 32 columns x kFwdWarps*PY
+// rows. Output rows of at most kFwdStageC channels leave through shared
+// memory.
+constexpr int kFwdWarps = 8;
+constexpr int kFwdStageC = 16;
+
+// One pixel's floor cell and hat weights, band- then frame-clamped.
+struct Cell {
+  int x0, y0;
+  float wu0, wu1, wv0, wv1;
+};
+
+__device__ __forceinline__ Cell cell_of(float2 uv, int x, int y, int H, int W, float rv, float rh) {
+  const float uc = frame(band(uv.x, static_cast<float>(x), rh), W - 1.0f);
+  const float vc = frame(band(uv.y, static_cast<float>(y), rv), H - 1.0f);
+  Cell c;
+  c.x0 = static_cast<int>(floorf(uc));
+  c.y0 = static_cast<int>(floorf(vc));
+  c.wu0 = hat(uc - static_cast<float>(c.x0));
+  c.wu1 = hat(uc - static_cast<float>(c.x0 + 1));
+  c.wv0 = hat(vc - static_cast<float>(c.y0));
+  c.wv1 = hat(vc - static_cast<float>(c.y0 + 1));
+  return c;
+}
+
+// The four taps of one channel, in the plain version's order (ox outer,
+// oy inner); a tap past the last row or column is not read. t00 points at
+// the channel of tap (x0, y0); `row` and `step` are the floats to the next
+// row and column.
+__device__ __forceinline__ float cell_sum(const float* t00, int row, int step, bool x1, bool y1,
+                                          const Cell& k) {
+  float s = (k.wv0 * k.wu0) * __ldg(t00);
+  if (y1) s += (k.wv1 * k.wu0) * __ldg(t00 + row);
+  if (x1) s += (k.wv0 * k.wu1) * __ldg(t00 + step);
+  if (x1 && y1) s += (k.wv1 * k.wu1) * __ldg(t00 + row + step);
+  return s;
+}
+
+// A warp's row segment of `count` floats from shared memory to `seg`:
+// 16-byte stores when both allow it, else one float a lane (coalesced).
+__device__ __forceinline__ void write_segment(float* seg, const float* src, int count, int lane) {
+  if ((reinterpret_cast<uintptr_t>(seg) & 15) == 0 && (count & 3) == 0) {
+    for (int i = lane; i < count / 4; i += 32) {
+      reinterpret_cast<float4*>(seg)[i] = reinterpret_cast<const float4*>(src)[i];
+    }
+  } else {
+    for (int i = lane; i < count; i += 32) seg[i] = src[i];
+  }
+}
+
+// img (B, H, W, C), coords (B, H, W, 2), out (B, H, W, C). Block
+// (blockIdx.x, blockIdx.y) = (tile, image). KC is C when fixed at compile
+// time (every tap load of a thread is then issued before the first sum is
+// stored), else 0.
+template <int PY, int KC>
+__global__ void __launch_bounds__(kFwdWarps * 32)
 banded_warp_fwd_kernel(const float* __restrict__ img, const float* __restrict__ coords,
-                       float* __restrict__ out, int H, int W, int C, float rv, float rh,
-                       long long pixels) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long p = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; p < pixels;
-       p += stride) {
-    const int x = static_cast<int>(p % W);
-    const long long q = p / W;  // b*H + y
-    const int y = static_cast<int>(q % H);
-    const float uc = frame(band(coords[2 * p], static_cast<float>(x), rh), W - 1.0f);
-    const float vc = frame(band(coords[2 * p + 1], static_cast<float>(y), rv), H - 1.0f);
-    const int x0 = static_cast<int>(floorf(uc));
-    const int y0 = static_cast<int>(floorf(vc));
-    const float wu0 = hat(uc - static_cast<float>(x0));
-    const float wu1 = hat(uc - static_cast<float>(x0 + 1));
-    const float wv0 = hat(vc - static_cast<float>(y0));
-    const float wv1 = hat(vc - static_cast<float>(y0 + 1));
-    const bool x1 = x0 + 1 < W, y1 = y0 + 1 < H;
-    const float* t00 = img + ((q - y + y0) * W + x0) * C;
-    const float* t01 = t00 + static_cast<long long>(W) * C;  // (y0+1, x0)
-    float* o = out + p * C;
-    for (int c = 0; c < C; ++c) {
-      float acc = (wv0 * wu0) * __ldg(t00 + c);
-      if (y1) acc += (wv1 * wu0) * __ldg(t01 + c);
-      if (x1) acc += (wv0 * wu1) * __ldg(t00 + C + c);
-      if (x1 && y1) acc += (wv1 * wu1) * __ldg(t01 + C + c);
-      o[c] = acc;
+                       float* __restrict__ out, int H, int W, int C, float rv, float rh, int tiles_x) {
+  extern __shared__ __align__(16) float obufs[];  // kFwdWarps output rows of 32 pixels
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tx = blockIdx.x % tiles_x, ty = blockIdx.x / tiles_x;
+  const int x = tx * 32 + lane, ybase = ty * (kFwdWarps * PY) + warp;
+  const size_t plane = static_cast<size_t>(H) * W;
+  const float* im = img + blockIdx.y * plane * C;
+  const float2* co = reinterpret_cast<const float2*>(coords) + blockIdx.y * plane;
+
+  float2 uv[PY];
+  bool live[PY];
+#pragma unroll
+  for (int j = 0; j < PY; ++j) {  // every coordinate load in flight before any is used
+    const int y = ybase + j * kFwdWarps;
+    live[j] = x < W && y < H;
+    uv[j] = live[j] ? __ldg(co + y * W + x) : make_float2(0.0f, 0.0f);
+  }
+  Cell cell[PY];
+#pragma unroll
+  for (int j = 0; j < PY; ++j) cell[j] = cell_of(uv[j], x, ybase + j * kFwdWarps, H, W, rv, rh);
+
+  float* seg0 = out + (blockIdx.y * plane + static_cast<size_t>(ybase) * W + tx * 32) * C;
+  const size_t seg_row = static_cast<size_t>(kFwdWarps) * W * C;
+  const int n = min(32, W - tx * 32), row = W * C;
+  float* obuf = obufs + warp * 32 * C;
+  if constexpr (KC > 0) {
+    float acc[PY][KC];
+#pragma unroll
+    for (int j = 0; j < PY; ++j) {
+      const Cell& k = cell[j];
+      const float* t = im + (k.y0 * W + k.x0) * KC;
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+        acc[j][c] = live[j] ? cell_sum(t + c, row, KC, k.x0 + 1 < W, k.y0 + 1 < H, k) : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < PY; ++j) {
+      if (ybase + j * kFwdWarps >= H) break;  // the same for the whole warp
+      float* seg = seg0 + j * seg_row;
+      if constexpr (KC == 1) {
+        if (live[j]) seg[lane] = acc[j][0];
+      } else {
+        if (live[j]) {
+#pragma unroll
+          for (int c = 0; c < KC; ++c) obuf[lane * KC + c] = acc[j][c];
+        }
+        __syncwarp();
+        write_segment(seg, obuf, n * KC, lane);
+        __syncwarp();
+      }
+    }
+  } else {
+    const bool staged_out = C <= kFwdStageC;
+#pragma unroll
+    for (int j = 0; j < PY; ++j) {
+      if (ybase + j * kFwdWarps >= H) break;
+      float* seg = seg0 + j * seg_row;
+      if (live[j]) {
+        const Cell& k = cell[j];
+        const float* t = im + (k.y0 * W + k.x0) * C;
+        float* o = staged_out ? obuf + lane * C : seg + lane * C;
+        for (int c = 0; c < C; ++c) o[c] = cell_sum(t + c, row, C, k.x0 + 1 < W, k.y0 + 1 < H, k);
+      }
+      if (staged_out) {
+        __syncwarp();
+        write_segment(seg, obuf, n * C, lane);
+        __syncwarp();
+      }
     }
   }
 }
@@ -170,17 +291,6 @@ banded_warp_bwd_coords_kernel(const float* __restrict__ img, const float* __rest
     dcoords[2 * p] = du * mask_u;
     dcoords[2 * p + 1] = dv * mask_v;
   }
-}
-
-// 4-byte asynchronous copy global -> shared (cp.async: no register held
-// while the load is in flight).
-__device__ __forceinline__ void copy_async(float* dst, const float* src) {
-  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(to), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void copy_async_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // d/dimg tiles: kImgTileX x kImgTileY source pixels, channels in chunks
@@ -243,11 +353,11 @@ banded_warp_bwd_img_kernel(const float* __restrict__ coords, const float* __rest
       if (one_part) {
         for (int i = threadIdx.x; i < halo; i += kThreads) {
           const long long p = (row0 + hy0 + i / hw) * W + hx0 + i % hw;
-          copy_async(su + i, coords + 2 * p);
-          copy_async(sv + i, coords + 2 * p + 1);
-          for (int c = 0; c < cc; ++c) copy_async(sg + c * cap + i, g + p * C + c0 + c);
+          copy_async4(su + i, coords + 2 * p);
+          copy_async4(sv + i, coords + 2 * p + 1);
+          for (int c = 0; c < cc; ++c) copy_async4(sg + c * cap + i, g + p * C + c0 + c);
         }
-        copy_async_wait();
+        copy_async_wait_all();
         __syncthreads();
         for (int i = threadIdx.x; i < halo * cc; i += kThreads) {
           gmax = fmaxf(gmax, fabsf(sg[(i / halo) * cap + i % halo]));
@@ -275,11 +385,11 @@ banded_warp_bwd_img_kernel(const float* __restrict__ coords, const float* __rest
           for (int i = threadIdx.x; i < n; i += kThreads) {
             const int hi = h0 + i;
             const long long p = (row0 + hy0 + hi / hw) * W + hx0 + hi % hw;
-            copy_async(su + i, coords + 2 * p);
-            copy_async(sv + i, coords + 2 * p + 1);
-            for (int c = 0; c < cc; ++c) copy_async(sg + c * cap + i, g + p * C + c0 + c);
+            copy_async4(su + i, coords + 2 * p);
+            copy_async4(sv + i, coords + 2 * p + 1);
+            for (int c = 0; c < cc; ++c) copy_async4(sg + c * cap + i, g + p * C + c0 + c);
           }
-          copy_async_wait();
+          copy_async_wait_all();
           __syncthreads();
         }
         for (int i = threadIdx.x; i < n; i += kThreads) {
@@ -337,6 +447,51 @@ bool bad_sizes(int B, int H, int W, int C, int rv, int rh) {
          static_cast<long long>(B) * H * W * (C > 2 ? C : 2) > LLONG_MAX / 8;
 }
 
+template <int PY, int KC>
+cudaError_t launch_fwd_tiles(const float* img, const float* coords, float* out, int B, int H, int W,
+                             int C, int rv, int rh, cudaStream_t stream) {
+  const int rows = kFwdWarps * PY;
+  const int tiles_x = (W + 31) / 32, tiles_y = (H + rows - 1) / rows;
+  const int out_floats = (KC != 1 && C <= kFwdStageC) ? kFwdWarps * 32 * C : 0;
+  const dim3 grid(static_cast<unsigned>(tiles_x * tiles_y), static_cast<unsigned>(B));
+  banded_warp_fwd_kernel<PY, KC><<<grid, kFwdWarps * 32, out_floats * sizeof(float), stream>>>(
+      img, coords, out, H, W, C, static_cast<float>(rv), static_cast<float>(rh), tiles_x);
+  return cudaGetLastError();
+}
+
+template <int PY>
+cudaError_t launch_fwd_rows(const float* img, const float* coords, float* out, int B, int H, int W,
+                            int C, int rv, int rh, cudaStream_t stream) {
+  if (C == 1) return launch_fwd_tiles<PY, 1>(img, coords, out, B, H, W, C, rv, rh, stream);
+  if (C == 3) return launch_fwd_tiles<PY, 3>(img, coords, out, B, H, W, C, rv, rh, stream);
+  return launch_fwd_tiles<PY, 0>(img, coords, out, B, H, W, C, rv, rh, stream);
+}
+
+// Rows per warp: the most (4, 2, 1) that still gives every SM four
+// blocks or more.
+cudaError_t launch_fwd(const void* img, const void* coords, void* out, int B, int H, int W, int C,
+                       int rv, int rh, cudaStream_t stream) {
+  // One image's offsets are 32-bit; images are the grid's y axis.
+  if (bad_sizes(B, H, W, C, rv, rh) || B > 65535 ||
+      static_cast<long long>(H) * W * (C > 2 ? C : 2) > INT_MAX) {
+    return cudaErrorInvalidValue;
+  }
+  if (B == 0) return cudaGetLastError();
+  int device = 0, smem = 0, sms = 0;
+  cudaError_t err = current_device(&device);
+  if (err == cudaSuccess) err = device_limits(device, &smem, &sms);
+  if (err != cudaSuccess) return err;
+  const long long tiles_x = (W + 31) / 32;
+  int py = 4;
+  while (py > 1 && B * tiles_x * ((H + kFwdWarps * py - 1) / (kFwdWarps * py)) < 4LL * sms) py /= 2;
+  const auto* i = static_cast<const float*>(img);
+  const auto* c = static_cast<const float*>(coords);
+  auto* o = static_cast<float*>(out);
+  if (py == 4) return launch_fwd_rows<4>(i, c, o, B, H, W, C, rv, rh, stream);
+  if (py == 2) return launch_fwd_rows<2>(i, c, o, B, H, W, C, rv, rh, stream);
+  return launch_fwd_rows<1>(i, c, o, B, H, W, C, rv, rh, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -344,17 +499,12 @@ extern "C" {
 // img: (B, H, W, C) float32; coords: (B, H, W, 2) float32 (u, v); out:
 // (B, H, W, C) float32; all contiguous on the current device. Launches
 // on `stream`; returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for sizes the kernel does not take.
+// cudaErrorInvalidValue for sizes the kernel does not take (B > 65535,
+// or one image of 2^31 floats or more).
 int davo_banded_warp_f32(const void* img, const void* coords, void* out, int B, int H, int W,
                          int C, int rv, int rh, void* stream) {
-  if (bad_sizes(B, H, W, C, rv, rh)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long pixels = static_cast<long long>(B) * H * W;
-  if (pixels == 0) return static_cast<int>(cudaGetLastError());
-  banded_warp_fwd_kernel<<<static_cast<int>(grid_for(pixels)), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(img), static_cast<const float*>(coords),
-      static_cast<float*>(out), H, W, C, static_cast<float>(rv), static_cast<float>(rh), pixels);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      launch_fwd(img, coords, out, B, H, W, C, rv, rh, static_cast<cudaStream_t>(stream)));
 }
 
 // g: (B, H, W, C) cotangent of out; dcoords: (B, H, W, 2); dimg:

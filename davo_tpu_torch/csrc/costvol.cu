@@ -101,40 +101,11 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr int kMaxDevices = 64;
-
-// 4-byte asynchronous copy global -> shared (cp.async, no registers held
-// while it is in flight); `valid` false writes 0 and reads nothing.
-__device__ __forceinline__ void copy_async(float* dst, const float* src, bool valid) {
-  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(to), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-// The same for 16 bytes (L2 only); both addresses 16-byte aligned.
-__device__ __forceinline__ void copy_async16(void* dst, const void* src, bool valid) {
-  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(to), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void copy_async_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void copy_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most kPending committed groups are still in flight.
-template <int kPending>
-__device__ __forceinline__ void copy_async_wait_group() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
+using namespace davo;
 
 // ---------------------------------------------------------------- forward
 
@@ -458,26 +429,6 @@ cudaError_t launch_fwd(const void* f1, const void* f2, void* out, long long tile
   return cudaGetLastError();
 }
 
-// The largest dynamic shared memory a block of `device` may have, and
-// its number of SMs.
-cudaError_t device_limits(int device, int* smem_bytes, int* sms) {
-  static int smem[kMaxDevices] = {}, count[kMaxDevices] = {};
-  if (smem[device] == 0) {
-    cudaError_t err =
-        cudaDeviceGetAttribute(&smem[device], cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(&count[device], cudaDevAttrMultiProcessorCount, device);
-    }
-    if (err != cudaSuccess) {
-      smem[device] = 0;
-      return err;
-    }
-  }
-  *smem_bytes = smem[device];
-  *sms = count[device];
-  return cudaSuccess;
-}
-
 // f1, f2: (B, H, W, C) of T (float, or bf16 as its bits), contiguous, on
 // the current device; out: (B, H, W, (2*search+1)^2) float32.
 template <typename T>
@@ -620,7 +571,7 @@ cost_volume_bwd_kernel(const float* __restrict__ f1, const float* __restrict__ f
         const int y = y0 - s + wy, x = x0 - s + wx, c = c0 + lane;
         const bool in = y >= 0 && y < H && x >= 0 && x < W && c < C;
         const float* src = in ? other + ((row0 + y) * W + x) * C + c : other;
-        copy_async(ms + wp * kBwdSlice + lane, src, in);
+        copy_async4(ms + wp * kBwdSlice + lane, src, in);
       }
     }
     if (is_df1) {
@@ -641,7 +592,7 @@ cost_volume_bwd_kernel(const float* __restrict__ f1, const float* __restrict__ f
           e0 = n / 4 * 4;
           for (int e = 4 * lane; e < e0; e += 128) copy_async16(dst + e, src + e, true);
         }
-        for (int e = e0 + lane; e < n; e += 32) copy_async(dst + e, src + e, true);
+        for (int e = e0 + lane; e < n; e += 32) copy_async4(dst + e, src + e, true);
         for (int e = n + lane; e < kBwdTileW * D; e += 32) dst[e] = 0.0f;  // past the frame
       }
     } else {
@@ -660,12 +611,12 @@ cost_volume_bwd_kernel(const float* __restrict__ f1, const float* __restrict__ f
           if (qx < 0 || qx >= kBwdTileW) continue;
           const int x = x0 - s + wx;
           const bool in = row_in && x >= 0 && x < W;
-          copy_async(gs + (qy * kBwdTileW + qx) * D + dy * d + dx,
+          copy_async4(gs + (qy * kBwdTileW + qx) * D + dy * d + dx,
                      in ? g + ((row0 + y) * W + x) * D + dy * d + dx : g, in);
         }
       }
     }
-    copy_async_wait();
+    copy_async_wait_all();
     __syncthreads();
 
     // Thread: tile row `warp`, pixels 4*grp .. 4*grp+3, channels

@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
 `nvcc` into its own shared library, loaded with `ctypes`. Libraries go
 to `build/davo_tpu_torch/` under the repository root (ignored by git),
-named by the source's content hash, so an edited source is rebuilt and
-an unchanged one is reused. Everything happens at first use: importing
+named by the hash of the source and of the headers beside it
+(`csrc/*.cuh`), so an edited source or header is rebuilt and an
+unchanged one is reused. Everything happens at first use: importing
 this module builds nothing.
 """
 
@@ -47,6 +48,8 @@ def _nvcc() -> str:
 def _build(name: str) -> Path:
     """The library of `csrc/<name>.cu`, compiled unless a current one exists."""
     digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     target = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     if target.exists():

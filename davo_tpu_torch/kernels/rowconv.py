@@ -22,8 +22,12 @@ rounds the conv output first and adds a bf16 bias, which is another
 function in bf16: the fused modules follow the kernels, not `ConvBlock`.
 
 Weights are the port's OIHW float32 parameters (`Conv_0.weight`, as
-`convert.py` loads them); the wrappers repack them into the kernel's
-(k, k, Cin, Cout) layout, rounded to the dot dtype, on each call.
+`convert.py` loads them). Each layer kernel takes them in its own layout:
+the tensor-core kernel of the bf16 modes as bf16 in its K order
+(`_pack_mma`), the float32 FMA kernel as (k, k, Cin, Cout) float32
+(`_pack`). `_packed` keeps each parameter's packing until the parameter
+changes in place (its `_version`) or its storage changes, so an Adam step
+is seen by the next forward and an unchanged parameter is packed once.
 
 Serving only, as the TPU kernels (which have no VJP): every wrapper
 raises when autograd would have to differentiate it (the training
@@ -39,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 from typing import Sequence
 
 import torch
@@ -172,6 +177,8 @@ def _library() -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.davo_conv_layer.argtypes = [P, I, P, P, P, I] + [I] * 14 + [P]
     lib.davo_conv_layer.restype = I
+    lib.davo_conv_layer_mma.argtypes = [P, I, P, P, P, I] + [I] * 13 + [P]
+    lib.davo_conv_layer_mma.restype = I
     lib.davo_flow_level_input.argtypes = [P, P, P, I, P, P, I, P] + [I] * 8 + [P]
     lib.davo_flow_level_input.restype = I
     lib.davo_cuda_error_string.argtypes = [I]
@@ -201,24 +208,84 @@ def _pack(w: torch.Tensor, dot: torch.dtype, cin: int | None = None) -> torch.Te
     return w.detach().to(dot).float().permute(2, 3, 1, 0).contiguous()
 
 
-def _launch_layer(x, w_packed, b, out, stride, relu, act, dot):
-    """One layer kernel: x (B, H, W, Cin) -> out (B, Ho, Wo, Cout)."""
+def mma_chunked(cin: int) -> bool:
+    """Whether the tensor-core kernel runs K in chunks of 16 input
+    channels (Cin >= 16), or flattens (tap, channel) into K."""
+    return cin >= 16
+
+
+def _pack_mma(w: torch.Tensor, cin: int | None = None) -> torch.Tensor:
+    """OIHW float32 -> the tensor-core kernel's weights (`csrc/rowconv.cu`),
+    bf16, (Np, K): input channels zero-padded to `cin`; for cin >= 16 also
+    to a multiple of 16, K ordered (chunk of 16 channels, ky, kx, channel);
+    for cin < 16, K ordered (ky, kx, channel) and zero-padded to a multiple
+    of 16; Np = Cout padded to a multiple of 8 with zero rows."""
+    cout, cin_w, k, _ = w.shape
+    cin = cin_w if cin is None else cin
+    w = w.detach().to(torch.bfloat16)
+    if mma_chunked(cin):
+        cp = -(-cin // 16) * 16
+        w = F.pad(w, (0, 0, 0, 0, 0, cp - cin_w))
+        w = w.reshape(cout, cp // 16, 16, k, k).permute(0, 1, 3, 4, 2).reshape(cout, -1)
+    else:
+        w = F.pad(w, (0, 0, 0, 0, 0, cin - cin_w)).permute(0, 2, 3, 1).reshape(cout, -1)
+        w = F.pad(w, (0, -(-w.shape[1] // 16) * 16 - w.shape[1]))
+    return F.pad(w, (0, 0, 0, -(-cout // 8) * 8 - cout)).contiguous()
+
+
+# Packed weights by parameter: id -> (weak reference to it, {(layout, cin):
+# ((storage pointer, offset, _version), packed)}).
+_PACKED: dict[int, tuple] = {}
+
+
+def _packed(w: torch.Tensor, dot: torch.dtype, cin: int) -> torch.Tensor:
+    """The layer kernel's weights for OIHW `w` (input channels padded to
+    `cin`): `_pack_mma` for bf16 products, else `_pack`. Kept per parameter
+    and reused while its storage and `_version` stay the same."""
+    layout = "mma" if dot == torch.bfloat16 else "fma"
+
+    def pack():
+        return _pack_mma(w, cin) if layout == "mma" else _pack(w, dot, cin)
+
+    if w.is_inference():  # no version counter to watch
+        return pack()
+    ref, entries = _PACKED.get(id(w), (None, None))
+    if ref is None or ref() is not w:
+        for key in [key for key, (r, _) in _PACKED.items() if r() is None]:
+            del _PACKED[key]
+        entries = {}
+        _PACKED[id(w)] = (weakref.ref(w), entries)
+    stamp = (w.untyped_storage().data_ptr(), w.storage_offset(), w._version)
+    hit = entries.get((layout, cin))
+    if hit is None or hit[0] != stamp:
+        hit = entries[(layout, cin)] = (stamp, pack())
+    return hit[1]
+
+
+def _launch_layer(x, w, b, out, stride, relu, act, dot):
+    """One layer kernel: x (B, H, W, Cin) -> out (B, Ho, Wo, Cout), OIHW
+    weights w (Cin may exceed w's input channels: zero channels). bf16
+    products (the bfloat16 and bf16_dot modes) run on the tensor-core
+    kernel, float32 ones on the FMA kernel."""
     B, H, W, cin = x.shape
     _, Ho, Wo, cout = out.shape
-    k = w_packed.shape[0]
-    if w_packed.shape != (k, k, cin, cout):
-        raise ValueError(f"weights {tuple(w_packed.shape)} do not fit input {tuple(x.shape)} -> {cout}")
+    k = w.shape[-1]
+    if w.shape[0] != cout or w.shape[1] > cin or w.shape[2] != k:
+        raise ValueError(f"weights {tuple(w.shape)} do not fit input {tuple(x.shape)} -> {cout}")
+    wp = _packed(w, dot, cin)
     pad_t = same_pads(H, k, stride)[0]
     pad_l = same_pads(W, k, stride)[0]
     bias = b.detach().float().contiguous()
+    lib = _library()
+    args = (x.data_ptr(), _bf16_flag(x, "conv input"), wp.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), int(out.dtype == torch.bfloat16), B, H, W, cin, Ho, Wo, cout, k, stride,
+            pad_t, pad_l)
     with torch.cuda.device(x.device):
-        err = _library().davo_conv_layer(
-            x.data_ptr(), _bf16_flag(x, "conv input"), w_packed.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), int(out.dtype == torch.bfloat16),
-            B, H, W, cin, Ho, Wo, cout, k, stride, pad_t, pad_l,
-            int(dot == torch.bfloat16), int(act == torch.bfloat16), int(bool(relu)),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if dot == torch.bfloat16:
+            err = lib.davo_conv_layer_mma(*args, int(act == torch.bfloat16), int(bool(relu)), stream)
+        else:
+            err = lib.davo_conv_layer(*args, 0, int(act == torch.bfloat16), int(bool(relu)), stream)
     _raise_if(err, "fused conv layer")
 
 
@@ -246,21 +313,21 @@ def _chain_cuda(name, x, weights, biases, strides, relus, act, dot, keep, last_f
     given).
     Intermediates live in device memory. A wide input whose channels are
     not a multiple of 4 is zero-padded to one (zero weights too: the same
-    sums), so the first layer reads 4 channels at a time; a narrow one
-    (the images, the flow cue) is read one channel at a time, which costs
-    less than the padded products."""
+    sums), so the first layer reads 4 channels at a time (the tensor-core
+    kernel stages them 8 bytes a copy); a narrow one (the images, the flow
+    cue) is read one channel at a time, which costs less than the padded
+    products."""
     B, h, w, cin = x.shape
     if cin % 4 and cin >= 32:
         cin = -(-cin // 4) * 4
         x = F.pad(x, (0, cin - x.shape[3]))
-    layers = [(_pack(weights[0], dot, cin), biases[0], strides[0], relus[0])]
-    layers += [(_pack(wt, dot), b, s, r) for wt, b, s, r in zip(weights[1:], biases[1:], strides[1:], relus[1:])]
+    layers = list(zip(weights, biases, strides, relus))
     outs = {}
-    for i, (wp, b, s, r) in enumerate(layers):
+    for i, (wt, b, s, r) in enumerate(layers):
         h, w = -(-h // s), -(-w // s)
         dtype = torch.float32 if (last_f32 and i == len(layers) - 1) else act
-        y = torch.empty((B, h, w, wp.shape[3]), dtype=dtype, device=x.device)
-        _launch_layer(x, wp, b, y, s, r, act, dot)
+        y = torch.empty((B, h, w, wt.shape[0]), dtype=dtype, device=x.device)
+        _launch_layer(x, wt, b, y, s, r, act, dot)
         (device_launches if counts is None else counts)[name] += 1
         if i in keep:
             outs[i] = y

@@ -184,6 +184,26 @@ def test_kernel_build_failure_raises_and_leaves_no_library(tmp_path, monkeypatch
     assert not list(tmp_path.iterdir()) and not cuda_build._LOADED
 
 
+def test_kernel_build_is_named_by_its_source_and_the_headers(tmp_path, monkeypatch):
+    """A library is reused while its source and the headers beside it
+    (`csrc/*.cuh`) are unchanged; an edited header gives a new build."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "common.cuh"\n')
+    (csrc / "common.cuh").write_text("// one\n")
+    nvcc = tmp_path / "nvcc"  # writes the file named after -o
+    nvcc.write_text('#!/bin/sh\nwhile [ "$1" != -o ]; do shift; done\ntouch "$2"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: str(nvcc))
+    first = cuda_build._build("k")
+    assert first.exists() and cuda_build._build("k") == first
+    (csrc / "common.cuh").write_text("// two\n")
+    second = cuda_build._build("k")
+    assert second != first and second.exists()
+
+
 class _StubLibrary:
     """Takes `argtypes` and `restype` for any function name, as a CDLL does."""
 

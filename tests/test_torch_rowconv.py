@@ -17,6 +17,9 @@ the kernels' rounding (f32 sum + f32 bias, one rounding) apart from
 `ConvBlock`'s (rounded conv output + bf16 bias).
 """
 
+import contextlib
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -309,14 +312,22 @@ def test_wrappers_refuse_autograd_and_count_nothing_on_the_cpu():
 
 
 def test_kernel_side_plumbing_with_the_launches_emulated(monkeypatch):
-    """The wrappers' CUDA branch (weight repacking to (k, k, Cin, Cout)
-    in the dot dtype, zero-padded input channels, taps, output dtypes,
-    launch counts) run on the CPU, with each kernel launch emulated by
-    the plain layer on the same buffers: the plain versions' results."""
+    """The wrappers' CUDA branch (zero-padded input channels, taps, output
+    dtypes, launch counts) run on the CPU, with each kernel launch
+    emulated by the plain layer on the same buffers, its weights packed as
+    the kernel of its mode takes them and unpacked again: the plain
+    versions' results."""
 
-    def layer(x, wp, b, out, stride, relu, act, dot):
-        w = wp.permute(3, 2, 0, 1)  # back to OIHW
-        assert torch.equal(w, w.to(dot).float()) and x.dtype == act and x.is_contiguous()
+    def layer(x, w, b, out, stride, relu, act, dot):
+        assert x.dtype == act and x.is_contiguous() and w.shape[1] <= x.shape[3]
+        cin = x.shape[3]
+        wp = rowconv._packed(w, dot, cin)
+        assert wp is rowconv._packed(w, dot, cin)  # packed once per parameter
+        if dot == torch.bfloat16:
+            w = _unpack_mma(wp, w.shape[0], cin, w.shape[-1]).float()
+        else:
+            w = wp.permute(3, 2, 0, 1)
+        assert torch.equal(w, w.to(dot).float())
         out.copy_(rowconv._layer_plain(x, w, b, stride, relu, act, dot).to(out.dtype))
 
     def level_input(f1, f2, feat, flow_up, x, search):
@@ -354,3 +365,160 @@ def test_kernel_side_plumbing_with_the_launches_emulated(monkeypatch):
         close(got, rowconv.flow_level_fused_plain(*level))
     assert rowconv.launches == dict.fromkeys(rowconv.launches, 3)
     assert rowconv.device_launches == {"flow_level_fused": 15, "conv_chain_strided": 18, "conv_chain_nhwc": 12}
+
+
+@pytest.mark.parametrize("mode", ["bfloat16", "bf16_dot", "float32"])
+def test_layer_launch_passes_the_kernel_its_packing_and_flags(monkeypatch, mode):
+    """`_launch_layer`'s own glue, with the library replaced by one whose
+    entry points record their arguments: bf16 products go to the
+    tensor-core entry with `_packed`'s bf16 weights, float32 ones to the
+    FMA entry with its float32 packing and round_in 0; sizes, Flax's low
+    pads, the input and output dtype flags, round_out and ReLU in the
+    C interface's order; one call per launch; the packing reused."""
+    calls = []
+
+    class Library:
+        def davo_conv_layer_mma(self, *args):
+            calls.append(("davo_conv_layer_mma", args))
+            return 0
+
+        def davo_conv_layer(self, *args):
+            calls.append(("davo_conv_layer", args))
+            return 0
+
+    monkeypatch.setattr(rowconv, "_library", lambda: Library())
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: types.SimpleNamespace(cuda_stream=77))
+    rng = np.random.default_rng(13)
+    act, dot = rowconv.DTYPE_MODES[mode]
+    B, H, W, cin, cout, k, stride = 2, 9, 11, 20, 10, 3, 2
+    x = torch.from_numpy(rng.normal(size=(B, H, W, cin)).astype(np.float32)).to(act)
+    w = torch.nn.Parameter(torch.from_numpy(rng.normal(size=(cout, cin - 2, k, k)).astype(np.float32)))
+    b = torch.from_numpy(rng.normal(size=(cout,)).astype(np.float32))
+    Ho, Wo = -(-H // stride), -(-W // stride)
+    for relu, out_dtype in ((True, act), (False, torch.float32)):
+        out = torch.empty(B, Ho, Wo, cout, dtype=out_dtype)
+        rowconv._launch_layer(x, w, b, out, stride, relu, act, dot)
+        name, args = calls[-1]
+        packed = rowconv._packed(w, dot, cin)
+        if dot == torch.bfloat16:
+            assert name == "davo_conv_layer_mma" and len(args) == 20
+            assert torch.equal(packed, rowconv._pack_mma(w, cin))
+            flags = (int(act == torch.bfloat16), int(relu))  # round_out, relu
+        else:
+            assert name == "davo_conv_layer" and len(args) == 21
+            assert torch.equal(packed, rowconv._pack(w, dot, cin))
+            flags = (0, 0, int(relu))  # round_in, round_out, relu
+        assert args[:6] == (x.data_ptr(), int(act == torch.bfloat16), packed.data_ptr(), b.data_ptr(),
+                            out.data_ptr(), int(out_dtype == torch.bfloat16))
+        pads = (rowconv.same_pads(H, k, stride)[0], rowconv.same_pads(W, k, stride)[0])
+        assert args[6:17] == (B, H, W, cin, Ho, Wo, cout, k, stride, *pads)
+        assert args[17:-1] == flags and args[-1] == 77
+    assert len(calls) == 2 and calls[0][1][2] == calls[1][1][2]  # packed once
+    with pytest.raises(ValueError, match="do not fit"):
+        rowconv._launch_layer(x[..., :16], w, b, out, stride, True, act, dot)
+
+
+# ----------------------------------------------- the tensor-core kernel's weights
+
+
+def _unpack_mma(wp, cout, cin, k):
+    """`rowconv._pack_mma`'s (Np, K) back to OIHW (cout, cin, k, k)."""
+    if rowconv.mma_chunked(cin):
+        cp = -(-cin // 16) * 16
+        w = wp[:cout].reshape(cout, cp // 16, k, k, 16).permute(0, 1, 4, 2, 3).reshape(cout, cp, k, k)
+    else:
+        w = wp[:cout, : k * k * cin].reshape(cout, k, k, cin).permute(0, 3, 1, 2)
+    return w[:, :cin]
+
+
+def _im2col_mma(x, k, stride, cin):
+    """x (B, H, W, cin) -> (B, Ho, Wo, K): each output pixel's inputs in
+    the tensor-core kernel's K order (chunks of 16 channels, then taps,
+    then channels; or taps then channels, flat, for cin < 16), zero where
+    SAME pads and where K is padded."""
+    B, H, W, _ = x.shape
+    (top, bottom), (left, right) = (rowconv.same_pads(n, k, stride) for n in (H, W))
+    cp = -(-cin // 16) * 16 if rowconv.mma_chunked(cin) else cin
+    xp = torch.nn.functional.pad(x, (0, cp - cin, left, right, top, bottom))
+    Ho, Wo = -(-H // stride), -(-W // stride)
+    taps = torch.stack([xp[:, ky: ky + stride * (Ho - 1) + 1: stride, kx: kx + stride * (Wo - 1) + 1: stride]
+                        for ky in range(k) for kx in range(k)], 3)  # (B, Ho, Wo, k*k, cp)
+    if rowconv.mma_chunked(cin):
+        cols = taps.reshape(B, Ho, Wo, k * k, cp // 16, 16).permute(0, 1, 2, 4, 3, 5)
+    else:
+        cols = taps
+    cols = cols.reshape(B, Ho, Wo, -1)
+    return torch.nn.functional.pad(cols, (0, -(-cols.shape[3] // 16) * 16 - cols.shape[3]))
+
+
+@pytest.mark.parametrize("cin", [3, 9, 83])
+@pytest.mark.parametrize("k, stride", [(3, 1), (3, 2), (5, 1), (5, 2), (7, 1), (7, 2)])
+def test_kernel_weight_layouts_give_the_plain_layer(k, stride, cin):
+    """Each layer kernel's packed weights (the tensor-core kernel's bf16
+    (Np, K) for the bf16 modes, (k, k, Cin, Cout) float32 for float32),
+    multiplied with the input in the kernel's K order and zero padding
+    (Cin to 16 or K flattened to a multiple of 16, Cout to 8), plus the
+    bias, rounded once and ReLU'd, give `_layer_plain`: float32 within
+    1e-5 of the largest output, bf16 by the one-ulp criterion (the same
+    products summed in another order)."""
+    rng = np.random.default_rng(11 + k + cin)
+    cout = 10
+    x = torch.from_numpy(rng.normal(size=(2, 9, 11, cin)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(cout, cin, k, k)) / np.sqrt(k * k * cin)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(cout,)).astype(np.float32) * 0.1)
+    for mode in ("float32", "bfloat16", "bf16_dot"):
+        act, dot = rowconv.DTYPE_MODES[mode]
+        xa = x.to(act)
+        want = rowconv._layer_plain(xa, w, b, stride, True, act, dot)
+        if dot == torch.bfloat16:
+            wp = rowconv._pack_mma(w)
+            assert wp.dtype == torch.bfloat16 and wp.shape[0] == 16 and wp.shape[1] % 16 == 0
+            assert not wp[cout:].any() and torch.equal(_unpack_mma(wp, cout, cin, k), w.to(torch.bfloat16))
+            y = _im2col_mma(xa.to(dot).float(), k, stride, cin) @ wp.float().t()
+            y = y[..., :cout]
+        else:
+            wp = rowconv._pack(w, dot)  # (k, k, Cin, Cout): K ordered (ky, kx, channel)
+            Ho, Wo = want.shape[1:3]
+            (top, bottom), (left, right) = (rowconv.same_pads(n, k, stride) for n in (9, 11))
+            xp = torch.nn.functional.pad(xa, (0, 0, left, right, top, bottom))
+            cols = torch.stack([xp[:, ky: ky + stride * (Ho - 1) + 1: stride, kx: kx + stride * (Wo - 1) + 1: stride]
+                                for ky in range(k) for kx in range(k)], 3).reshape(2, Ho, Wo, -1)
+            y = cols @ wp.reshape(-1, cout)
+        y = torch.relu((y + b).to(act))
+        assert y.dtype == want.dtype and y.shape == want.shape
+        (_assert_f32 if act == torch.float32 else _assert_one_ulp)(y, want)
+
+
+def test_packed_weights_are_kept_until_the_parameter_changes():
+    """`_packed` packs a parameter once per layout and input width, and
+    packs it anew after an in-place update (an Adam step of the train
+    loop) or when its storage is replaced; a new parameter gets its own."""
+    from davo_tpu_torch.models import presets
+    from davo_tpu_torch.train.loop import AdamTx
+
+    rng = np.random.default_rng(12)
+    w = torch.nn.Parameter(torch.from_numpy(rng.normal(size=(10, 20, 3, 3)).astype(np.float32)))
+    first = rowconv._packed(w, torch.bfloat16, 20)
+    assert rowconv._packed(w, torch.bfloat16, 20) is first
+    assert torch.equal(first, rowconv._pack_mma(w, 20))
+    wide = rowconv._packed(w, torch.bfloat16, 24)
+    f32 = rowconv._packed(w, torch.float32, 20)
+    assert wide is not first and f32.dtype == torch.float32
+    assert rowconv._packed(w, torch.float32, 20) is f32 and rowconv._packed(w, torch.bfloat16, 24) is wide
+
+    w.grad = torch.from_numpy(rng.normal(size=w.shape).astype(np.float32))
+    opt = AdamTx(presets.get("tiny"), [w])
+    before = w.detach().clone()
+    opt.step(0)
+    assert not torch.equal(w.detach(), before)
+    again = rowconv._packed(w, torch.bfloat16, 20)
+    assert again is not first and torch.equal(again, rowconv._pack_mma(w, 20))
+    assert not torch.equal(again, first)
+    assert rowconv._packed(w, torch.bfloat16, 20) is again
+
+    with torch.no_grad():
+        w.data = torch.zeros_like(w)  # a new storage, the version counter of its own
+    assert not rowconv._packed(w, torch.bfloat16, 20).any()
+    other = torch.nn.Parameter(before)
+    assert torch.equal(rowconv._packed(other, torch.bfloat16, 20), rowconv._pack_mma(before, 20))

@@ -338,8 +338,9 @@ def test_kernel_side_plumbing_with_the_launches_emulated(monkeypatch):
     on the CPU, each kernel launch emulated by its plain version on the
     same arguments: the plain versions' gradients."""
 
-    def layer(x, wp, b, out, stride, relu, act, dot):
-        out.copy_(rowconv._layer_plain(x, wp.permute(3, 2, 0, 1), b, stride, relu, act, dot).to(out.dtype))
+    def layer(x, w, b, out, stride, relu, act, dot):
+        w = torch.nn.functional.pad(w, (0, 0, 0, 0, 0, x.shape[3] - w.shape[1]))
+        out.copy_(rowconv._layer_plain(x, w, b, stride, relu, act, dot).to(out.dtype))
 
     def level_input(f1, f2, feat, flow_up, x, search, a0=None):
         cat = rowconv_ad.level_input_plain(f1, f2, feat, flow_up, search)
