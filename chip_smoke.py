@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py        # from the repository root, one GPU
     python3 chip_smoke.py --against OTHER/davo_tpu_torch/csrc
-        # only the cost-volume forward, the banded forward and the fused
-        # layer kernel of another checkout against this one's, timed in
-        # turns on the main paths' shapes
+        # only the cost-volume forward, the banded forward, the fused
+        # layer kernel and the training backward's dgrad and wgrad of
+        # another checkout against this one's, timed in turns on the main
+        # paths' shapes
 
 Phases, in order; any failure exits non-zero:
   1. environment: card name and power limit, torch/CUDA versions, TF32 flags
@@ -28,7 +29,10 @@ Phases, in order; any failure exits non-zero:
      (3e) the
      training chains' backward kernels against their plain backwards at
      one fused davo train step's shapes, bf16 and f32, with the port's
-     unfused route backward as the yardstick; (3f) the conv stack (one
+     unfused route backward as the yardstick, then layer by layer (gate,
+     wgrad, dgrad against float64 sums, two runs bitwise equal, beside one
+     cuDNN float32 and bf16 call each) and the flow levels' input
+     backward, and one layer each on 21 other shapes; (3f) the conv stack (one
      launch per stack) on the davo-fast pose prefix at B=64 and B=256
      through the bench package's speed-of-light run, then against its
      plain version and the strided chain, bf16 and f32, and on the JAX
@@ -266,6 +270,46 @@ def _build_other(src):
     return ctypes.CDLL(str(lib_path))
 
 
+def _kernel_name(demangled):
+    """A demangled kernel's name and template arguments, without its
+    return type, namespace and parameters: `conv_dgrad_mma_kernel<8>`."""
+    import re
+
+    name = re.sub(r"\((?:int|bool)\)", "", demangled.removeprefix("void "))
+    name = name.replace("(anonymous namespace)::", "").replace("<unnamed>::", "")
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            return name[:i]
+    return name
+
+
+def _sass_counts(library):
+    """{kernel: {"HMMA": n, "FFMA": n}} of a built library's SASS
+    (`cuobjdump -sass`): the tensor-core and float32 FMA instructions of
+    each kernel, by template instance."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    filt = shutil.which("cu++filt") or shutil.which("c++filt")
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            if filt:
+                demangled = subprocess.run([filt, name], capture_output=True, text=True, timeout=60).stdout.strip()
+                name = _kernel_name(demangled) if demangled else name
+            counts[name] = {"HMMA": 0, "FFMA": 0}
+        elif name is not None:
+            for op in ("HMMA", "FFMA"):
+                if f" {op}" in line:
+                    counts[name][op] += 1
+    return counts
+
+
 def _turns(fns):
     """Device ms of each callable in `fns` ({"other": f, "this": g}),
     timed in turns: other, this, this, other."""
@@ -296,7 +340,7 @@ def compare_against(torch, other_csrc):
     from davo_tpu_torch.models.davo import DavoModel
 
     other_csrc = Path(other_csrc)
-    names = [n for n in ("costvol", "bandwarp", "rowconv") if (other_csrc / f"{n}.cu").exists()]
+    names = [n for n in ("costvol", "bandwarp", "rowconv", "rowconv_bwd") if (other_csrc / f"{n}.cu").exists()]
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         libs = dict(zip(names, pool.map(lambda n: _build_other(other_csrc / f"{n}.cu"), names)))
 
@@ -435,6 +479,155 @@ def compare_against(torch, other_csrc):
                 if mode == "float32" and not max(errs.values()) <= ROWCONV_F32_TOL:
                     raise AssertionError(f"{unit['unit']} float32: errors {errs}")
         torch.cuda.empty_cache()
+
+    if "rowconv_bwd" in libs:
+        _compare_backward_against(torch, libs["rowconv_bwd"], other_csrc)
+
+
+def _other_wgrad_chunks(pixels, k_rows, cout):
+    """The FMA wgrad kernel's split over pixels (its wrapper's rule): about
+    8 blocks of 64 x 64 tiles per SM, chunks of at least 256 pixels, a
+    multiple of 32."""
+    tiles = -(-cout // 64) * -(-k_rows // 64)
+    chunks = max(1, min(-(-pixels // 256), -(-1056 // tiles), 65535))
+    chunk = -(-(-(-pixels // chunks)) // 32) * 32
+    return -(-pixels // chunk), chunk
+
+
+def _compare_backward_against(torch, lib, other_csrc):
+    """`--against`: another checkout's rowconv_bwd.cu (its entry points
+    `davo_conv_dgrad` and `davo_conv_wgrad` as the FMA kernels took them:
+    the three cotangent sources, (k, k, Cin, Cout) float32 weights) against
+    this checkout's gate, wgrad and dgrad on phase 3e's layers (one davo
+    train step at B=4, the fused training path's units and the
+    estimators), bf16 and float32: each held first to this checkout's
+    plain version summed in float64 (ROWCONV_BWD_TOL; a bf16 dx at most
+    one bf16 ulp at its scale), then timed in turns (other, this, this,
+    other) by CUDA-graph replay: dgrad, wgrad, and the layer (the other's
+    wgrad + dgrad; this gate + wgrad + dgrad). Prints a
+    `rowconv_bwd_against` row per layer and per unit's sum."""
+    import ctypes
+
+    from davo_tpu_torch.kernels import rowconv, rowconv_ad
+    from davo_tpu_torch.models import presets
+    from davo_tpu_torch.models.common import same_pads
+    from davo_tpu_torch.models.davo import DavoModel
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.davo_conv_dgrad.argtypes = [P, P, I, P, I, I, P, P, I, I] + [I] * 11 + [P]
+    lib.davo_conv_wgrad.argtypes = [P, I, I, P, P, I, P, I, I, P, I, I, P] + [I] * 11 + [P]
+    lib.davo_conv_dgrad.restype = lib.davo_conv_wgrad.restype = I
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def flag(t):
+        return 0 if t is None else int(t.dtype == torch.bfloat16)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    model = DavoModel(presets.with_overrides("davo", **FUSED_TRAIN_FLAGS).model, device="cuda", seed=0,
+                      dispnet=True)
+    for unit in _train_units(torch, model):
+        for mode in ("bfloat16", "float32"):
+            *_, sweep = _train_unit_case(torch, rowconv, rowconv_ad, unit, mode)
+            sums = {key: [0.0, 0.0] for key in ("other_layer_ms", "this_layer_ms")}
+            layers = _sweep_layers(torch, sweep)
+            step = next(layers, None)
+            while step is not None:
+                layer, a_in, dy, g, a_out, relu, w, s, x_shape, dtype = step
+                cout, cin, k, _ = w.shape
+                B, H, W, _ = x_shape
+                _, Ho, Wo, _ = a_out.shape
+                top, left = same_pads(H, k, s)[0], same_pads(W, k, s)[0]
+                a = a_out if relu else None
+                src = (ptr(dy), ptr(g), flag(g), ptr(a), flag(a), int(bool(relu)))
+                wp = rowconv._pack(w, torch.float32)
+                K = k * k * cin
+                chunks, chunk = _other_wgrad_chunks(B * Ho * Wo, K + 1, cout)
+                partial = torch.empty(chunks * (K + 1) * cout, device="cuda")
+
+                def other_dgrad(dtype=dtype, src=src, wp=wp, x_shape=x_shape, s=s, top=top, left=left):
+                    dx = torch.empty(x_shape, dtype=dtype, device="cuda")
+                    err = lib.davo_conv_dgrad(*src, wp.data_ptr(), dx.data_ptr(), flag(dx), cin, B, H, W, cin, Ho,
+                                              Wo, cout, k, s, top, left, stream())
+                    if err:
+                        raise AssertionError(f"other dgrad: launch failed ({err})")
+                    return dx
+
+                def other_wgrad(src=src, a_in=a_in, partial=partial, chunks=chunks, chunk=chunk, s=s, K=K):
+                    out = torch.empty((K + 1, cout), device="cuda")
+                    err = lib.davo_conv_wgrad(a_in.data_ptr(), flag(a_in), a_in.shape[3], *src, partial.data_ptr(),
+                                              chunks, chunk, out.data_ptr(), B, H, W, cin, Ho, Wo, cout, k, s,
+                                              top, left, stream())
+                    if err:
+                        raise AssertionError(f"other wgrad: launch failed ({err})")
+                    return out[:K].view(k, k, cin, cout).permute(3, 2, 0, 1), out[K]
+
+                def this_wgrad(dy=dy, g=g, a_out=a_out, relu=relu, a_in=a_in, w=w, s=s):
+                    return rowconv_ad._launch_wgrad(a_in, rowconv_ad._launch_gate(dy, g, a_out, relu), w.shape, s)
+
+                dz = rowconv_ad._launch_gate(dy, g, a_out, relu)
+
+                def this_dgrad(dz=dz, w=w, x_shape=x_shape, s=s, dtype=dtype):
+                    return rowconv_ad._launch_dgrad(dz, w, x_shape, s, dtype)
+
+                dzr = rowconv_ad._gate_plain(None if dy is None else dy.double(), None if g is None else g.double(),
+                                             a_out, relu)
+                want_dw, want_db = rowconv_ad._wgrad_plain(a_in[..., :cin], dzr, w.shape, s)
+                errs = {}
+                for name, fn in (("other", other_wgrad), ("this", this_wgrad)):
+                    dw, db = fn()
+                    errs[f"{name}_dw_db"] = max(float((t.double() - r).abs().max()) / float(r.abs().max())
+                                                for t, r in ((dw, want_dw), (db, want_db)))
+                fns = {"wgrad": {"other": other_wgrad, "this": this_wgrad}}
+                dx = None
+                if dtype is not None:
+                    want_dx = rowconv_ad._dgrad_plain(dzr, w, x_shape, s)
+                    scale = float(want_dx.abs().max())
+                    for name, fn in (("other", other_dgrad), ("this", this_dgrad)):
+                        got = fn()
+                        if dtype == torch.bfloat16:  # in bf16 ulps at the gradient's scale
+                            errs[f"{name}_dx_bf16_ulps"] = float((got.float() - want_dx.float()).abs().max()) / (
+                                2.0**-7 * scale)
+                        else:
+                            errs[f"{name}_dx"] = float((got.double() - want_dx).abs().max()) / scale
+                        dx = got if name == "this" else dx
+                    fns["dgrad"] = {"other": other_dgrad, "this": this_dgrad}
+                    del want_dx
+                del dzr, want_dw, want_db
+                bad = {k_: v for k_, v in errs.items()
+                       if v > (1.0 if k_.endswith("ulps") else ROWCONV_BWD_TOL)}
+                if bad:
+                    raise AssertionError(f"{unit['unit']} {mode} layer {layer}: errors {errs}")
+
+                def other_layer(fns=fns):
+                    fns["wgrad"]["other"]()
+                    if "dgrad" in fns:
+                        fns["dgrad"]["other"]()
+
+                def this_layer(fns=fns):
+                    fns["wgrad"]["this"]()
+                    if "dgrad" in fns:
+                        fns["dgrad"]["this"]()
+
+                fns["layer"] = {"other": other_layer, "this": this_layer}
+                times = {key: _turns(pair) for key, pair in fns.items()}
+                for who in ("other", "this"):
+                    for i in (0, 1):
+                        sums[f"{who}_layer_ms"][i] += times["layer"][who][i]
+                print(json.dumps({
+                    "phase": "rowconv_bwd_against", "other": str(other_csrc), "kernel": unit["kernel"],
+                    "unit": unit["unit"], "mode": mode, "layer": layer, "shape": [B, H, W, cin, cout, k, s],
+                    "max_rel_err": errs, **{f"{key}_{who}_ms": t[who] for key, t in times.items() for who in t},
+                }), flush=True)
+                del partial, dz
+                step = layers.send(dx) if layer else None
+            print(json.dumps({"phase": "rowconv_bwd_against", "other": str(other_csrc), "kernel": unit["kernel"],
+                              "unit": unit["unit"], "mode": mode, "layer": "all", **sums}), flush=True)
+            del sweep, layers
+            torch.cuda.empty_cache()
 
 
 def main_path(torch, costvol):
@@ -1221,6 +1414,161 @@ def check_rowconv(torch, rowconv, N=64):
 # within 1e-5 of their largest, as both sum the same float32 products.
 ROWCONV_BWD_TOL = 1e-5
 ROWCONV_BWD_BF16_SHARE = 1e-3
+# The backward's conv kernels run float32 products as 3 TF32 passes on
+# the tensor cores (2 for wgrad on a bf16 layer input): their bound takes
+# the FLOPs times the passes at the dense TF32 rate; the f32 FMA bound of
+# the same FLOPs stands beside it.
+TF32_FLOPS = 494.7e12
+
+
+def _sweep_layers(torch, sweep):
+    """The layers of a unit's reverse sweep, last first: (layer, its input,
+    dy, g, a_out, relu, OIHW w, stride, input shape, dx dtype or None
+    where no dgrad runs). The caller sends each layer's dx back (as the
+    next layer's dy) with `send`."""
+    x, acts, ws, strides, relus = sweep["x"], sweep["acts"], sweep["ws"], sweep["strides"], sweep["relus"]
+    taps, gs, need_dx = sweep["taps"], sweep["gs"], sweep["need_dx"]
+    dy = None
+    for layer in reversed(range(len(ws))):
+        w = ws[layer]
+        a_in = x if layer == 0 else acts[layer - 1]
+        g = gs[taps.index(layer)].contiguous() if layer in taps else None
+        dtype = (torch.float32 if layer else sweep["dx_dtype"]) if layer or need_dx else None
+        x_shape = (*a_in.shape[:3], w.shape[1])
+        dx = yield layer, a_in, dy, g, acts[layer], relus[layer], w, strides[layer], x_shape, dtype
+        dy = dx if layer else None
+
+
+def _bwd_layer_rows(torch, rowconv_ad, unit, mode, sweep):
+    """Phase 3e per layer: the unit's reverse sweep as the kernels run it
+    (each layer's dy the previous dgrad's output), every layer's gate,
+    wgrad and dgrad against the plain backward on the same inputs summed
+    in float64 (max error relative to the largest element), checked to
+    repeat bitwise, timed by CUDA-graph replay beside one cuDNN call for
+    the same function on pre-formed operands (`conv2d_input` /
+    `conv2d_weight` on the padded NCHW maps: float32, TF32 off, the same
+    numerics; and bf16); the bounds at the design's TF32 rate and at the
+    f32 FMA rate. For a flow level, `flow_level_input_bwd` after the
+    sweep. Returns the rows."""
+    import torch.nn.functional as F
+
+    from davo_tpu_torch.models.common import same_pads
+
+    ws = sweep["ws"]
+    rows, dy = [], None
+
+    def rel(got, want):
+        return float((got.double() - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+    layers = _sweep_layers(torch, sweep)
+    step = next(layers, None)
+    while step is not None:
+        layer, a_in, dy, g, a_out, relu, w, s, x_shape, dtype = step
+        cout, cin, k, _ = w.shape
+        has_dx = dtype is not None
+        B, H, W, _ = x_shape
+        _, Ho, Wo, _ = a_out.shape
+
+        def gate(dy=dy, g=g, a_out=a_out, relu=relu):
+            return rowconv_ad._launch_gate(dy, g, a_out, relu)
+
+        dz = gate()
+
+        def wgrad(a_in=a_in, dz=dz, w=w, s=s):
+            return rowconv_ad._launch_wgrad(a_in, dz, w.shape, s)
+
+        def dgrad(dz=dz, w=w, x_shape=x_shape, s=s, dtype=dtype):
+            return rowconv_ad._launch_dgrad(dz, w, x_shape, s, dtype)
+
+        seen = dict(rowconv_ad.variant_launches)
+        dw, db = wgrad()
+        dx = dgrad() if has_dx else None
+        variants = sorted(k for k, v in rowconv_ad.variant_launches.items() if v != seen.get(k, 0))
+        bitwise = (torch.equal(gate(), dz) and all(torch.equal(a, b) for a, b in zip(wgrad(), (dw, db)))
+                   and (dx is None or torch.equal(dgrad(), dx)))
+        dzr = rowconv_ad._gate_plain(None if dy is None else dy.double(), None if g is None else g.double(),
+                                     a_out, relu)
+        want_dw, want_db = rowconv_ad._wgrad_plain(a_in[..., :cin], dzr, w.shape, s)
+        errs = {"dz": rel(dz[..., :cout], dzr), "dw": rel(dw, want_dw), "db": rel(db, want_db)}
+        if has_dx:
+            want_dx = rowconv_ad._dgrad_plain(dzr, w, x_shape, s)
+            d = (dx.double() - want_dx).abs()
+            errs["dx"] = float(d.max()) / max(float(want_dx.abs().max()), 1e-30)
+            if dtype == torch.bfloat16:  # against the float64 sum rounded once, in ulps at the scale
+                d = (dx.float() - want_dx.float().to(torch.bfloat16).float()).abs()
+                errs.update(dx_bf16_differ_share=float((d > 0).float().mean()),
+                            dx_bf16_max_ulps=float(d.max()) / (2.0**-7 * max(float(want_dx.abs().max()), 1e-30)))
+                errs["dx"] = None
+        del dzr, want_dw, want_db
+        # One cuDNN call per function on pre-formed operands.
+        (top, bottom), (left, right) = same_pads(H, k, s), same_pads(W, k, s)
+        dz_n = dz[..., :cout].permute(0, 3, 1, 2).contiguous()
+        xp_n = F.pad(a_in[..., :cin].float().permute(0, 3, 1, 2), (left, right, top, bottom)).contiguous()
+        size = (B, cin, H + top + bottom, W + left + right)
+        lib = {}
+        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            wd, zd, xd = w.to(dt), dz_n.to(dt), xp_n.to(dt)
+            lib[f"cudnn_{name}_wgrad_ms"] = _graph_ms(
+                lambda xd=xd, zd=zd: torch.nn.grad.conv2d_weight(xd, w.shape, zd, stride=s), reps=5)
+            lib[f"cudnn_{name}_dgrad_ms"] = _graph_ms(
+                lambda wd=wd, zd=zd: torch.nn.grad.conv2d_input(size, wd, zd, stride=s), reps=5) if has_dx else None
+        flops = 2.0 * B * Ho * Wo * k * k * cin * cout
+        passes_w = 2 if a_in.dtype == torch.bfloat16 else 3
+        gate_bytes = a_out.numel() * (4 + (dy is not None) * 4 + (0 if g is None else g.element_size())
+                                      + relu * a_out.element_size()) + dz.numel() * 4
+        w_bytes = a_in.numel() * a_in.element_size() + dz.numel() * 4 + 4 * (w.numel() + cout)
+        d_bytes = dz.numel() * 4 + 4 * w.numel() + B * H * W * cin * torch.tensor([], dtype=dtype).element_size()
+        times = {"gate_ms": _graph_ms(gate, reps=5), "wgrad_ms": _graph_ms(wgrad, reps=5),
+                 "dgrad_ms": _graph_ms(dgrad, reps=5) if has_dx else None}
+        dz32 = rowconv_ad._gate_plain(dy, g, a_out, relu)
+        times.update(
+            gate_plain_ms=_event_ms(lambda: rowconv_ad._gate_plain(dy, g, a_out, relu), 3),
+            wgrad_plain_ms=_event_ms(lambda: rowconv_ad._wgrad_plain(a_in[..., :cin], dz32, w.shape, s), 3),
+            dgrad_plain_ms=_event_ms(lambda: rowconv_ad._dgrad_plain(dz32, w, x_shape, s), 3) if has_dx else None)
+        del dz32
+        row = {"phase": "rowconv_bwd_layer", "kernel": unit["kernel"], "unit": unit["unit"], "mode": mode,
+               "layer": layer, "shape": [B, H, W, cin, cout, k, s], "x_dtype": str(a_in.dtype).split(".")[-1],
+               "variants": variants,
+               "max_rel_err": errs, "bitwise_repeat": bitwise, **times, **lib, "flops": flops,
+               "gate_bound_ms": _bound_ms(gate_bytes, 0)[0],
+               "wgrad_bound_ms": _bound_ms(w_bytes, flops * passes_w, TF32_FLOPS)[0],
+               "wgrad_fma_bound_ms": _bound_ms(w_bytes, flops)[0],
+               "dgrad_bound_ms": _bound_ms(d_bytes, flops * 3, TF32_FLOPS)[0] if has_dx else None,
+               "dgrad_fma_bound_ms": _bound_ms(d_bytes, flops)[0] if has_dx else None}
+        print(json.dumps(row), flush=True)
+        f32_errs = [v for key, v in errs.items() if v is not None and not key.startswith("dx_bf16")]
+        if not (bitwise and max(f32_errs) <= ROWCONV_BWD_TOL
+                and errs.get("dx_bf16_differ_share", 0.0) <= ROWCONV_BWD_BF16_SHARE
+                and errs.get("dx_bf16_max_ulps", 0.0) <= 1.0):
+            raise AssertionError(f"{unit['unit']} {mode} layer {layer}: {row}")
+        rows.append(row)
+        del dz, dw, db, dz_n, xp_n
+        step = layers.send(dx) if layer else None
+    if sweep["level"] is not None:
+        f1, f2, a0, dt, cf = sweep["level"]
+        cu = ws[0].shape[1] - 81 - cf
+        da0 = dx
+
+        def level_bwd():
+            return rowconv_ad._launch_level_input_bwd(f1, f2, a0, da0, 4, dt, cf, cu)
+
+        got = level_bwd()
+        bitwise = all(torch.equal(a, b) for a, b in zip(level_bwd(), got))
+        want = rowconv_ad.flow_level_input_bwd_plain(f1, f2, a0, da0.double(), 4, cf, cu)
+        errs = [rel(a, b) for a, b in zip(got, want)]
+        nbytes = sum(t.numel() * t.element_size() for t in (f1, f2, a0, da0, *got))
+        B, H, W, C = f1.shape
+        row = {"phase": "rowconv_bwd_layer", "kernel": unit["kernel"], "unit": unit["unit"], "mode": mode,
+               "layer": "flow_level_input_bwd", "max_rel_err": errs, "bitwise_repeat": bitwise,
+               "flow_level_input_bwd_ms": _graph_ms(level_bwd, reps=5),
+               "flow_level_input_bwd_plain_ms": _event_ms(
+                   lambda: rowconv_ad.flow_level_input_bwd_plain(f1, f2, a0, da0, 4, cf, cu), 3),
+               "bound_ms": _bound_ms(nbytes, 4.0 * B * H * W * 81 * C)[0]}
+        print(json.dumps(row), flush=True)
+        if not (bitwise and (dt == torch.bfloat16 or max(errs) <= ROWCONV_BWD_TOL)):
+            raise AssertionError(f"{unit['unit']} {mode} flow_level_input_bwd: {row}")
+        rows.append(row)
+    return rows
 
 
 def _train_units(torch, model):
@@ -1288,8 +1636,9 @@ def _train_unit_case(torch, rowconv, rowconv_ad, unit, mode):
     Returns (kernels' backward, plain backward, the plain backward summed
     in float64, the indices of the outputs rounded to a bf16 input's
     dtype, bytes moved, FLOPs, the port's unfused route backward or
-    None), each backward a function returning a flat list of gradients
-    in the kernels' dtypes."""
+    None, the conv FLOPs counted as the kernels' TF32 passes, the
+    sweep's operands for `_bwd_layer_rows`), each backward a function
+    returning a flat list of gradients in the kernels' dtypes."""
     from collections import Counter
 
     from davo_tpu_torch.kernels import costvol
@@ -1305,6 +1654,13 @@ def _train_unit_case(torch, rowconv, rowconv_ad, unit, mode):
         # wgrad per layer, dgrad per layer that has one: 2 k k Cin Cout per output pixel each.
         return sum((1 + (i in dgrads)) * 2 * out.shape[0] * out.shape[1] * out.shape[2] * w[0].numel() * w.shape[0]
                    for i, (w, out) in enumerate(zip(ws, shapes)))
+
+    def tf32_flops(x0, outs, dgrads):
+        # The same products as TF32 passes: dgrad 3, wgrad 3 on a float32 layer input, 2 on a bf16 one.
+        ins = [x0, *outs[:-1]]
+        return sum(((2 if a_in.dtype == torch.bfloat16 else 3) + 3 * (i in dgrads))
+                   * 2 * out.shape[0] * out.shape[1] * out.shape[2] * w[0].numel() * w.shape[0]
+                   for i, (w, out, a_in) in enumerate(zip(ws, outs, ins)))
 
     def nbytes(ts):
         return sum(t.numel() * t.element_size() for t in ts)
@@ -1329,7 +1685,10 @@ def _train_unit_case(torch, rowconv, rowconv_ad, unit, mode):
         rounded = (0, 1, 2)
         P, C = f1.shape[0] * f1.shape[1] * f1.shape[2], f1.shape[3]
         flops = layer_flops(acts, range(n)) + 4 * P * 81 * C
+        design_flops = tf32_flops(a0, acts, range(n))
         moved = nbytes([f1, f2, a0, *acts, g]) + 4 * sum(t.numel() for t in ws)
+        sweep = dict(x=a0, acts=acts, ws=ws, strides=(1,) * n, relus=relus, taps=(n - 1,), gs=(g,), need_dx=True,
+                     dx_dtype=torch.float32, level=(f1, f2, a0, dt, cf))
 
         def library_fn():  # the unfused route: cost-volume kernel, ReLU, concat, ConvBlocks
             leaves = [f1.detach().clone().requires_grad_(), f2.detach().clone().requires_grad_(),
@@ -1357,7 +1716,10 @@ def _train_unit_case(torch, rowconv, rowconv_ad, unit, mode):
 
         rounded = (0,) if need_dx else ()
         flops = layer_flops(acts, range(n) if need_dx else range(1, n))
+        design_flops = tf32_flops(x, acts, range(n) if need_dx else range(1, n))
         moved = nbytes([x, *acts, *gs]) + 4 * sum(t.numel() for t in ws)
+        sweep = dict(x=x, acts=acts, ws=ws, strides=strides, relus=relus, taps=taps, gs=gs, need_dx=need_dx,
+                     dx_dtype=x.dtype, level=None)
 
         def library_fn():  # the unfused route: the ConvBlocks (the flow head a bare Conv)
             leaf = x.detach().clone().requires_grad_(need_dx)
@@ -1377,7 +1739,7 @@ def _train_unit_case(torch, rowconv, rowconv_ad, unit, mode):
         def library():
             return torch.autograd.grad(outs, leaves, cots, retain_graph=True)
 
-    return kernels, plain, reference, rounded, moved, flops, library
+    return kernels, plain, reference, rounded, moved, flops, library, design_flops, sweep
 
 
 def _bwd_errors(torch, got, want, rounded):
@@ -1419,10 +1781,10 @@ def check_rowconv_backward(torch, rowconv, rowconv_ad):
 
     model = DavoModel(presets.with_overrides("davo", **FUSED_TRAIN_FLAGS).model, device="cuda", seed=0,
                       dispnet=True)
-    rows = []
+    rows, layer_rows = [], []
     for unit in _train_units(torch, model):
         for mode in ("bfloat16", "float32"):
-            kernels, plain, reference, rounded, moved, flops, library = _train_unit_case(
+            kernels, plain, reference, rounded, moved, flops, library, design_flops, sweep = _train_unit_case(
                 torch, rowconv, rowconv_ad, unit, mode)
             with torch.no_grad():
                 got = kernels()
@@ -1430,24 +1792,102 @@ def check_rowconv_backward(torch, rowconv, rowconv_ad):
                 want = reference()
                 rel, share, ulps = _bwd_errors(torch, got, want, rounded)
                 plain_rel, plain_share, _ = _bwd_errors(torch, plain(), want, rounded)
+                bitwise = all(torch.equal(a, b) for a, b in zip(kernels(), got))
                 moved_all = moved + sum(t.numel() * t.element_size() for t in got)
                 del got, want
-                bound_ms, bound_by = _bound_ms(moved_all, flops)
+                # The conv kernels' products at their TF32 passes; the flow
+                # level's input backward (f32 FMAs) at the f32 rate.
+                other_flops = 0 if sweep["level"] is None else 4 * sweep["level"][0].numel() * 81
+                bytes_ms = moved_all / HBM_BYTES_PER_S * 1e3
+                ops_ms = (design_flops / TF32_FLOPS + other_flops / F32_FLOPS) * 1e3
                 row = {"kernel": unit["kernel"], "unit": unit["unit"], "mode": mode,
                        "max_rel_err": rel, "bf16_differ_share": share, "bf16_max_ulps": ulps,
                        "plain_f32_max_rel_err": plain_rel, "plain_f32_bf16_differ_share": plain_share,
+                       "bitwise_repeat": bitwise,
                        "ms": _graph_ms(kernels, reps=3), "plain_ms": _event_ms(plain, 3),
-                       "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved_all, "flops": flops}
+                       "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                       "fma_bound_ms": _bound_ms(moved_all, flops)[0],
+                       "bytes": moved_all, "flops": flops, "tf32_pass_flops": design_flops}
             if library is not None:
                 row["library_ms"] = _event_ms(library, 5)
             print(json.dumps({"phase": "rowconv_bwd", **row}), flush=True)
-            ok = rel <= ROWCONV_BWD_TOL and share <= ROWCONV_BWD_BF16_SHARE and ulps <= 1.0
+            ok = rel <= ROWCONV_BWD_TOL and share <= ROWCONV_BWD_BF16_SHARE and ulps <= 1.0 and bitwise
             if not ok:
                 raise AssertionError(f"{unit['kernel']} {unit['unit']} {mode}: {row}")
             rows.append(row)
-            del kernels, plain, reference, library
+            with torch.no_grad():
+                layer_rows += _bwd_layer_rows(torch, rowconv_ad, unit, mode, sweep)
+            del kernels, plain, reference, library, sweep
             torch.cuda.empty_cache()
-    return rows
+    return rows, layer_rows
+
+
+# Shapes beyond the model's for the backward's conv kernels: odd and tiny
+# maps, Cin and Cout off the 8-channel slots, k 1 to 7 at both strides,
+# inputs with more channels than the layer reads, bf16 inputs and dx,
+# every variant of dgrad_plan and wgrad_plan. (B, H, W, Cin, Cout, k,
+# stride, input dtype, extra input channels, tap cotangent, ReLU.)
+BWD_SHAPES = [
+    (2, 9, 11, 12, 16, 3, 2, "float32", 0, True, True), (3, 7, 13, 20, 24, 3, 1, "bfloat16", 0, False, True),
+    (1, 1, 1, 5, 3, 3, 2, "float32", 0, True, False), (2, 2, 3, 8, 8, 3, 1, "bfloat16", 0, True, True),
+    (2, 15, 17, 3, 16, 7, 2, "bfloat16", 0, True, True), (2, 15, 17, 9, 16, 7, 2, "float32", 0, False, True),
+    (2, 16, 20, 2, 16, 3, 2, "bfloat16", 0, True, True), (2, 13, 21, 32, 2, 3, 1, "bfloat16", 0, True, False),
+    (2, 12, 12, 40, 40, 5, 1, "float32", 0, True, True), (2, 12, 12, 40, 40, 5, 2, "bfloat16", 0, True, True),
+    (2, 10, 14, 64, 72, 1, 1, "bfloat16", 0, True, True), (2, 10, 14, 64, 72, 1, 2, "float32", 0, True, True),
+    (2, 6, 26, 179, 96, 3, 1, "float32", 1, False, True), (2, 6, 26, 179, 96, 3, 1, "bfloat16", 0, True, True),
+    (2, 5, 7, 256, 264, 3, 2, "bfloat16", 0, True, True), (1, 4, 13, 512, 512, 3, 1, "bfloat16", 0, True, True),
+    (3, 33, 65, 16, 32, 3, 2, "bfloat16", 8, True, True), (2, 31, 47, 24, 8, 3, 1, "float32", 4, True, True),
+    (2, 64, 64, 96, 64, 3, 1, "bfloat16", 0, True, True), (4, 19, 23, 11, 13, 3, 1, "float32", 0, True, True),
+    (2, 15, 17, 3, 32, 7, 2, "float32", 0, True, True),
+]
+
+
+def check_rowconv_backward_shapes(torch, rowconv_ad):
+    """Phase 3e, last part: `BWD_SHAPES` one layer each through the gate,
+    wgrad and dgrad (dx in the input's dtype, as for a chain's first
+    layer) against the float64 plain versions: float32 outputs within
+    ROWCONV_BWD_TOL of their largest, a bf16 dx within one bf16 ulp at its
+    scale, two runs bitwise equal. Prints one line; raises on a miss."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    worst, cases = {"dw": 0.0, "db": 0.0, "dx": 0.0, "dx_bf16_ulps": 0.0}, []
+    for B, H, W, cin, cout, k, s, dt, extra, tap, relu in BWD_SHAPES:
+        dt = getattr(torch, dt)
+        Ho, Wo = -(-H // s), -(-W // s)
+        x = torch.rand(B, H, W, cin + extra, device="cuda", generator=gen).to(dt)
+        w = torch.randn(cout, cin, k, k, device="cuda", generator=gen) * (k * k * cin) ** -0.5
+        dy = torch.randn(B, Ho, Wo, cout, device="cuda", generator=gen)
+        g = torch.randn(B, Ho, Wo, cout, device="cuda", generator=gen).to(dt) if tap else None
+        a = torch.relu(torch.randn(B, Ho, Wo, cout, device="cuda", generator=gen)).to(dt)
+        seen = dict(rowconv_ad.variant_launches)
+
+        def run():
+            dz = rowconv_ad._launch_gate(dy, g, a, relu)
+            dw, db = rowconv_ad._launch_wgrad(x, dz, w.shape, s)
+            return dz, dw, db, rowconv_ad._launch_dgrad(dz, w, (B, H, W, cin), s, dt)
+
+        got = run()
+        variants = sorted(k_ for k_, v in rowconv_ad.variant_launches.items() if v != seen.get(k_, 0))
+        bitwise = all(torch.equal(p, q) for p, q in zip(got, run()))
+        dzr = rowconv_ad._gate_plain(dy.double(), None if g is None else g.double(), a, relu)
+        want_dw, want_db = rowconv_ad._wgrad_plain(x[..., :cin], dzr, w.shape, s)
+        want_dx = rowconv_ad._dgrad_plain(dzr, w, (B, H, W, cin), s)
+        errs = {key: float((t.double() - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+                for key, t, r in (("dw", got[1], want_dw), ("db", got[2], want_db))}
+        if dt == torch.bfloat16:
+            errs["dx_bf16_ulps"] = float((got[3].float() - want_dx.float()).abs().max()) / (
+                2.0**-7 * max(float(want_dx.abs().max()), 1e-30))
+        else:
+            errs["dx"] = float((got[3].double() - want_dx).abs().max()) / max(float(want_dx.abs().max()), 1e-30)
+        for key, v in errs.items():
+            worst[key] = max(worst[key], v)
+        cases.append({"shape": [B, H, W, cin, cout, k, s, str(dt).split(".")[-1], extra], "variants": variants,
+                      "max_rel_err": errs, "bitwise_repeat": bitwise})
+        ok = bitwise and all(v <= (1.0 if key.endswith("ulps") else ROWCONV_BWD_TOL) for key, v in errs.items())
+        if not ok:
+            raise AssertionError(f"backward kernels on {cases[-1]}")
+        del x, w, dy, g, a, got, dzr, want_dw, want_db, want_dx
+    print(json.dumps({"phase": "rowconv_bwd_shapes", "cases": len(cases), "worst": worst,
+                      "variants": sorted({v for c in cases for v in c["variants"]}), "each": cases}), flush=True)
 
 
 # ---------------------------------------------------------------- the conv stack (#11)
@@ -1854,6 +2294,7 @@ def train_path(torch, costvol, bandwarp, phase="train_path", flags=None, steps=5
     from davo_tpu_torch.data.snippets import MultiSourceDataset
     from davo_tpu_torch.data.synthetic import SyntheticSequence
     from davo_tpu_torch.models import presets
+    from davo_tpu_torch.kernels import rowconv_ad
     from davo_tpu_torch.train import loop
 
     cfg = presets.with_overrides("davo", **(flags or {}))
@@ -1876,6 +2317,7 @@ def train_path(torch, costvol, bandwarp, phase="train_path", flags=None, steps=5
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         counts = _train_counts(costvol, bandwarp)
+        variants = dict(rowconv_ad.variant_launches)
     finally:
         undo()
     unchanged = [
@@ -1887,7 +2329,7 @@ def train_path(torch, costvol, bandwarp, phase="train_path", flags=None, steps=5
     print(json.dumps({
         "phase": phase, "preset": "davo", "flags": flags or {}, "hw": [m.img_height, m.img_width],
         "batch": cfg.train.batch_size, "steps": steps, "compute_dtype": m.compute_dtype,
-        "warp_gather": "banded", "band": list(BAND), "launches": counts,
+        "warp_gather": "banded", "band": list(BAND), "launches": counts, "variant_launches": variants,
         "history": history, "setup_s": setup_s, "fit_s": fit_s, "prefetch": stats.summary(),
         "unchanged_parameters": unchanged, "n_parameters": len(before),
     }), flush=True)
@@ -1900,7 +2342,7 @@ def train_path(torch, costvol, bandwarp, phase="train_path", flags=None, steps=5
         raise AssertionError(f"{phase}: non-finite loss terms {bad}")
     if unchanged:
         raise AssertionError(f"{phase}: parameters unchanged after {steps} steps: {unchanged}")
-    return counts, next(ds.batches(steps=1))
+    return {**counts, "variant_launches": variants}, next(ds.batches(steps=1))
 
 
 def _want_counts(counts, per_step, steps):
@@ -1917,14 +2359,16 @@ def _want_counts(counts, per_step, steps):
 # layers; the sixth sees 4x13) as one `conv_chain_strided_ad` each, the
 # DispNet encoder's (s2, s1) prefix (10 of 14 layers) as a fourth; three
 # flow levels (/16, /8, /4) of 4 layers plus the input kernel. Backward:
-# a wgrad per layer, a dgrad per layer but the first of the pyramid and
-# of DispNet (their input is the images), and one flow_level_input_bwd
-# per level. No cost volume: the fused levels bypass it.
+# a gate and a wgrad per layer, a dgrad per layer but the first of the
+# pyramid and of DispNet (their input is the images), and one
+# flow_level_input_bwd per level. No cost volume: the fused levels bypass
+# it.
 FUSED_TRAIN_PER_STEP = {
     "banded_warp": 16, "banded_warp_backward": 16,
     "flow_level_fused_ad": 3, "flow_level_fused_ad_backward": 3,
     "conv_chain_strided_ad": 4, "conv_chain_strided_ad_backward": 4,
     "device:flow_level_fused_ad": 3 * 5, "device:conv_chain_strided_ad": 8 + 3 + 5 + 10,
+    "device:conv_layer_gate": 8 + 3 + 5 + 10 + 3 * 4,
     "device:conv_layer_wgrad": 8 + 3 + 5 + 10 + 3 * 4, "device:conv_layer_dgrad": 7 + 3 + 5 + 9 + 3 * 4,
     "device:flow_level_input_bwd": 3,
 }
@@ -1933,7 +2377,7 @@ FUSED_TRAIN_PER_STEP = {
 ESTIMATOR_TRAIN_PER_STEP = {
     "cost_volume": 3, "cost_volume_backward": 3, "banded_warp": 16, "banded_warp_backward": 16,
     "conv_chain_nhwc_ad": 3, "conv_chain_nhwc_ad_backward": 3, "device:conv_chain_nhwc_ad": 12,
-    "device:conv_layer_wgrad": 12, "device:conv_layer_dgrad": 12,
+    "device:conv_layer_gate": 12, "device:conv_layer_wgrad": 12, "device:conv_layer_dgrad": 12,
 }
 
 
@@ -2122,15 +2566,25 @@ def train_step_time(torch, card, batch4, phase="train_step_time", flags=None):
                            ("rowconv_layers", "conv_layer_kernel<"),
                            ("rowconv_mma_layers", "conv_mma_"),
                            ("flow_level_input", "flow_level_input_kernel<"),
-                           ("conv_layer_dgrad", "conv_dgrad_kernel<"),
-                           ("conv_layer_wgrad", "conv_wgrad_partial_kernel"),
+                           ("conv_layer_gate", "conv_gate_kernel"),
+                           ("conv_layer_dgrad", "conv_dgrad_mma_kernel<"),
+                           ("conv_layer_wgrad", "conv_wgrad_mma_kernel<"),
                            ("conv_layer_wgrad_reduce", "wgrad_reduce_kernel"),
                            ("flow_level_input_bwd", "flow_level_input_bwd_kernel<"))
     }
     ours = {k: {"ms": v, "share": v / device_ms} for k, v in ours.items()}
+    # The backward conv kernels by variant (template instance).
+    variants = {}
+    for k, ms, n in rows:
+        for part in ("conv_dgrad_mma_kernel<", "conv_wgrad_mma_kernel<"):
+            if part in k:
+                name = part + k.split(part, 1)[1].split(">", 1)[0] + ">"
+                variants[name] = {"ms": variants.get(name, {}).get("ms", 0.0) + ms,
+                                  "calls": variants.get(name, {}).get("calls", 0) + n}
     print(json.dumps({
         "phase": phase.replace("step_time", "profile"), "batch": results[64]["batch"], "device_ms": device_ms,
         "wall_ms": wall_ms, "device_busy_share": device_ms / wall_ms, "kernels_of_this_port": ours,
+        "backward_conv_variants": variants,
         "top": [{"kernel": k[:100], "ms": ms, "calls": n} for k, ms, n in rows[:30]], "card": card,
     }), flush=True)
     return results, ours
@@ -2214,13 +2668,16 @@ def main() -> int:
             future.result()
     build_s = time.perf_counter() - t0
     print(json.dumps({"phase": "build", "seconds": build_s, "log": cuda_build.BUILD_LOG}), flush=True)
+    print(json.dumps({"phase": "sass", "source": "rowconv_bwd",
+                      "per_kernel": _sass_counts(cuda_build.load("rowconv_bwd")._name)}), flush=True)
 
     rows = check_cost_volume(torch, costvol)
     bwd_rows = check_cost_volume_backward(torch, costvol)
     band_rows, extra_band_rows = check_banded_warp(torch, bandwarp)
     _, warp_step_sums = check_banded_warp_on_step(torch, bandwarp, _step_warp_inputs(torch, bandwarp))
     rowconv_rows = check_rowconv(torch, rowconv)
-    bwd_kernel_rows = check_rowconv_backward(torch, rowconv, rowconv_ad)
+    bwd_kernel_rows, bwd_layer_rows = check_rowconv_backward(torch, rowconv, rowconv_ad)
+    check_rowconv_backward_shapes(torch, rowconv_ad)
     stack_rows, stack_counts = check_conv_stack(torch, card)
     launches, stream = main_path(torch, costvol)
     fused_counts, fused_model = fused_path(torch, costvol, rowconv, stream)
@@ -2243,7 +2700,7 @@ def main() -> int:
     train_gpu_against_cpu(torch)
     train_gpu_against_cpu(torch, "fused_train_gpu_vs_cpu", FUSED_TRAIN_FLAGS)
     train_step_time(torch, card, batch4)
-    train_step_time(torch, card, batch4, "fused_train_step_time", FUSED_TRAIN_FLAGS)
+    _, fused_step_kernels = train_step_time(torch, card, batch4, "fused_train_step_time", FUSED_TRAIN_FLAGS)
     bench_entry(torch, card, phase6_fps)
 
     # The kernels' line. cost_volume: the work of one serving request (its
@@ -2403,6 +2860,62 @@ def main() -> int:
             "library_is": "the port's unfused route backward for the same units, CUDA events",
             "float32_ms": sum(r["ms"] for r in f32_rows),
         })
+    # The training chains' backward kernels one by one: the work of one
+    # davo train step at B=4 on the fused training path (phase 3e's units
+    # but the estimators, which fuse_estimator_train runs) in bf16, summed
+    # over their layers; "bound_ms" at the design's rate (TF32 passes),
+    # "fma_bound_ms" at the f32 FMA rate; "library_ms" one cuDNN float32
+    # call (TF32 off) per layer on pre-formed operands, "library_bf16_ms"
+    # the same in bf16; launches on the fused training path (5 steps), by
+    # variant where the kernel has several; "b64_step_ms" its device time
+    # in phase 10b's profile of one fused B=64 step.
+    step_layers = [r for r in bwd_layer_rows if r["mode"] == "bfloat16" and r["kernel"] != "conv_chain_nhwc_ad"]
+    est_layers = [r for r in bwd_layer_rows if r["mode"] == "bfloat16" and r["kernel"] == "conv_chain_nhwc_ad"]
+
+    def layer_sum(rows_, key):
+        values = [r[key] for r in rows_ if r.get(key) is not None]
+        return sum(values) if values else None
+
+    def worst(kind):
+        return max(v for r in bwd_layer_rows if isinstance(r["max_rel_err"], dict)
+                   for k, v in r["max_rel_err"].items() if k in kind and v is not None)
+
+    for name, prefix, errs in (("conv_layer_gate", "gate", ("dz",)), ("conv_layer_wgrad", "wgrad", ("dw", "db")),
+                               ("conv_layer_dgrad", "dgrad", ("dx",))):
+        conv = prefix != "gate"
+        kernels.append({
+            "name": name, "route": "cuda", "source": "davo_tpu_torch/csrc/rowconv_bwd.cu",
+            "replaces": "davo_tpu/kernels/rowconv.py:1455, :1186, :869 (the backward pallas_calls of #8, #6, #10)",
+            "launches": fused_train_counts["device_launches"][name],
+            "launches_by_variant": {k: v for k, v in fused_train_counts["variant_launches"].items()
+                                    if prefix in k} if conv else None,
+            "max_abs_err": worst(errs),
+            "max_err_is": "float32, relative to the largest element, against the float64 sum on the same inputs",
+            "ms": layer_sum(step_layers, f"{prefix}_ms"), "plain_ms": layer_sum(step_layers, f"{prefix}_plain_ms"),
+            "bound_ms": layer_sum(step_layers, f"{prefix}_bound_ms"),
+            "bound_by": "operations" if conv else "bytes",
+            "fma_bound_ms": layer_sum(step_layers, f"{prefix}_fma_bound_ms") if conv else None,
+            "library_ms": layer_sum(step_layers, f"cudnn_f32_{prefix}_ms") if conv else None,
+            "library_is": "cuDNN conv2d_weight / conv2d_input, float32, TF32 off, one call per layer" if conv else None,
+            "library_bf16_ms": layer_sum(step_layers, f"cudnn_bf16_{prefix}_ms") if conv else None,
+            "estimator_path_ms": layer_sum(est_layers, f"{prefix}_ms"),
+            "float32_ms": layer_sum([r for r in bwd_layer_rows if r["mode"] == "float32"
+                                     and r["kernel"] != "conv_chain_nhwc_ad"], f"{prefix}_ms"),
+            "b64_step_ms": fused_step_kernels[name]["ms"],
+        })
+    level_rows = [r for r in bwd_layer_rows if r["layer"] == "flow_level_input_bwd"]
+    level_bf16 = [r for r in level_rows if r["mode"] == "bfloat16"]
+    kernels.append({
+        "name": "flow_level_input_bwd", "route": "cuda", "source": "davo_tpu_torch/csrc/rowconv_bwd.cu",
+        "replaces": "davo_tpu/kernels/rowconv.py:1186 (the flow level's backward pallas_call, its input part)",
+        "launches": fused_train_counts["device_launches"]["flow_level_input_bwd"],
+        "max_abs_err": max(max(r["max_rel_err"]) for r in level_rows if r["mode"] == "float32"),
+        "max_err_is": "float32, relative to the largest element, against the float64 sum",
+        "ms": layer_sum(level_bf16, "flow_level_input_bwd_ms"),
+        "plain_ms": layer_sum(level_bf16, "flow_level_input_bwd_plain_ms"),
+        "bound_ms": layer_sum(level_bf16, "bound_ms"), "bound_by": "bytes", "library_ms": None,
+        "b64_step_ms": fused_step_kernels["flow_level_input_bwd"]["ms"],
+    })
     # The conv stack: the work of the davo-fast pose prefix at B=64 in bf16;
     # launches on its path (phase 3f's speed-of-light run through the bench
     # package). max_abs_err is the float32 error relative to the largest

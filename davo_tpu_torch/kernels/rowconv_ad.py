@@ -17,8 +17,13 @@ Three functions, each the counterpart of a TPU kernel pair of
 The forward runs the serving kernels of `rowconv.py` (one launch per
 layer) and keeps every layer's output, and for a flow level the float32
 estimator input. The backward launches, per layer from the last,
+`conv_layer_gate` (the layer's output cotangent, once per element),
 `conv_layer_wgrad` (dW, db) and `conv_layer_dgrad` (the input's
-cotangent), then for a flow level `flow_level_input_bwd`.
+cotangent), then for a flow level `flow_level_input_bwd`. The two conv
+kernels are implicit GEMMs on the tensor cores in split TF32 (each
+float32 operand hi + lo, three TF32 products; `csrc/rowconv_bwd.cu`), so
+their products keep float32 accuracy; `dgrad_plan` and `wgrad_plan` choose
+their variant and tiles by shape.
 
 The backward is the reference's, which is not autograd of the forward
 in bf16: products with the unrounded float32 weights, float32 cotangents
@@ -36,7 +41,8 @@ kernels or raise, and CPU tensors run the plain versions. The modes are
 `launches` / `backward_launches` count forward / backward calls that
 launched, `device_launches` the kernels they launched (the forward's
 layers under the function's name, the backward kernels under their
-own); the plain versions never count.
+own), `variant_launches` the conv kernels' launches by variant; the plain
+versions never count.
 """
 
 from __future__ import annotations
@@ -53,16 +59,21 @@ from davo_tpu_torch.models.common import same_pads
 
 TRAIN_MODES = ("float32", "bfloat16")
 _NAMES = ("flow_level_fused_ad", "conv_chain_strided_ad", "conv_chain_nhwc_ad")
-KERNELS = ("conv_layer_dgrad", "conv_layer_wgrad", "flow_level_input_bwd")
+KERNELS = ("conv_layer_gate", "conv_layer_wgrad", "conv_layer_dgrad", "flow_level_input_bwd")
 launches = dict.fromkeys(_NAMES, 0)
 backward_launches = dict.fromkeys(_NAMES, 0)
 device_launches = dict.fromkeys(_NAMES + KERNELS, 0)
+# Launches of each conv kernel variant, by its template instance's name
+# (as a profile names it): conv_dgrad_mma_kernel<nt>,
+# conv_wgrad_mma_kernel<mt, x dtype, flat>.
+variant_launches: dict[str, int] = {}
 
 
 def reset_counts() -> None:
     for counts in (launches, backward_launches, device_launches):
         for name in counts:
             counts[name] = 0
+    variant_launches.clear()
 
 
 # --------------------------------------------------------------- plain versions
@@ -184,17 +195,23 @@ def level_input_plain(f1, f2, feat, flow_up, search):
 # --------------------------------------------------------------------- kernels
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The C entry points of `csrc/rowconv_bwd.cu` (each returns a cudaError_t).
+SIGNATURES = {
+    "davo_conv_gate": [_P, _P, _I, _P, _I, _I, _P] + [_I] * 5 + [_P],
+    "davo_conv_dgrad": [_P, _P, _P, _I, _P] + [_I] * 16 + [_P],
+    "davo_conv_wgrad": [_P, _I, _I, _P, _P, _I, _I, _P] + [_I] * 19 + [_P],
+    "davo_flow_level_input_bwd": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P] + [_I] * 7 + [_P],
+}
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("rowconv_bwd")
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.davo_conv_dgrad.argtypes = [P, P, I, P, I, I, P, P, I, I] + [I] * 11 + [P]
-    lib.davo_conv_dgrad.restype = I
-    lib.davo_conv_wgrad.argtypes = [P, I, I, P, P, I, P, I, I, P, I, I, P] + [I] * 11 + [P]
-    lib.davo_conv_wgrad.restype = I
-    lib.davo_flow_level_input_bwd.argtypes = [P, I, P, I, P, P, I, P, P, P, I, P] + [I] * 7 + [P]
-    lib.davo_flow_level_input_bwd.restype = I
-    lib.davo_cuda_error_string.argtypes = [I]
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, _I
+    lib.davo_cuda_error_string.argtypes = [_I]
     lib.davo_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
@@ -222,63 +239,202 @@ def _cotangent_args(dy, g, a_out, relu):
             int(bool(relu)))
 
 
-def _geometry(x_shape, out_shape, k, stride):
-    B, H, W, _ = x_shape
-    _, Ho, Wo, _ = out_shape
-    top, _, left, _ = _pads(H, W, k, stride)
-    return B, H, W, Ho, Wo, top, left
+def _count_variant(name: str) -> None:
+    variant_launches[name] = variant_launches.get(name, 0) + 1
 
 
-def _launch_dgrad(dy, g, a_out, relu, w, x_shape, stride, dtype):
-    """conv_layer_dgrad: the input cotangent (x_shape) in `dtype` of the
-    layer with OIHW weights w, used unrounded."""
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def padded_cout(cout: int) -> int:
+    """Channels of conv_layer_gate's dz: Cout rounded up to a multiple of 8
+    (zeros), the two conv kernels' 8-channel slots."""
+    return -(-cout // 8) * 8
+
+
+# conv_layer_dgrad's tiles of class pixels, by warps along M: 4 warps of
+# 32 pixels (128), or 2 (64; the other two warps split the channels).
+DGRAD_TILES = {4: ((8, 16), (16, 8), (4, 32)), 2: ((4, 16), (8, 8))}
+
+
+def dgrad_plan(B: int, H: int, W: int, cin: int, cout: int, k: int, stride: int,
+               sms: int) -> tuple[int, int, int, int, int]:
+    """conv_layer_dgrad's launch for a layer input of B x H x W x cin:
+    (nt, wm, tile_h, tile_w, splits). A block takes a tile of one parity
+    class (at stride 2 ceil(H/2) x ceil(W/2) pixels at most) with 4 warps,
+    wm along its pixels (32 each) and 4 / wm along its input channels, nt
+    8-channel n-tiles each. The tile computes the fewest pixels past the
+    class's edge, a 64-pixel tile only where it computes under 85 % of the
+    best 128-pixel one's; the channel slice is the widest (at most 64) that
+    pads cin by at most 1/8 more than the narrowest. Where that gives under
+    2 blocks per SM (the small maps of DispNet's 256- and 512-channel
+    layers), K (Cout chunks of 8) splits so that it gives about 2."""
+    ny, nx = -(-H // stride), -(-W // stride)
+
+    def computed(tile):
+        th, tw = tile
+        return -(-ny // th) * th * -(-nx // tw) * tw
+
+    t4, t2 = min(DGRAD_TILES[4], key=computed), min(DGRAD_TILES[2], key=computed)
+    wm, (th, tw) = (2, t2) if computed(t2) < 0.85 * computed(t4) else (4, t4)
+    per_nt = 8 * (4 // wm)
+    nts = (8, 4, 2, 1) if wm == 4 else (4, 2, 1)
+    padded = {nt: -(-cin // (nt * per_nt)) * nt * per_nt for nt in nts}
+    least = min(padded.values())
+    nt = next(nt for nt in nts if 8 * padded[nt] <= 9 * least)
+    blocks = B * stride * stride * -(-ny // th) * -(-nx // tw) * padded[nt] // (nt * per_nt)
+    splits = max(1, min(padded_cout(cout) // 8, -(-2 * sms // blocks)))
+    return nt, wm, th, tw, splits
+
+
+# conv_layer_wgrad's output tiles: 64 or 128 pixels (4 warps, two 8-pixel
+# k-steps of one row each at a time).
+WGRAD_TILES = ((8, 16), (4, 32), (16, 8), (4, 16), (8, 8))
+
+
+def wgrad_chunks(tiles: int, blocks: int, sms: int) -> tuple[int, int]:
+    """(chunks, tiles per chunk) of conv_layer_wgrad's split over output
+    tiles: about 4 blocks per SM in all, `blocks` of them per chunk."""
+    chunks = max(1, min(tiles, -(-4 * sms // blocks), 65535))
+    per = -(-tiles // chunks)
+    return -(-tiles // per), per
+
+
+def wgrad_flat(cin: int, x_stride: int) -> bool:
+    """Whether conv_layer_wgrad flattens (tap, channel) into its columns:
+    the first layers' Cin 2, 3 and 9 (their inputs hold no other
+    channels), which chunks of 8 channels would pad by 1.8-4x."""
+    return cin < 16 and cin % 8 != 0 and x_stride == cin
+
+
+# Shared memory a conv_layer_wgrad block may take: two blocks per SM.
+WGRAD_SMEM = 112 * 1024
+# Warps of a conv_layer_wgrad block along its column tiles, at most (the
+# others share the pixels). Timed on the card against 1 and 4 on a `davo`
+# B=4 step's layers: as fast or faster on all but the 512-channel one, and
+# clearly ahead of 4 for float32 inputs.
+WGRAD_COL_WARPS = 2
+
+
+def wgrad_smem(tile_h: int, tile_w: int, k: int, stride: int, cpb: int, mt: int, x_bytes: int) -> int:
+    """Bytes of shared memory of a chunked conv_layer_wgrad block: two
+    stages of the input halo (cpb * 8 channels a pixel, 8 more where that
+    is a multiple of 16) and the dz tile (16 * mt + 8 floats a pixel)."""
+    hh, hw = (tile_h - 1) * stride + k, (tile_w - 1) * stride + k
+    pitch = hw if stride == 1 else 2 * -(-hw // 2)
+    slot = cpb * 8 + (8 if cpb % 2 == 0 else 0)
+    return 2 * (-(-(hh * pitch * slot * x_bytes) // 16) * 16 + tile_h * tile_w * (16 * mt + 8) * 4)
+
+
+def wgrad_plan(B: int, Ho: int, Wo: int, cin: int, cout: int, k: int, stride: int, sms: int,
+               x_stride: int | None = None, x_bytes: int = 2):
+    """conv_layer_wgrad's launch for a layer output of B x Ho x Wo x cout
+    and an input of x_bytes-byte elements: (mt, flat, wn, cpb, tpg,
+    tile_h, tile_w, chunks, tiles per chunk). A block takes 16 * mt output
+    channels (mt = 1 for Cout <= 16) and up to WGRAD_COL_WARPS * 18 / mt
+    column tiles of 8: flattened (tap, channel) columns (`wgrad_flat`, for
+    an input of x_stride channels, cin unless given), or cpb chunks of 8
+    input channels of tpg taps, as many chunks as fit (`wgrad_smem` within
+    WGRAD_SMEM). wn warps split the column tiles, 18 / mt at most each;
+    the other 4 / wn split the pixels: a block with few columns shares its
+    k-steps out rather than its columns. The tile computes the fewest
+    pixels past the map's edge (the first of WGRAD_TILES on a tie)."""
+    th, tw = min(WGRAD_TILES, key=lambda t: -(-Ho // t[0]) * t[0] * -(-Wo // t[1]) * t[1])
+    mt, flat = (1 if cout <= 16 else 2), wgrad_flat(cin, cin if x_stride is None else x_stride)
+    per_warp = 18 // mt
+    if flat:
+        cpb = tpg = 1
+        n_cols = min(WGRAD_COL_WARPS * per_warp, -(-(k * k * cin) // 8))
+    else:
+        tpg = min(k * k, WGRAD_COL_WARPS * per_warp)
+        cpb = min(WGRAD_COL_WARPS * per_warp // tpg, -(-cin // 8))
+        while cpb > 1 and wgrad_smem(th, tw, k, stride, cpb, mt, x_bytes) > WGRAD_SMEM:
+            cpb -= 1
+        n_cols = cpb * tpg
+    wn = next(w for w in (1, 2, 4) if w * per_warp >= n_cols)
+    if flat:
+        blocks_y = -(-(-(-(k * k * cin) // 8)) // (wn * per_warp))
+    else:
+        blocks_y = -(-(-(-cin // 8)) // cpb) * -(-(k * k) // tpg)
+    blocks = -(-padded_cout(cout) // (16 * mt)) * blocks_y
+    return (mt, flat, wn, cpb, tpg, th, tw, *wgrad_chunks(B * -(-Ho // th) * -(-Wo // tw), blocks, sms))
+
+
+def wgrad_variant(mt: int, x_bf16: bool, flat: bool) -> str:
+    """conv_layer_wgrad's template instance, as a profile names it."""
+    return f"conv_wgrad_mma_kernel<{mt}, {'__nv_bfloat16' if x_bf16 else 'float'}, {str(flat).lower()}>"
+
+
+def _pack_dgrad(w, cop):
+    """OIHW float32 -> conv_layer_dgrad's weights (k*k, Cin, cop) float32,
+    unrounded, Cout zero-padded to cop."""
     cout, cin, k, _ = w.shape
-    out_shape = (dy if dy is not None else g).shape
-    B, H, W, Ho, Wo, top, left = _geometry(x_shape, out_shape, k, stride)
-    dx = torch.empty((B, H, W, cin), dtype=dtype, device=w.device)
-    wp = rowconv._pack(w, torch.float32)
-    device = w.device
+    return F.pad(w.detach().float().permute(2, 3, 1, 0), (0, cop - cout)).reshape(k * k, cin, cop).contiguous()
+
+
+def _launch_gate(dy, g, a_out, relu):
+    """conv_layer_gate: the layer's output cotangent (dy + g) * (a_out > 0),
+    float32 (B, Ho, Wo, padded_cout(Cout)), the padding zero."""
+    B, Ho, Wo, cout = (dy if dy is not None else g).shape
+    device = (dy if dy is not None else g).device
+    dz = torch.empty((B, Ho, Wo, padded_cout(cout)), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
-        err = _library().davo_conv_dgrad(
-            *_cotangent_args(dy, g, a_out, relu), wp.data_ptr(), dx.data_ptr(),
-            int(dtype == torch.bfloat16), cin, B, H, W, cin, Ho, Wo, cout, k, stride, top, left,
+        err = _library().davo_conv_gate(
+            *_cotangent_args(dy, g, a_out, relu), dz.data_ptr(), B, Ho, Wo, cout, dz.shape[3],
             torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_if(err, "conv layer gate")
+    device_launches["conv_layer_gate"] += 1
+    return dz
+
+
+def _launch_dgrad(dz, w, x_shape, stride, dtype):
+    """conv_layer_dgrad: the input cotangent (x_shape) in `dtype` of the
+    layer with OIHW weights w, used unrounded, from the gate's dz."""
+    cout, cin, k, _ = w.shape
+    B, H, W, _ = x_shape
+    _, Ho, Wo, cop = dz.shape
+    top, _, left, _ = _pads(H, W, k, stride)
+    nt, wm, th, tw, splits = dgrad_plan(B, H, W, cin, cout, k, stride, _sm_count(w.device.index or 0))
+    dx = torch.empty((B, H, W, cin), dtype=dtype, device=w.device)
+    partial = torch.empty(splits * dx.numel() if splits > 1 else 0, dtype=torch.float32, device=w.device)
+    wp = _pack_dgrad(w, cop)
+    with torch.cuda.device(w.device):
+        err = _library().davo_conv_dgrad(
+            dz.data_ptr(), wp.data_ptr(), dx.data_ptr(), int(dtype == torch.bfloat16),
+            partial.data_ptr() if splits > 1 else None, splits, B, H, W, cin, Ho, Wo, cop, k, stride, top, left,
+            nt, wm, th, tw, torch.cuda.current_stream(w.device).cuda_stream,
         )
     _raise_if(err, "conv layer dgrad")
     device_launches["conv_layer_dgrad"] += 1
+    _count_variant(f"conv_dgrad_mma_kernel<{nt}>")
     return dx
 
 
-def wgrad_chunks(pixels: int, k_rows: int, cout: int) -> tuple[int, int]:
-    """(chunks, pixels per chunk) of conv_layer_wgrad's partial sums:
-    enough blocks of 64 x 64 tiles to fill the card (about 8 per SM),
-    chunks of at least 256 pixels, a multiple of 32."""
-    tiles = -(-cout // 64) * -(-k_rows // 64)
-    chunks = max(1, min(-(-pixels // 256), -(-1056 // tiles), 65535))
-    chunk = -(-pixels // chunks)
-    chunk = -(-chunk // 32) * 32
-    return -(-pixels // chunk), chunk
-
-
-def _launch_wgrad(x, dy, g, a_out, relu, w_shape, stride):
+def _launch_wgrad(x, dz, w_shape, stride):
     """conv_layer_wgrad: (dW OIHW, db) float32 of a layer on input x,
-    whose first Cin channels are the layer's input."""
+    whose first Cin channels are the layer's input, from the gate's dz."""
     cout, cin, k, _ = w_shape
-    out_shape = (dy if dy is not None else g).shape
-    B, H, W, Ho, Wo, top, left = _geometry(x.shape, out_shape, k, stride)
+    B, H, W, _ = x.shape
+    _, Ho, Wo, cop = dz.shape
+    top, _, left, _ = _pads(H, W, k, stride)
     K = k * k * cin
-    chunks, chunk = wgrad_chunks(B * Ho * Wo, K + 1, cout)
+    x_bf16 = rowconv._bf16_flag(x, "layer input")
+    mt, flat, wn, cpb, tpg, th, tw, chunks, per = wgrad_plan(
+        B, Ho, Wo, cin, cout, k, stride, _sm_count(x.device.index or 0), x.shape[3], x.element_size())
     partial = torch.empty(chunks * (K + 1) * cout, dtype=torch.float32, device=x.device)
     out = torch.empty((K + 1, cout), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = _library().davo_conv_wgrad(
-            x.data_ptr(), rowconv._bf16_flag(x, "layer input"), x.shape[3],
-            *_cotangent_args(dy, g, a_out, relu), partial.data_ptr(), chunks, chunk, out.data_ptr(),
-            B, H, W, cin, Ho, Wo, cout, k, stride, top, left,
+            x.data_ptr(), x_bf16, x.shape[3], dz.data_ptr(), partial.data_ptr(), chunks, per, out.data_ptr(),
+            B, H, W, cin, Ho, Wo, cout, cop, k, stride, top, left, mt, int(flat), wn, cpb, tpg, th, tw,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _raise_if(err, "conv layer wgrad")
     device_launches["conv_layer_wgrad"] += 1
+    _count_variant(wgrad_variant(mt, x_bf16, flat))
     return out[:K].view(k, k, cin, cout).permute(3, 2, 0, 1).contiguous(), out[K]
 
 
@@ -338,11 +494,11 @@ def _chain_bwd_cuda(x, acts, weights, strides, relus, taps, gs, need_dx, dx_dtyp
         g = gs[taps.index(layer)].contiguous() if layer in taps else None
         a_out = acts[layer]
         a_in = x if layer == 0 else acts[layer - 1]
-        dws[layer], dbs[layer] = _launch_wgrad(a_in, dy, g, a_out, relu, w.shape, stride)
+        dz = _launch_gate(dy, g, a_out, relu)
+        dws[layer], dbs[layer] = _launch_wgrad(a_in, dz, w.shape, stride)
         if layer or need_dx:
             x_shape = (*a_in.shape[:3], w.shape[1])
-            dy = _launch_dgrad(dy, g, a_out, relu, w, x_shape, stride,
-                               torch.float32 if layer else dx_dtype)
+            dy = _launch_dgrad(dz, w, x_shape, stride, torch.float32 if layer else dx_dtype)
         else:
             dy = None
     return dy, dws, dbs

@@ -325,10 +325,25 @@ def test_no_grad_runs_the_serving_path_and_bf16_dot_is_refused():
 
 
 def test_wgrad_chunks_cover_the_pixels():
-    for pixels, k_rows, cout in ((213_000, 28, 16), (624, 4609, 512), (26_624, 289, 2), (7, 10, 3)):
-        chunks, chunk = rowconv_ad.wgrad_chunks(pixels, k_rows, cout)
-        assert chunk % 32 == 0 and (chunks - 1) * chunk < pixels <= chunks * chunk
-        assert 1 <= chunks <= 65535
+    """`wgrad_chunks` / `wgrad_plan`: every output tile (of 64 or 128
+    pixels, whose rows hold whole 8-pixel k-steps) in exactly one chunk,
+    at most 65535 chunks, the Cout slice 16 wide for Cout <= 16, a block's
+    column tiles within its 4 warps' 18 / mt and its stages within the
+    shared memory allowed."""
+    for tiles, blocks, sms in ((26_624, 3, 132), (12, 1024, 132), (1_000_000, 1, 132), (1, 7, 132), (77, 5, 8)):
+        chunks, per = rowconv_ad.wgrad_chunks(tiles, blocks, sms)
+        assert (chunks - 1) * per < tiles <= chunks * per and 1 <= chunks <= 65535
+    for B, Ho, Wo, cin, cout, k, s, xb in ((16, 64, 208, 3, 16, 3, 2, 2), (12, 4, 13, 512, 512, 3, 1, 2),
+                                           (8, 32, 104, 32, 2, 3, 1, 2), (12, 64, 208, 3, 32, 7, 2, 4),
+                                           (8, 32, 104, 179, 96, 3, 1, 4), (7, 1, 3, 10, 3, 1, 2, 2),
+                                           (8, 64, 208, 32, 64, 3, 2, 4)):
+        mt, flat, wn, cpb, tpg, th, tw, chunks, per = rowconv_ad.wgrad_plan(B, Ho, Wo, cin, cout, k, s, 132, None, xb)
+        assert th * tw in (64, 128) and tw % 8 == 0 and mt == (1 if cout <= 16 else 2) and flat == (cin in (3, 10))
+        assert wn in (1, 2, 4) and flat or (cpb * tpg <= wn * 18 // mt and tpg <= k * k and cpb <= -(-cin // 8)
+                                           and (cpb == 1 or rowconv_ad.wgrad_smem(th, tw, k, s, cpb, mt, xb)
+                                                <= rowconv_ad.WGRAD_SMEM))
+        tiles = B * -(-Ho // th) * -(-Wo // tw)
+        assert (chunks - 1) * per < tiles <= chunks * per and 1 <= chunks <= 65535
 
 
 def test_kernel_side_plumbing_with_the_launches_emulated(monkeypatch):
@@ -349,14 +364,21 @@ def test_kernel_side_plumbing_with_the_launches_emulated(monkeypatch):
             a0.zero_()[..., : cat.shape[3]] = cat
         assert (a0 is None) == (x.dtype == torch.float32)
 
-    def dgrad(dy, g, a_out, relu, w, x_shape, stride, dtype):
+    def gate(dy, g, a_out, relu):
         assert dy is None or (dy.dtype == torch.float32 and dy.is_contiguous())
-        rowconv_ad.device_launches["conv_layer_dgrad"] += 1
-        return rowconv_ad.conv_layer_dgrad_plain(dy, g, a_out, relu, w, x_shape, stride).to(dtype).contiguous()
+        rowconv_ad.device_launches["conv_layer_gate"] += 1
+        dz = rowconv_ad._gate_plain(dy, g, a_out, relu).float()
+        return torch.nn.functional.pad(dz, (0, rowconv_ad.padded_cout(dz.shape[3]) - dz.shape[3]))
 
-    def wgrad(x, dy, g, a_out, relu, w_shape, stride):
+    def dgrad(dz, w, x_shape, stride, dtype):
+        assert dz.dtype == torch.float32 and dz.shape[3] % 8 == 0 and not dz[..., w.shape[0]:].any()
+        rowconv_ad.device_launches["conv_layer_dgrad"] += 1
+        dz = dz[..., : w.shape[0]]
+        return rowconv_ad._dgrad_plain(dz, w, x_shape, stride).to(dtype).contiguous()
+
+    def wgrad(x, dz, w_shape, stride):
         rowconv_ad.device_launches["conv_layer_wgrad"] += 1
-        return rowconv_ad.conv_layer_wgrad_plain(x[..., : w_shape[1]], dy, g, a_out, relu, w_shape, stride)
+        return rowconv_ad._wgrad_plain(x[..., : w_shape[1]], dz[..., : w_shape[0]], w_shape, stride)
 
     def level_bwd(f1, f2, a0, da0, search, feat_dtype, cf, cu):
         rowconv_ad.device_launches["flow_level_input_bwd"] += 1
@@ -365,6 +387,7 @@ def test_kernel_side_plumbing_with_the_launches_emulated(monkeypatch):
 
     monkeypatch.setattr(rowconv, "_launch_layer", layer)
     monkeypatch.setattr(rowconv, "_launch_level_input", level_input)
+    monkeypatch.setattr(rowconv_ad, "_launch_gate", gate)
     monkeypatch.setattr(rowconv_ad, "_launch_dgrad", dgrad)
     monkeypatch.setattr(rowconv_ad, "_launch_wgrad", wgrad)
     monkeypatch.setattr(rowconv_ad, "_launch_level_input_bwd", level_bwd)
@@ -422,10 +445,11 @@ def test_kernel_side_plumbing_with_the_launches_emulated(monkeypatch):
             assert a.shape == b.shape and torch.allclose(a.float(), b.float(), rtol=0,
                                                          atol=1e-6 * float(b.float().abs().max()))
     # Per mode: pyramid 6 layers (5 dgrads: the image needs none), the
-    # estimator 4, the level 4 (+ its input kernel and its backward).
+    # estimator 4, the level 4 (+ its input kernel and its backward); a
+    # gate per wgrad.
     assert rowconv_ad.launches == {"flow_level_fused_ad": 2, "conv_chain_strided_ad": 2, "conv_chain_nhwc_ad": 2}
     assert rowconv_ad.backward_launches == rowconv_ad.launches
     assert rowconv_ad.device_launches == {
         "flow_level_fused_ad": 10, "conv_chain_strided_ad": 12, "conv_chain_nhwc_ad": 8,
-        "conv_layer_dgrad": 26, "conv_layer_wgrad": 28, "flow_level_input_bwd": 2,
+        "conv_layer_gate": 28, "conv_layer_dgrad": 26, "conv_layer_wgrad": 28, "flow_level_input_bwd": 2,
     }
