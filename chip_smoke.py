@@ -3,15 +3,18 @@
 
     python3 chip_smoke.py        # from the repository root, one GPU
     python3 chip_smoke.py --against OTHER/davo_tpu_torch/csrc
-        # only the cost-volume forward, the banded forward, the fused
-        # layer kernel and the training backward's dgrad and wgrad of
-        # another checkout against this one's, timed in turns on the main
-        # paths' shapes
+        # only another checkout's kernels against this one's, timed in
+        # turns on the main paths' shapes: the cost-volume forward, the
+        # banded forward, the fused serving kernels (rowconv.cu), the
+        # training backward (rowconv_bwd.cu: per fused unit, and
+        # flow_level_input_bwd at the B=4 and B=64 steps' levels) and the
+        # conv stack (conv_stack.cu, the pose prefix at B=64 and 256)
 
 Phases, in order; any failure exits non-zero:
   1. environment: card name and power limit, torch/CUDA versions, TF32 flags
   2. build: compile the CUDA kernels from davo_tpu_torch/csrc (one nvcc
-     per source, all started together)
+     per source, all started together); SASS HMMA/FFMA counts per kernel
+     of rowconv_bwd.cu and conv_stack.cu
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it, with times, the card's bound and, for
      the banded warp, F.grid_sample as the library yardstick: the cost
@@ -32,11 +35,13 @@ Phases, in order; any failure exits non-zero:
      unfused route backward as the yardstick, then layer by layer (gate,
      wgrad, dgrad against float64 sums, two runs bitwise equal, beside one
      cuDNN float32 and bf16 call each) and the flow levels' input
-     backward, and one layer each on 21 other shapes; (3f) the conv stack (one
-     launch per stack) on the davo-fast pose prefix at B=64 and B=256
+     backward, one layer each on 21 other shapes, and the input backward
+     at searches 1, 9, 20 and 64 (shift rows in passes); (3f) the conv stack (one
+     launch per stack; bf16 on the tensor cores, phase 2 asserts HMMA and
+     no FFMA in its kernel) on the davo-fast pose prefix at B=64 and B=256
      through the bench package's speed-of-light run, then against its
      plain version and the strided chain, bf16 and f32, and on the JAX
-     tests' shapes and odd dims
+     tests' shapes and odd dims, with each launch's grid
   4. the serving path: davo-fast at 128x416 streams a 257-frame synthetic
      world through predict_sequence in 4 requests of 64 pairs, then
      assemble_trajectory and evaluate_sequence; plus one davo forward;
@@ -310,13 +315,26 @@ def _sass_counts(library):
     return counts
 
 
-def _turns(fns):
+def _turns(fns, reps=20):
     """Device ms of each callable in `fns` ({"other": f, "this": g}),
     timed in turns: other, this, this, other."""
     times = {name: [] for name in fns}
     for name in ("other", "this", "this", "other"):
-        times[name].append(_graph_ms(fns[name]))
+        times[name].append(_graph_ms(fns[name], reps))
     return times
+
+
+def _with_library(module, lib, fn):
+    """`fn` as a callable that runs with `module._library()` giving `lib`
+    (another checkout's build of the module's source, bound alike)."""
+    def call():
+        saved = module._library
+        module._library = lambda: lib
+        try:
+            return fn()
+        finally:
+            module._library = saved
+    return call
 
 
 def compare_against(torch, other_csrc):
@@ -328,19 +346,21 @@ def compare_against(torch, other_csrc):
     model did) at phase 3's main-path shapes in both dtypes; the banded
     forward (bandwarp.cu) per B=4 train step on random coordinates, at
     B=64 128x416 on random ones, and per B=4 and B=64 step on the
-    coordinates of a `davo` train step; the fused layer kernel (rowconv.cu's
-    `davo_conv_layer`, weights packed once in its (k, k, Cin, Cout) float32
-    layout) in phase 3d's units, bf16, float32 and bf16_dot, the wrappers
-    and the flow level's input kernel being this checkout's."""
+    coordinates of a `davo` train step; the fused serving kernels
+    (rowconv.cu, the other build behind this checkout's wrappers) in phase
+    3d's units, bf16, float32 and bf16_dot; the training backward
+    (rowconv_bwd.cu, likewise) per unit of phase 3e and
+    `flow_level_input_bwd` alone at the fused B=4 and B=64 steps' levels;
+    the conv stack (conv_stack.cu: the other's earlier entry, 13 ints a
+    layer and OIHW float32 weights) on the pose prefix at B=64 and 256.
+    rowconv.cu and rowconv_bwd.cu must have this checkout's C entry points
+    (the parent's do)."""
     import ctypes
 
     from davo_tpu_torch.kernels import bandwarp, costvol, rowconv
-    from davo_tpu_torch.models import presets
-    from davo_tpu_torch.models.common import same_pads
-    from davo_tpu_torch.models.davo import DavoModel
 
     other_csrc = Path(other_csrc)
-    names = [n for n in ("costvol", "bandwarp", "rowconv", "rowconv_bwd") if (other_csrc / f"{n}.cu").exists()]
+    names = [n for n in KERNEL_SOURCES if (other_csrc / f"{n}.cu").exists()]
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         libs = dict(zip(names, pool.map(lambda n: _build_other(other_csrc / f"{n}.cu"), names)))
 
@@ -429,48 +449,20 @@ def compare_against(torch, other_csrc):
               flush=True)
 
     if "rowconv" in libs:
-        other = libs["rowconv"].davo_conv_layer
-        P, I = ctypes.c_void_p, ctypes.c_int
-        other.argtypes = [P, I, P, P, P, I] + [I] * 14 + [P]
-        other.restype = I
-        packs = {}
+        from davo_tpu_torch.models import presets
+        from davo_tpu_torch.models.davo import DavoModel
 
-        def other_layer(x, w, b, out, stride, relu, act, dot):
-            B, H, W, cin = x.shape
-            _, Ho, Wo, cout = out.shape
-            k = w.shape[-1]
-            key = (id(w), cin, dot)
-            if key not in packs:
-                packs[key] = (w, rowconv._pack(w, dot, cin), b.detach().float().contiguous())
-            _, wp, bias = packs[key]
-            err = other(x.data_ptr(), int(x.dtype == torch.bfloat16), wp.data_ptr(), bias.data_ptr(),
-                        out.data_ptr(), int(out.dtype == torch.bfloat16), B, H, W, cin, Ho, Wo, cout, k, stride,
-                        same_pads(H, k, stride)[0], same_pads(W, k, stride)[0], int(dot == torch.bfloat16),
-                        int(act == torch.bfloat16), int(bool(relu)), stream())
-            if err:
-                raise AssertionError(f"other conv layer: launch failed ({err})")
-
-        this_layer = rowconv._launch_layer
+        builds = {"other": rowconv.bind(libs["rowconv"]), "this": rowconv._library()}
         model = DavoModel(presets.with_overrides("davo-fast", **FUSED_FLAGS).model, device="cuda", seed=0)
         for unit in _rowconv_units(torch, model, 64):
             for mode in ("bfloat16", "float32", "bf16_dot"):
                 inputs = _unit_inputs(torch, unit, mode)
                 with torch.inference_mode():
                     want, _ = _unit_plain(torch, rowconv, unit, mode, inputs)
-                    errs = {}
-                    for name, layer in (("other", other_layer), ("this", this_layer)):
-                        rowconv._launch_layer = layer
-                        try:
-                            errs[name] = _rel_err(_unit_call(rowconv, unit, mode, inputs), want)
-                        finally:
-                            rowconv._launch_layer = this_layer
-                    times = {"other": [], "this": []}
-                    for name in ("other", "this", "this", "other"):
-                        rowconv._launch_layer = other_layer if name == "other" else this_layer
-                        try:
-                            times[name].append(_graph_ms(lambda: _unit_call(rowconv, unit, mode, inputs), reps=5))
-                        finally:
-                            rowconv._launch_layer = this_layer
+                    fns = {name: _with_library(rowconv, lib, lambda: _unit_call(rowconv, unit, mode, inputs))
+                           for name, lib in builds.items()}
+                    errs = {name: _rel_err(fn(), want) for name, fn in fns.items()}
+                    times = _turns(fns, reps=5)
                 print(json.dumps({
                     "phase": "rowconv_against", "other": str(other_csrc), "kernel": unit["kernel"],
                     "unit": unit["unit"], "mode": mode, "max_rel_err": errs, "other_ms": times["other"],
@@ -478,156 +470,201 @@ def compare_against(torch, other_csrc):
                 }), flush=True)
                 if mode == "float32" and not max(errs.values()) <= ROWCONV_F32_TOL:
                     raise AssertionError(f"{unit['unit']} float32: errors {errs}")
+        del model
         torch.cuda.empty_cache()
 
     if "rowconv_bwd" in libs:
         _compare_backward_against(torch, libs["rowconv_bwd"], other_csrc)
-
-
-def _other_wgrad_chunks(pixels, k_rows, cout):
-    """The FMA wgrad kernel's split over pixels (its wrapper's rule): about
-    8 blocks of 64 x 64 tiles per SM, chunks of at least 256 pixels, a
-    multiple of 32."""
-    tiles = -(-cout // 64) * -(-k_rows // 64)
-    chunks = max(1, min(-(-pixels // 256), -(-1056 // tiles), 65535))
-    chunk = -(-(-(-pixels // chunks)) // 32) * 32
-    return -(-pixels // chunk), chunk
+    if "conv_stack" in libs:
+        _compare_conv_stack_against(torch, libs["conv_stack"], other_csrc)
 
 
 def _compare_backward_against(torch, lib, other_csrc):
-    """`--against`: another checkout's rowconv_bwd.cu (its entry points
-    `davo_conv_dgrad` and `davo_conv_wgrad` as the FMA kernels took them:
-    the three cotangent sources, (k, k, Cin, Cout) float32 weights) against
-    this checkout's gate, wgrad and dgrad on phase 3e's layers (one davo
-    train step at B=4, the fused training path's units and the
-    estimators), bf16 and float32: each held first to this checkout's
-    plain version summed in float64 (ROWCONV_BWD_TOL; a bf16 dx at most
-    one bf16 ulp at its scale), then timed in turns (other, this, this,
-    other) by CUDA-graph replay: dgrad, wgrad, and the layer (the other's
-    wgrad + dgrad; this gate + wgrad + dgrad). Prints a
-    `rowconv_bwd_against` row per layer and per unit's sum."""
-    import ctypes
-
+    """`--against`: another checkout's rowconv_bwd.cu (built alike, behind
+    this checkout's wrappers) against this checkout's: each fused training
+    unit's backward (phase 3e's units, one davo B=4 step: gate, wgrad,
+    dgrad per layer and, for a flow level, `flow_level_input_bwd`), bf16
+    and float32, both held first to the plain backward summed in float64
+    (phase 3e's criteria), then timed in turns by CUDA-graph replay; then
+    `flow_level_input_bwd` alone (`_level_input_bwd_against`). Prints a
+    `rowconv_bwd_against` row per unit."""
     from davo_tpu_torch.kernels import rowconv, rowconv_ad
     from davo_tpu_torch.models import presets
-    from davo_tpu_torch.models.common import same_pads
     from davo_tpu_torch.models.davo import DavoModel
 
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.davo_conv_dgrad.argtypes = [P, P, I, P, I, I, P, P, I, I] + [I] * 11 + [P]
-    lib.davo_conv_wgrad.argtypes = [P, I, I, P, P, I, P, I, I, P, I, I, P] + [I] * 11 + [P]
-    lib.davo_conv_dgrad.restype = lib.davo_conv_wgrad.restype = I
-
-    def stream():
-        return torch.cuda.current_stream().cuda_stream
-
-    def flag(t):
-        return 0 if t is None else int(t.dtype == torch.bfloat16)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    builds = {"other": rowconv_ad.bind(lib), "this": rowconv_ad._library()}
     model = DavoModel(presets.with_overrides("davo", **FUSED_TRAIN_FLAGS).model, device="cuda", seed=0,
                       dispnet=True)
     for unit in _train_units(torch, model):
         for mode in ("bfloat16", "float32"):
-            *_, sweep = _train_unit_case(torch, rowconv, rowconv_ad, unit, mode)
-            sums = {key: [0.0, 0.0] for key in ("other_layer_ms", "this_layer_ms")}
-            layers = _sweep_layers(torch, sweep)
-            step = next(layers, None)
-            while step is not None:
-                layer, a_in, dy, g, a_out, relu, w, s, x_shape, dtype = step
-                cout, cin, k, _ = w.shape
-                B, H, W, _ = x_shape
-                _, Ho, Wo, _ = a_out.shape
-                top, left = same_pads(H, k, s)[0], same_pads(W, k, s)[0]
-                a = a_out if relu else None
-                src = (ptr(dy), ptr(g), flag(g), ptr(a), flag(a), int(bool(relu)))
-                wp = rowconv._pack(w, torch.float32)
-                K = k * k * cin
-                chunks, chunk = _other_wgrad_chunks(B * Ho * Wo, K + 1, cout)
-                partial = torch.empty(chunks * (K + 1) * cout, device="cuda")
-
-                def other_dgrad(dtype=dtype, src=src, wp=wp, x_shape=x_shape, s=s, top=top, left=left):
-                    dx = torch.empty(x_shape, dtype=dtype, device="cuda")
-                    err = lib.davo_conv_dgrad(*src, wp.data_ptr(), dx.data_ptr(), flag(dx), cin, B, H, W, cin, Ho,
-                                              Wo, cout, k, s, top, left, stream())
-                    if err:
-                        raise AssertionError(f"other dgrad: launch failed ({err})")
-                    return dx
-
-                def other_wgrad(src=src, a_in=a_in, partial=partial, chunks=chunks, chunk=chunk, s=s, K=K):
-                    out = torch.empty((K + 1, cout), device="cuda")
-                    err = lib.davo_conv_wgrad(a_in.data_ptr(), flag(a_in), a_in.shape[3], *src, partial.data_ptr(),
-                                              chunks, chunk, out.data_ptr(), B, H, W, cin, Ho, Wo, cout, k, s,
-                                              top, left, stream())
-                    if err:
-                        raise AssertionError(f"other wgrad: launch failed ({err})")
-                    return out[:K].view(k, k, cin, cout).permute(3, 2, 0, 1), out[K]
-
-                def this_wgrad(dy=dy, g=g, a_out=a_out, relu=relu, a_in=a_in, w=w, s=s):
-                    return rowconv_ad._launch_wgrad(a_in, rowconv_ad._launch_gate(dy, g, a_out, relu), w.shape, s)
-
-                dz = rowconv_ad._launch_gate(dy, g, a_out, relu)
-
-                def this_dgrad(dz=dz, w=w, x_shape=x_shape, s=s, dtype=dtype):
-                    return rowconv_ad._launch_dgrad(dz, w, x_shape, s, dtype)
-
-                dzr = rowconv_ad._gate_plain(None if dy is None else dy.double(), None if g is None else g.double(),
-                                             a_out, relu)
-                want_dw, want_db = rowconv_ad._wgrad_plain(a_in[..., :cin], dzr, w.shape, s)
-                errs = {}
-                for name, fn in (("other", other_wgrad), ("this", this_wgrad)):
-                    dw, db = fn()
-                    errs[f"{name}_dw_db"] = max(float((t.double() - r).abs().max()) / float(r.abs().max())
-                                                for t, r in ((dw, want_dw), (db, want_db)))
-                fns = {"wgrad": {"other": other_wgrad, "this": this_wgrad}}
-                dx = None
-                if dtype is not None:
-                    want_dx = rowconv_ad._dgrad_plain(dzr, w, x_shape, s)
-                    scale = float(want_dx.abs().max())
-                    for name, fn in (("other", other_dgrad), ("this", this_dgrad)):
-                        got = fn()
-                        if dtype == torch.bfloat16:  # in bf16 ulps at the gradient's scale
-                            errs[f"{name}_dx_bf16_ulps"] = float((got.float() - want_dx.float()).abs().max()) / (
-                                2.0**-7 * scale)
-                        else:
-                            errs[f"{name}_dx"] = float((got.double() - want_dx).abs().max()) / scale
-                        dx = got if name == "this" else dx
-                    fns["dgrad"] = {"other": other_dgrad, "this": this_dgrad}
-                    del want_dx
-                del dzr, want_dw, want_db
-                bad = {k_: v for k_, v in errs.items()
-                       if v > (1.0 if k_.endswith("ulps") else ROWCONV_BWD_TOL)}
-                if bad:
-                    raise AssertionError(f"{unit['unit']} {mode} layer {layer}: errors {errs}")
-
-                def other_layer(fns=fns):
-                    fns["wgrad"]["other"]()
-                    if "dgrad" in fns:
-                        fns["dgrad"]["other"]()
-
-                def this_layer(fns=fns):
-                    fns["wgrad"]["this"]()
-                    if "dgrad" in fns:
-                        fns["dgrad"]["this"]()
-
-                fns["layer"] = {"other": other_layer, "this": this_layer}
-                times = {key: _turns(pair) for key, pair in fns.items()}
-                for who in ("other", "this"):
-                    for i in (0, 1):
-                        sums[f"{who}_layer_ms"][i] += times["layer"][who][i]
-                print(json.dumps({
-                    "phase": "rowconv_bwd_against", "other": str(other_csrc), "kernel": unit["kernel"],
-                    "unit": unit["unit"], "mode": mode, "layer": layer, "shape": [B, H, W, cin, cout, k, s],
-                    "max_rel_err": errs, **{f"{key}_{who}_ms": t[who] for key, t in times.items() for who in t},
-                }), flush=True)
-                del partial, dz
-                step = layers.send(dx) if layer else None
-            print(json.dumps({"phase": "rowconv_bwd_against", "other": str(other_csrc), "kernel": unit["kernel"],
-                              "unit": unit["unit"], "mode": mode, "layer": "all", **sums}), flush=True)
-            del sweep, layers
+            kernels, _, reference, rounded, *_ = _train_unit_case(torch, rowconv, rowconv_ad, unit, mode)
+            fns = {name: _with_library(rowconv_ad, build, kernels) for name, build in builds.items()}
+            with torch.no_grad():
+                want = reference()
+                errs = {name: _bwd_errors(torch, fn(), want, rounded) for name, fn in fns.items()}
+                del want
+                times = _turns(fns, reps=3)
+            print(json.dumps({
+                "phase": "rowconv_bwd_against", "other": str(other_csrc), "kernel": unit["kernel"],
+                "unit": unit["unit"], "mode": mode, "max_rel_err_share_ulps": errs,
+                "other_ms": times["other"], "this_ms": times["this"],
+            }), flush=True)
+            for name, (rel, share, ulps) in errs.items():
+                if not (rel <= ROWCONV_BWD_TOL and share <= ROWCONV_BWD_BF16_SHARE and ulps <= 1.0):
+                    raise AssertionError(f"{unit['unit']} {mode} ({name}): errors {errs}")
+            del kernels, reference, fns
             torch.cuda.empty_cache()
+    del model
+    _level_input_bwd_against(torch, builds, other_csrc)
+
+
+def _level_input_bwd_against(torch, builds, other_csrc):
+    """`flow_level_input_bwd` of two builds ({"other": lib, "this": lib})
+    at the `davo` flow levels (/16, /8, /4: C = 96, 64, 32, s = 4) of the
+    fused B=4 and B=64 steps (S*B = 8 and 128 images), bf16 and float32
+    maps: a0 from this checkout's flow-level input kernel on random maps,
+    da0 random at the dgrad's width (D + C + 2 channels: rows neither 4-
+    nor 16-byte aligned); each output of both held to the plain version
+    summed in float64 (1e-5 of its largest; bf16 outputs at most 1e-3 of
+    elements off, by at most one ulp at the scale), two runs of each
+    bitwise equal; timed in turns. Prints a row per level and one sum per
+    step and dtype."""
+    from davo_tpu_torch.kernels import rowconv, rowconv_ad
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    sums = {}
+    for B in (4, 64):
+        for mode, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            total = sums.setdefault(f"B={B} step, {mode}", {"other": [0.0, 0.0], "this": [0.0, 0.0], "bound": 0.0})
+            for level, C in ((3, 96), (2, 64), (1, 32)):
+                N, h, w = 2 * B, 128 >> (level + 1), 416 >> (level + 1)
+                f1 = torch.randn(N, h, w, C, device="cuda", generator=gen).to(dt)
+                f2 = torch.randn(N, h, w, C, device="cuda", generator=gen).to(dt)
+                flow_up = torch.randn(N, h, w, 2, device="cuda", generator=gen) * 2.0
+                cpad = -(-(81 + C + 2) // 4) * 4
+                x = torch.empty((N, h, w, cpad), dtype=dt, device="cuda")
+                a0 = x if dt == torch.float32 else torch.empty_like(x, dtype=torch.float32)
+                rowconv._launch_level_input(f1, f2, f1, flow_up, x, 4, None if a0 is x else a0)
+                da0 = torch.randn(N, h, w, 81 + C + 2, device="cuda", generator=gen)
+                fns = {name: _with_library(rowconv_ad, build, lambda: rowconv_ad._launch_level_input_bwd(
+                    f1, f2, a0, da0, 4, dt, C, 2)) for name, build in builds.items()}
+                want = rowconv_ad.flow_level_input_bwd_plain(f1, f2, a0, da0.double(), 4, C, 2)
+                want = [t.to(dt) if i < 3 else t.float() for i, t in enumerate(want)]
+                errs, bitwise = {}, {}
+                for name, fn in fns.items():
+                    got = fn()
+                    errs[name] = _bwd_errors(torch, got, want, (0, 1, 2))
+                    bitwise[name] = all(torch.equal(a, b) for a, b in zip(fn(), got))
+                    del got
+                del want
+                times = _turns(fns, reps=5)
+                # Read: the maps, da0, a0's first D = 81 channels; written:
+                # df1, df2, dfeat, dflow.
+                nbytes = sum(t.numel() * t.element_size() for t in (f1, f2, da0)) + N * h * w * 81 * 4 + (
+                    2 * f1.numel() * f1.element_size() + N * h * w * (C * f1.element_size() + 8))
+                bound_ms = _bound_ms(nbytes, 4.0 * N * h * w * 81 * C)[0]
+                print(json.dumps({
+                    "phase": "level_input_bwd_against", "other": str(other_csrc), "batch": B,
+                    "shape": [N, h, w, C], "mode": mode, "max_rel_err_share_ulps": errs, "bitwise_repeat": bitwise,
+                    "other_ms": times["other"], "this_ms": times["this"], "bound_ms": bound_ms,
+                }), flush=True)
+                for name in fns:
+                    rel, share, ulps = errs[name]
+                    if not (bitwise[name] and rel <= ROWCONV_BWD_TOL and share <= ROWCONV_BWD_BF16_SHARE
+                            and ulps <= 1.0):
+                        raise AssertionError(f"flow_level_input_bwd {N}x{h}x{w}x{C} {mode} ({name}): {errs}")
+                for name in fns:
+                    for i in (0, 1):
+                        total[name][i] += times[name][i]
+                total["bound"] += bound_ms
+                del f1, f2, flow_up, x, a0, da0, fns
+            torch.cuda.empty_cache()
+    print(json.dumps({"phase": "level_input_bwd_against_per_step", "other": str(other_csrc), "ms": sums}),
+          flush=True)
+
+
+def _parent_stack_launch(torch, lib, x, ws, bs, strides, relus, mode):
+    """One launch of an earlier conv_stack.cu (before its tensor-core
+    kernel): `davo_conv_stack` with 13 ints a layer (no tensor-core plan)
+    and OIHW float32 weights in both modes. Returns the float32 output."""
+    import ctypes
+
+    from davo_tpu_torch.kernels import conv_stack
+
+    B, h, w, cin = x.shape
+    n, act_bf16 = len(ws), int(mode == "bfloat16")
+    wf = [t.detach().float().contiguous() for t in ws]
+    bf = [t.detach().float().contiguous() for t in bs]
+    params, offsets, nbytes = [], [], 0
+    for i, (wt, s, r) in enumerate(zip(wf, strides, relus)):
+        k, cout = wt.shape[-1], wt.shape[0]
+        ho, pad_t, _ = conv_stack.same_pads(h, k, s)
+        wo, pad_l, _ = conv_stack.same_pads(w, k, s)
+        x_bf16 = act_bf16 if i else int(x.dtype == torch.bfloat16)
+        aligned = 1 if i else int(x.data_ptr() % (4 * x.element_size()) == 0)
+        params += [x_bf16, aligned, h, w, cin, ho, wo, cout, k, s, pad_t, pad_l, int(bool(r))]
+        if i < n - 1:
+            offsets.append(nbytes)
+            nbytes += -(-B * ho * wo * cout * (2 if act_bf16 else 4) // 256) * 256
+        h, w, cin = ho, wo, cout
+    out = torch.empty((B, h, w, cin), dtype=torch.float32, device=x.device)
+    work = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=x.device)
+    ins = [x.data_ptr()] + [work.data_ptr() + off for off in offsets]
+    outs = [work.data_ptr() + off for off in offsets] + [out.data_ptr()]
+
+    def ptrs(values):
+        return (ctypes.c_void_p * n)(*values)
+
+    err = lib.davo_conv_stack(n, B, ptrs(ins), ptrs(outs), ptrs([t.data_ptr() for t in wf]),
+                              ptrs([t.data_ptr() for t in bf]), (ctypes.c_int * len(params))(*params), act_bf16,
+                              torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise AssertionError(f"other conv stack: launch failed ({err})")
+    return out
+
+
+def _compare_conv_stack_against(torch, lib, other_csrc):
+    """`--against`: another checkout's conv_stack.cu (`_parent_stack_launch`)
+    against this checkout's `fused_conv_stack` on the davo-fast pose prefix
+    at B=64 and 256, bf16 and float32: both held to the plain version
+    (float32 within 1e-5 of the largest; bf16 a mean gap at most half the
+    plain version's bf16-to-f32 gap), timed in turns, beside #7 on the
+    same prefix and, in bf16, the port's unfused route."""
+    import ctypes
+
+    from davo_tpu_torch.kernels import conv_stack, rowconv
+
+    lib.davo_conv_stack.argtypes = conv_stack.SIGNATURES["davo_conv_stack"]
+    lib.davo_conv_stack.restype = ctypes.c_int
+    ws, bs, strides, relus, mods, prefix_input, *_ = _pose_prefix(torch)
+    with torch.inference_mode():
+        for B in (64, 256):
+            for mode in ("bfloat16", "float32"):
+                x = prefix_input(B, mode)
+                fns = {"other": lambda: _parent_stack_launch(torch, lib, x, ws, bs, strides, relus, mode),
+                       "this": lambda: conv_stack.fused_conv_stack(x, ws, bs, strides, relus, 8, mode)}
+                want = conv_stack.fused_conv_stack_plain(x, ws, bs, strides, relus, 8, mode)
+                errs = {name: float((fn() - want).abs().max() / want.abs().max()) for name, fn in fns.items()}
+                row = {"phase": "conv_stack_against", "other": str(other_csrc), "batch": B, "mode": mode,
+                       "max_rel_err": errs}
+                if mode == "bfloat16":
+                    want32 = conv_stack.fused_conv_stack_plain(x, ws, bs, strides, relus, 8, "float32")
+                    ref_gap = _mean_gap(want, want32)
+                    row["gap_ratio"] = {name: _mean_gap(fn(), want) / ref_gap for name, fn in fns.items()}
+                    ok = max(row["gap_ratio"].values()) <= ROWCONV_GAP_RATIO
+                    seq = torch.nn.Sequential(*mods)
+                    row["library_ms"] = _graph_ms(lambda: seq(x), reps=5)
+                else:
+                    ok = max(errs.values()) <= CONV_STACK_TOL
+                times = _turns(fns, reps=5)
+                row.update(other_ms=times["other"], this_ms=times["this"], grid=conv_stack.last_launch(),
+                           conv_chain_strided_ms=_graph_ms(
+                               lambda: rowconv.conv_chain_strided(x, ws, bs, strides, relus, None, mode), reps=5))
+                print(json.dumps(row), flush=True)
+                if not ok:
+                    raise AssertionError(f"conv stack against B={B} {mode}: {row}")
+                del x, want
+        torch.cuda.empty_cache()
 
 
 def main_path(torch, costvol):
@@ -1556,8 +1593,9 @@ def _bwd_layer_rows(torch, rowconv_ad, unit, mode, sweep):
         bitwise = all(torch.equal(a, b) for a, b in zip(level_bwd(), got))
         want = rowconv_ad.flow_level_input_bwd_plain(f1, f2, a0, da0.double(), 4, cf, cu)
         errs = [rel(a, b) for a, b in zip(got, want)]
-        nbytes = sum(t.numel() * t.element_size() for t in (f1, f2, a0, da0, *got))
         B, H, W, C = f1.shape
+        # a0: only its first D = 81 channels (the gates' mask) are read.
+        nbytes = sum(t.numel() * t.element_size() for t in (f1, f2, da0, *got)) + B * H * W * 81 * 4
         row = {"phase": "rowconv_bwd_layer", "kernel": unit["kernel"], "unit": unit["unit"], "mode": mode,
                "layer": "flow_level_input_bwd", "max_rel_err": errs, "bitwise_repeat": bitwise,
                "flow_level_input_bwd_ms": _graph_ms(level_bwd, reps=5),
@@ -1890,6 +1928,54 @@ def check_rowconv_backward_shapes(torch, rowconv_ad):
                       "variants": sorted({v for c in cases for v in c["variants"]}), "each": cases}), flush=True)
 
 
+# (label, B, H, W, C, search, map dtype): searches whose window and gates
+# do not fit one pass of `flow_level_input_bwd` (shift rows in passes:
+# 14 of 19 at s 9 with float32 maps, 17 with bf16, 7 of 41 at s 20, one a
+# pass at s 64, the largest search the kernel takes), and s 1 (one pass,
+# the run-time-radius instance).
+LEVEL_BWD_SEARCHES = [
+    ("s1 f32", 2, 13, 21, 12, 1, "float32"),
+    ("s9 f32", 2, 24, 40, 40, 9, "float32"),
+    ("s9 bf16", 2, 24, 40, 40, 9, "bfloat16"),
+    ("s20 bf16", 1, 30, 50, 36, 20, "bfloat16"),
+    ("s64 f32", 1, 9, 17, 8, 64, "float32"),
+]
+
+
+def check_level_input_bwd_searches(torch, rowconv, rowconv_ad):
+    """Phase 3e, the flow level's input backward at `LEVEL_BWD_SEARCHES`
+    against its plain version summed in float64, as phase 3e's level rows
+    hold it: float32 outputs within ROWCONV_BWD_TOL of each gradient's
+    largest, bf16 df1/df2 at most ROWCONV_BWD_BF16_SHARE of elements off
+    by at most one ulp at the gradient's scale, two runs bitwise equal
+    (a0 from the flow-level input kernel on random maps, da0 random at the
+    dgrad's width). Prints one line; raises on a miss."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    cases = []
+    for label, B, H, W, C, search, dt in LEVEL_BWD_SEARCHES:
+        dt = getattr(torch, dt)
+        D = (2 * search + 1) ** 2
+        f1 = torch.randn(B, H, W, C, device="cuda", generator=gen).to(dt)
+        f2 = torch.randn(B, H, W, C, device="cuda", generator=gen).to(dt)
+        flow_up = torch.randn(B, H, W, 2, device="cuda", generator=gen)
+        x = torch.empty((B, H, W, -(-(D + C + 2) // 4) * 4), dtype=dt, device="cuda")
+        a0 = x if dt == torch.float32 else torch.empty_like(x, dtype=torch.float32)
+        rowconv._launch_level_input(f1, f2, f1, flow_up, x, search, None if a0 is x else a0)
+        da0 = torch.randn(B, H, W, D + C + 2, device="cuda", generator=gen)
+        got = rowconv_ad._launch_level_input_bwd(f1, f2, a0, da0, search, dt, C, 2)
+        bitwise = all(torch.equal(a, b) for a, b in zip(
+            rowconv_ad._launch_level_input_bwd(f1, f2, a0, da0, search, dt, C, 2), got))
+        want = rowconv_ad.flow_level_input_bwd_plain(f1, f2, a0, da0.double(), search, C, 2)
+        want = [t.to(dt) if i < 3 else t.float() for i, t in enumerate(want)]
+        rel, share, ulps = _bwd_errors(torch, got, want, (0, 1, 2))
+        cases.append({"case": label, "shape": [B, H, W, C], "search": search, "max_rel_err": rel,
+                      "bf16_differ_share": share, "bf16_max_ulps": ulps, "bitwise_repeat": bitwise})
+        if not (bitwise and rel <= ROWCONV_BWD_TOL and share <= ROWCONV_BWD_BF16_SHARE and ulps <= 1.0):
+            raise AssertionError(f"flow_level_input_bwd at {cases[-1]}")
+        del f1, f2, flow_up, x, a0, da0, got, want
+    print(json.dumps({"phase": "level_input_bwd_searches", "cases": cases}), flush=True)
+
+
 # ---------------------------------------------------------------- the conv stack (#11)
 
 # kernels/conv_stack.py + csrc/conv_stack.cu on the card against the plain
@@ -1926,10 +2012,11 @@ def _conv_stack_criteria(torch, conv_stack, rowconv, x, ws, bs, strides, relus, 
     `chain`, against #7 on the same inputs."""
     got = conv_stack.fused_conv_stack(x, ws, bs, strides, relus, 1, mode)
     torch.cuda.synchronize()
+    grid = conv_stack.last_launch()
     want = conv_stack.fused_conv_stack_plain(x, ws, bs, strides, relus, 1, mode)
     if got.dtype != torch.float32 or got.shape != want.shape:
         raise AssertionError(f"conv stack gave {got.dtype} {tuple(got.shape)}, want float32 {tuple(want.shape)}")
-    row = {"max_rel_err": float((got - want).abs().max() / want.abs().max())}
+    row = {"max_rel_err": float((got - want).abs().max() / want.abs().max()), "grid": grid}
     if mode == "float32":
         ok = row["max_rel_err"] <= CONV_STACK_TOL
         if chain:
@@ -1960,25 +2047,15 @@ def _conv_stack_criteria(torch, conv_stack, rowconv, x, ws, bs, strides, relus, 
     return row, ok
 
 
-def check_conv_stack(torch, card):
-    """Phase 3f: the conv stack (#11). Its path is the bench package's
-    speed-of-light measurement: `utils.profiling.timed` of
-    `fused_conv_stack` on the davo-fast pose prefix at 128x416 (B=64 and
-    B=256, bf16 and f32; the weights of a seeded davo-fast's enc0..enc4,
-    the prefix `fusable_prefix` gives), then `bench.sol.conv_stack_sol`
-    of the time; launch counts are read around that run, one device
-    launch per call asserted. Then the kernel against its plain version
-    on the same inputs (the criteria above), against #7
-    (`rowconv.conv_chain_strided`, the same function) in f32, and on the
-    JAX tests' shapes and odd dims. Device ms by CUDA-graph replay (the
-    cooperative launch is captured); the plain version's by CUDA events;
-    #7 and the port's unfused route (cuDNN bf16 ConvBlocks, the
-    library yardstick) by graph replay."""
-    from davo_tpu_torch.bench.sol import conv_stack_sol
-    from davo_tpu_torch.kernels import conv_stack, rowconv
+def _pose_prefix(torch):
+    """The davo-fast pose prefix at 128x416 (the layers `fusable_prefix`
+    gives, enc0..enc4 of a seeded davo-fast): (OIHW weights, biases,
+    strides, relus, the modules, a seeded input maker (B, mode) -> (B,
+    128, 416, 9), the layers' shapes for `conv_stack_sol` and the output's
+    elements at batch B, the generator that makes the inputs)."""
+    from davo_tpu_torch.kernels import conv_stack
     from davo_tpu_torch.models import presets
     from davo_tpu_torch.models.davo import DavoModel
-    from davo_tpu_torch.utils.profiling import timed
 
     cfg = presets.get("davo-fast").model
     H, W = cfg.img_height, cfg.img_width
@@ -2004,6 +2081,29 @@ def check_conv_stack(torch, card):
             h, w, cin = -(-h // s), -(-w // s), wt.shape[0]
         return out, B * h * w * cin
 
+    return ws, bs, strides, relus, mods, prefix_input, shapes, gen
+
+
+def check_conv_stack(torch, card):
+    """Phase 3f: the conv stack (#11). Its path is the bench package's
+    speed-of-light measurement: `utils.profiling.timed` of
+    `fused_conv_stack` on the davo-fast pose prefix at 128x416 (B=64 and
+    B=256, bf16 and f32; `_pose_prefix`), then `bench.sol.conv_stack_sol`
+    of the time; launch counts are read around that run, one device
+    launch per call asserted. Then the kernel against its plain version
+    on the same inputs (the criteria above), against #7
+    (`rowconv.conv_chain_strided`, the same function) in f32, and on the
+    JAX tests' shapes and odd dims, with each launch's grid (blocks per
+    SM from the occupancy query). Device ms by CUDA-graph replay (the
+    cooperative launch is captured); the plain version's by CUDA events;
+    #7 and the port's unfused route (cuDNN bf16 ConvBlocks, the library
+    yardstick) by graph replay."""
+    from davo_tpu_torch.bench.sol import conv_stack_sol
+    from davo_tpu_torch.kernels import conv_stack, rowconv
+    from davo_tpu_torch.utils.profiling import timed
+
+    ws, bs, strides, relus, mods, prefix_input, shapes, gen = _pose_prefix(torch)
+    H, W = 128, 416
     units = [(B, mode, prefix_input(B, mode)) for B in (64, 256) for mode in ("bfloat16", "float32")]
     path = []
     _reset_counts()
@@ -2668,8 +2768,12 @@ def main() -> int:
             future.result()
     build_s = time.perf_counter() - t0
     print(json.dumps({"phase": "build", "seconds": build_s, "log": cuda_build.BUILD_LOG}), flush=True)
-    print(json.dumps({"phase": "sass", "source": "rowconv_bwd",
-                      "per_kernel": _sass_counts(cuda_build.load("rowconv_bwd")._name)}), flush=True)
+    sass = {source: _sass_counts(cuda_build.load(source)._name) for source in ("rowconv_bwd", "conv_stack")}
+    for source, per_kernel in sass.items():
+        print(json.dumps({"phase": "sass", "source": source, "per_kernel": per_kernel}), flush=True)
+    mma_sass = next(v for k, v in sass["conv_stack"].items() if "conv_stack_mma_kernel" in k)
+    if not (mma_sass["HMMA"] > 0 and mma_sass["FFMA"] == 0):
+        raise AssertionError(f"conv_stack_mma_kernel SASS: {mma_sass}, want HMMA and no FFMA")
 
     rows = check_cost_volume(torch, costvol)
     bwd_rows = check_cost_volume_backward(torch, costvol)
@@ -2678,6 +2782,7 @@ def main() -> int:
     rowconv_rows = check_rowconv(torch, rowconv)
     bwd_kernel_rows, bwd_layer_rows = check_rowconv_backward(torch, rowconv, rowconv_ad)
     check_rowconv_backward_shapes(torch, rowconv_ad)
+    check_level_input_bwd_searches(torch, rowconv, rowconv_ad)
     stack_rows, stack_counts = check_conv_stack(torch, card)
     launches, stream = main_path(torch, costvol)
     fused_counts, fused_model = fused_path(torch, costvol, rowconv, stream)
@@ -2936,6 +3041,7 @@ def main() -> int:
         "library_ms": unit["library_ms"], "library_is": unit["library_is"],
         "conv_chain_strided_ms": unit["conv_chain_strided_ms"],
         "float32_ms": unit32["ms"], "float32_bound_ms": unit32["bound_ms"],
+        "grid": unit["grid"], "sass_bf16_kernel": mma_sass,
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -28,7 +28,8 @@
 //                      the cost-volume gate (cv > 0) / C, d f1 (taps of f2),
 //                      d f2 (the transposed taps of f1, as a gather), and the
 //                      feature and flow slices of the estimator input's
-//                      cotangent.
+//                      cotangent, on shared-memory tiles (its design note
+//                      is at the kernel).
 //
 // Numerics: the reference's backward takes float32 operands and float32
 // sums in every mode (unrounded float32 weights; only the chain input's
@@ -100,9 +101,9 @@ __device__ __forceinline__ float bf16_bits(unsigned short h) {
   return __uint_as_float(static_cast<unsigned>(h) << 16);
 }
 
-__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return bf16_bits(__ldg(reinterpret_cast<const unsigned short*>(p)));
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x, the low half, first
+  return *reinterpret_cast<const unsigned*>(&v);
 }
 
 // Element i of a float32 or bf16 array.
@@ -774,59 +775,308 @@ wgrad_reduce_kernel(const float* __restrict__ partial, int chunks, long long n, 
 
 // ------------------------------------------------------------ flow level input
 
-// The backward of flow_level_input_kernel. da0 (B, H, W, da_stride): the
-// cotangent of the estimator input, channels [0, D) the cost volume's,
-// then Cf of feat and Cu of flow_up; a0 (B, H, W, a0_stride) float32: the
-// unrounded estimator input, whose channels [0, D) are the ReLU'd cost
-// volume. Per shift t, g_t(p) = da0[p, t] * (cv[p, t] > 0) * (1 / C):
+// The backward of flow_level_input_kernel (rowconv.cu). da0 (B, H, W,
+// da_stride): the cotangent of the estimator input, channels [0, D) the
+// cost volume's, then Cf of feat and Cu of flow_up; a0 (B, H, W,
+// a0_stride) float32: the unrounded estimator input, whose channels
+// [0, D) are the ReLU'd cost volume. Per shift t (s_t = (t / d - s,
+// t % d - s)), g_t(p) = da0[p, t] * (cv[p, t] > 0) * (1 / C):
 //   df1[p, c] = sum_t g_t(p) f2[p + s_t, c]
 //   df2[p, c] = sum_t g_t(p - s_t) f1[p - s_t, c]
-// in the order of t (the reference's), each rounded once to f1's dtype.
+// (a term whose shifted pixel leaves the frame drops out), in ascending t
+// with fmaf, each rounded once to f1's dtype; dfeat, dflow: da0's next Cf
+// and Cu channels.
+//
+// Bound on this card: bytes (da0's and a0's first D channels, the maps,
+// the outputs; C*D FMAs a pixel and gradient are a few percent of the
+// f32 rate's time). Design: #1b's shared-memory tiles (costvol.cu
+// cost_volume_bwd_kernel). A block owns an 8x16 tile of pixels and one of
+// the two gradients, and walks channel slices of 32: it stages the other
+// map's window (the tile grown by s on every side, 0 outside the frame or
+// past C) by cp.async, in the map's dtype (bf16 widened in registers; a
+// bf16 slot padded after every 4 pixels so that a warp's 4 pixel groups
+// fall in alternate halves of the banks), and the tile's D gates, formed
+// once per element at staging from da0 and a0 (plain loads: their rows
+// are strided and need not be 16-byte aligned): for df1 g_t(p), for df2
+// g_t(p - s_t), 0 where the term drops out. The gates stay for every
+// slice of the block. Each thread keeps 4 pixels x 4 channels in
+// registers over the D shifts and reads shared memory only (#1b's
+// register block and shift order). The df1 block of a tile also copies
+// the tile's dfeat and dflow, lanes over consecutive elements. A tile
+// takes all its slices where the tiles give two blocks per SM, else one
+// slice a block (gates staged per slice). Where the whole window and the
+// D gates do not fit shared memory (s >= 8 with float32 maps, 9 with
+// bf16), a slice walks the d shift rows in passes of `rows`, each staging
+// the window rows and the gates that its shift rows read (the tile's
+// rows + rows - 1 window rows, 128 x rows*d gates), one slice a block;
+// the accumulators carry over the passes, so the sums keep ascending t.
+// One shift row a pass fits up to s = 64.
+constexpr int kLvlTileH = 8;                     // tile rows, a warp each
+constexpr int kLvlTileW = 16;                    // tile columns, 4 groups of kLvlPix
+constexpr int kLvlPix = 4;                       // adjacent pixels per thread
+constexpr int kLvlSlice = 32;                    // channels per slice, 8 quads
+constexpr int kLvlThreads = kLvlTileH * 32;
+
+struct LevelBwd {
+  const float* da0;
+  const float* a0;
+  const void* f1;
+  const void* f2;
+  void* df1;
+  void* df2;
+  void* dfeat;
+  float* dflow;
+  int da_stride, a0_stride, d_bf16, dfeat_bf16;
+  int H, W, C, Cf, Cu, s;
+  int tiles_x, tiles_y, slices, per_item, groups, row_slots;
+  int rows;  // shift rows a pass (d: one pass)
+  int vec_in, vec_out;
+  long long items;
+};
+
+// Window slots a row: bf16 slots (64 bytes) get one of padding after
+// every 4 pixels.
+__host__ __device__ constexpr int lvl_row_slots(int ww, bool bf16) { return bf16 ? ww + (ww + 3) / 4 : ww; }
+
 template <typename TIn>
-__global__ void __launch_bounds__(256)
-flow_level_input_bwd_kernel(const float* __restrict__ da0, int da_stride,
-                            const float* __restrict__ a0, int a0_stride, const TIn* __restrict__ f1,
-                            const TIn* __restrict__ f2, void* __restrict__ df1,
-                            void* __restrict__ df2, int d_bf16, void* __restrict__ dfeat,
-                            int dfeat_bf16, float* __restrict__ dflow, int H, int W, int C, int Cf,
-                            int Cu, int search, long long pixels) {
-  const int d = 2 * search + 1;
-  const int D = d * d;
-  const float inv_c = 1.0f / static_cast<float>(C);
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long start = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  for (long long i = start; i < pixels * C; i += step) {
-    const int c = static_cast<int>(i % C);
-    const long long p = i / C;
-    const int w = static_cast<int>(p % W);
-    const int h = static_cast<int>((p / W) % H);
-    float acc1 = 0.0f, acc2 = 0.0f;
-    for (int t = 0; t < D; ++t) {
-      const int dy = t / d - search, dx = t % d - search;
-      if (h + dy >= 0 && h + dy < H && w + dx >= 0 && w + dx < W) {
-        const float cv = __ldg(a0 + p * a0_stride + t);
-        const float g = __ldg(da0 + p * da_stride + t) * (cv > 0.0f ? 1.0f : 0.0f) * inv_c;
-        acc1 = fmaf(g, ld(f2 + (p + static_cast<long long>(dy) * W + dx) * C + c), acc1);
-      }
-      if (h - dy >= 0 && h - dy < H && w - dx >= 0 && w - dx < W) {
-        const long long q = p - static_cast<long long>(dy) * W - dx;
-        const float cv = __ldg(a0 + q * a0_stride + t);
-        const float g = __ldg(da0 + q * da_stride + t) * (cv > 0.0f ? 1.0f : 0.0f) * inv_c;
-        acc2 = fmaf(g, ld(f1 + q * C + c), acc2);
+__device__ __forceinline__ int lvl_slot(int wx) {
+  return sizeof(TIn) == 2 ? wx + (wx >> 2) : wx;
+}
+
+__device__ __forceinline__ float4 lvl_quad(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 lvl_quad(const __nv_bfloat16* p) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);  // bf16 -> f32: a 16-bit shift
+  return make_float4(__uint_as_float(q.x << 16), __uint_as_float(q.x & 0xffff0000u), __uint_as_float(q.y << 16),
+                     __uint_as_float(q.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ float lvl_gate(const LevelBwd& a, long long pix, int t, float inv_c) {
+  const float cv = __ldg(a.a0 + pix * a.a0_stride + t);
+  return __ldg(a.da0 + pix * a.da_stride + t) * (cv > 0.0f ? 1.0f : 0.0f) * inv_c;
+}
+
+// acc[i][.] += sum over one pass's nr shift rows of gs[pixel i, t] * the
+// window at pixel i shifted by +s_t (df1) or -s_t (df2), in ascending t
+// per output. `ms` points at the staged window slot of the thread's first
+// pixel (its row, the pass's first staged row) and its 4 channels, `gs`
+// at that pixel's gates (gd a pixel; shift row r of the pass at r * d).
+// kS >= 0: one pass of all d rows.
+template <bool kDf1, int kS, typename TIn>
+__device__ __forceinline__ void lvl_accumulate(float (&acc)[kLvlPix][4], const TIn* ms, const float* gs, int s_rt,
+                                               int nr_rt, int gd_rt, int row_slots) {
+  const int s = kS >= 0 ? kS : s_rt;
+  const int d = 2 * s + 1;
+  const int nr = kS >= 0 ? d : nr_rt, gd = kS >= 0 ? d * d : gd_rt;
+  const int span = kLvlPix + 2 * s;  // window pixels one row of shifts reaches
+#pragma unroll
+  for (int r = 0; r < nr; ++r) {
+    // Staged from the pass's first window row: df1 reads row ty + r,
+    // df2 row ty + nr - 1 - r.
+    const TIn* mrow = ms + (kDf1 ? r : nr - 1 - r) * row_slots * kLvlSlice;
+    const float* grow = gs + r * d;
+#pragma unroll
+    for (int jj = 0; jj < span; ++jj) {
+      // Pixel i meets window pixel j at dx = j - i (df1) or i + 2s - j
+      // (df2); j runs so that dx rises for every i.
+      const int j = kDf1 ? jj : span - 1 - jj;
+      const float4 m = lvl_quad(mrow + lvl_slot<TIn>(j) * kLvlSlice);
+#pragma unroll
+      for (int i = 0; i < kLvlPix; ++i) {
+        const int dx = kDf1 ? j - i : i + 2 * s - j;
+        if (dx >= 0 && dx < d) {
+          const float gk = grow[i * gd + dx];
+          acc[i][0] = fmaf(gk, m.x, acc[i][0]);
+          acc[i][1] = fmaf(gk, m.y, acc[i][1]);
+          acc[i][2] = fmaf(gk, m.z, acc[i][2]);
+          acc[i][3] = fmaf(gk, m.w, acc[i][3]);
+        }
       }
     }
-    store_any(df1, d_bf16, i, acc1);
-    store_any(df2, d_bf16, i, acc2);
   }
-  const int Ct = Cf + Cu;
-  for (long long i = start; i < pixels * Ct; i += step) {
-    const int ch = static_cast<int>(i % Ct);
-    const long long p = i / Ct;
-    const float v = __ldg(da0 + p * da_stride + D + ch);
-    if (ch < Cf) {
-      store_any(dfeat, dfeat_bf16, p * Cf + ch, v);
-    } else {
-      dflow[p * Cu + ch - Cf] = v;
+}
+
+// Rows [wr0, wr0 + wh) of the other map's window for channels
+// [c0, c0 + kLvlSlice) into `ms`.
+template <typename TIn>
+__device__ __forceinline__ void lvl_stage_window(TIn* ms, const TIn* __restrict__ map, const LevelBwd& a,
+                                                 long long row0, int y0, int x0, int c0, int wr0, int wh) {
+  const int s = a.s, ww = kLvlTileW + 2 * s;
+  y0 += wr0;
+  if (a.vec_in) {
+    constexpr int kE = 16 / sizeof(TIn);   // channels a 16-byte unit
+    constexpr int kU = kLvlSlice / kE;     // units a pixel's slice
+    for (int u = threadIdx.x; u < wh * ww * kU; u += kLvlThreads) {
+      const int wp = u / kU, q = u % kU;
+      const int wy = wp / ww, wx = wp - wy * ww;
+      const int y = y0 - s + wy, x = x0 - s + wx, c = c0 + q * kE;
+      const bool in = y >= 0 && y < a.H && x >= 0 && x < a.W && c < a.C;
+      copy_async16(ms + (wy * a.row_slots + lvl_slot<TIn>(wx)) * kLvlSlice + q * kE,
+                   in ? map + ((row0 + y) * a.W + x) * a.C + c : map, in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < wh * ww * kLvlSlice; e += kLvlThreads) {
+      const int wp = e / kLvlSlice, q = e % kLvlSlice;
+      const int wy = wp / ww, wx = wp - wy * ww;
+      const int y = y0 - s + wy, x = x0 - s + wx, c = c0 + q;
+      TIn v{};
+      if (y >= 0 && y < a.H && x >= 0 && x < a.W && c < a.C) v = map[((row0 + y) * a.W + x) * a.C + c];
+      ms[(wy * a.row_slots + lvl_slot<TIn>(wx)) * kLvlSlice + q] = v;
+    }
+  }
+}
+
+// The tile's gates of shift rows [dy0, dy0 + nr) into gs (tile pixel p,
+// shift t = (dy0 + r) * d + dx at gs[p * gd + r * d + dx]): for df1
+// g_t(p); for df2 g_t(p - s_t), whose sources, for one tile row and shift
+// row, lie on one image row, walked by (window column, dx), dx fastest,
+// so that neighbouring threads read runs of d gates. 0 where the term
+// drops out. Loads of kLvlBatch elements are issued before any is used
+// (branch-free: an element that drops out reads a clamped address).
+constexpr int kLvlBatch = 8;
+
+template <int kS>
+__device__ __forceinline__ void lvl_stage_gates(float* gs, const LevelBwd& a, bool is_df1, long long row0, int y0,
+                                                int x0, float inv_c, int dy0, int nr, int gd) {
+  const int s = kS >= 0 ? kS : a.s, d = 2 * s + 1, ww = kLvlTileW + 2 * s;
+  if (kS >= 0) nr = d, gd = d * d;
+  // df1: e = p * nr * d + r * d + dx; df2: e = ((qy * nr + r) * ww + wx) * d + dx.
+  const int n = is_df1 ? kLvlTileH * kLvlTileW * nr * d : kLvlTileH * nr * ww * d;
+  for (int e0 = threadIdx.x; e0 < n; e0 += kLvlBatch * kLvlThreads) {
+    long long pix[kLvlBatch];
+    int t[kLvlBatch], tl[kLvlBatch], dst[kLvlBatch];
+    bool in[kLvlBatch];
+    float da[kLvlBatch], cv[kLvlBatch];
+#pragma unroll
+    for (int j = 0; j < kLvlBatch; ++j) {
+      const int e = e0 + j * kLvlThreads;
+      int y, x, p;
+      if (is_df1) {
+        p = e / (nr * d);
+        tl[j] = e - p * (nr * d);
+        t[j] = dy0 * d + tl[j];
+        y = y0 + p / kLvlTileW;
+        x = x0 + p % kLvlTileW;
+        const int sy = y + t[j] / d - s, sx = x + t[j] % d - s;
+        in[j] = sy >= 0 && sy < a.H && sx >= 0 && sx < a.W;
+      } else {
+        const int wx_dx = e % (ww * d), pair = e / (ww * d);
+        const int qy = pair / nr, r = pair - qy * nr, dy = dy0 + r;
+        const int wx = wx_dx / d, dx = wx_dx - wx * d;
+        const int px = wx - 2 * s + dx;
+        tl[j] = r * d + dx;
+        t[j] = dy * d + dx;
+        p = px >= 0 && px < kLvlTileW ? qy * kLvlTileW + px : -1;
+        y = y0 + qy + s - dy;
+        x = x0 - s + wx;
+        in[j] = p >= 0 && y0 + qy < a.H;
+      }
+      in[j] = in[j] && e < n && y >= 0 && y < a.H && x >= 0 && x < a.W;
+      dst[j] = e < n ? p : -1;
+      pix[j] = (row0 + min(max(y, 0), a.H - 1)) * a.W + min(max(x, 0), a.W - 1);
+      da[j] = __ldg(a.da0 + pix[j] * a.da_stride + t[j]);
+      cv[j] = __ldg(a.a0 + pix[j] * a.a0_stride + t[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < kLvlBatch; ++j) {
+      if (dst[j] >= 0) gs[dst[j] * gd + tl[j]] = in[j] ? da[j] * (cv[j] > 0.0f ? 1.0f : 0.0f) * inv_c : 0.0f;
+    }
+  }
+}
+
+// One block per (tile, gradient, slice group), grid-stride; kS is the
+// search radius when known at compile time (one pass of all d shift
+// rows), else -1.
+template <int kS, typename TIn>
+// Two blocks an SM with float32 maps, three with bf16 (their windows' shared memory).
+__global__ void __launch_bounds__(kLvlThreads, sizeof(TIn) == 2 ? 3 : 2)
+flow_level_input_bwd_kernel(const __grid_constant__ LevelBwd a) {
+  extern __shared__ float4 lvl_smem[];
+  const int s = kS >= 0 ? kS : a.s;
+  const int d = 2 * s + 1, D = d * d;
+  const int rows = kS >= 0 ? d : a.rows, gd = rows * d;
+  TIn* ms = reinterpret_cast<TIn*>(lvl_smem);  // window: rows + 7 rows of row_slots slots of kLvlSlice
+  float* gs = reinterpret_cast<float*>(ms + (rows + kLvlTileH - 1) * a.row_slots * kLvlSlice);  // 128 x gd gates
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float inv_c = 1.0f / static_cast<float>(a.C);
+  for (long long item = blockIdx.x; item < a.items; item += gridDim.x) {
+    long long r = item;
+    const int group = static_cast<int>(r % a.groups);
+    r /= a.groups;
+    const bool is_df1 = r % 2 == 0;
+    r /= 2;
+    const int x0 = static_cast<int>(r % a.tiles_x) * kLvlTileW;
+    r /= a.tiles_x;
+    const int y0 = static_cast<int>(r % a.tiles_y) * kLvlTileH;
+    const long long row0 = (r / a.tiles_y) * a.H;  // b*H
+    const TIn* map = static_cast<const TIn*>(is_df1 ? a.f2 : a.f1);
+    void* out = is_df1 ? a.df1 : a.df2;
+    const int first = group * a.per_item, last = min(a.slices, first + a.per_item);
+
+    // Thread: tile row `warp`, pixels 4*grp .. 4*grp+3, channels c0 + 4*c4 .. +3.
+    const int c4 = lane & 7, lx0 = (lane >> 3) * kLvlPix;
+    const TIn* mbase = ms + (warp * a.row_slots + lvl_slot<TIn>(lx0)) * kLvlSlice + 4 * c4;
+    const float* gbase = gs + (warp * kLvlTileW + lx0) * gd;
+    for (int slice = first; slice < last; ++slice) {
+      float acc[kLvlPix][4] = {};
+      for (int dy0 = 0; dy0 < d; dy0 += rows) {
+        const int nr = min(rows, d - dy0);
+        // The window rows the pass reads: df1 dy0 .. dy0 + nr + 6; df2
+        // 2s - dy0 - nr + 1 .. 2s - dy0 + 7.
+        const int wr0 = is_df1 ? dy0 : 2 * s - dy0 - nr + 1;
+        __syncthreads();  // every thread is done with the shared memory of the last pass or item
+        lvl_stage_window(ms, map, a, row0, y0, x0, slice * kLvlSlice, wr0, nr + kLvlTileH - 1);
+        copy_async_commit();
+        // One pass: the gates stay for every slice; passes: one slice an item.
+        if (slice == first) lvl_stage_gates<kS>(gs, a, is_df1, row0, y0, x0, inv_c, dy0, nr, gd);
+        if (is_df1 && group == 0 && slice == first && dy0 == 0) {
+          // dfeat and dflow of the tile: per tile row, lanes over its pixels'
+          // Cf + Cu channels.
+          const int ct = a.Cf + a.Cu, y = y0 + warp;
+          if (y < a.H) {
+            const long long pix0 = (row0 + y) * a.W + x0;
+            const int n = min(kLvlTileW, a.W - x0) * ct;
+            for (int e = lane; e < n; e += 32) {
+              const int px = e / ct, ch = e - px * ct;
+              const long long pix = pix0 + px;
+              const float v = __ldg(a.da0 + pix * a.da_stride + D + ch);
+              if (ch < a.Cf) {
+                store_any(a.dfeat, a.dfeat_bf16, pix * a.Cf + ch, v);
+              } else {
+                a.dflow[pix * a.Cu + ch - a.Cf] = v;
+              }
+            }
+          }
+        }
+        copy_async_wait_all();
+        __syncthreads();
+        if (is_df1) {
+          lvl_accumulate<true, kS>(acc, mbase, gbase, s, nr, gd, a.row_slots);
+        } else {
+          lvl_accumulate<false, kS>(acc, mbase, gbase, s, nr, gd, a.row_slots);
+        }
+      }
+      const int y = y0 + warp, c = slice * kLvlSlice + 4 * c4;
+      if (y >= a.H || c >= a.C) continue;
+#pragma unroll
+      for (int i = 0; i < kLvlPix; ++i) {
+        const int x = x0 + lx0 + i;
+        if (x >= a.W) break;
+        const long long o = ((row0 + y) * a.W + x) * a.C + c;
+        if (a.vec_out) {
+          if (a.d_bf16) {
+            *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(out) + o) =
+                make_uint2(pack_bf16x2(acc[i][0], acc[i][1]), pack_bf16x2(acc[i][2], acc[i][3]));
+          } else {
+            *reinterpret_cast<float4*>(static_cast<float*>(out) + o) =
+                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          }
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            if (c + q < a.C) store_any(out, a.d_bf16, o + q, acc[i][q]);
+          }
+        }
+      }
     }
   }
 }
@@ -1027,28 +1277,60 @@ int davo_conv_wgrad(const void* x, int x_bf16, int x_stride, const float* dz, fl
 // The backward of davo_flow_level_input. f1, f2 (in_bf16): (B, H, W, C);
 // da0: (B, H, W, da_stride) float32; a0: (B, H, W, a0_stride) float32.
 // Writes df1, df2 (B, H, W, C) in f1's dtype, dfeat (B, H, W, Cf) in bf16
-// when dfeat_bf16, dflow (B, H, W, Cu) float32.
+// when dfeat_bf16, dflow (B, H, W, Cu) float32, in one launch, for any
+// search up to 64. Returns a cudaError_t.
 int davo_flow_level_input_bwd(const float* da0, int da_stride, const float* a0, int a0_stride,
                               const void* f1, const void* f2, int in_bf16, void* df1, void* df2,
                               void* dfeat, int dfeat_bf16, float* dflow, int B, int H, int W,
                               int C, int Cf, int Cu, int search, void* stream) {
   const long long pixels = static_cast<long long>(B) * H * W;
   const int D = (2 * search + 1) * (2 * search + 1);
-  if (pixels <= 0 || C <= 0 || search < 0 || a0_stride < D || da_stride < D + Cf + Cu) {
+  if (pixels <= 0 || C <= 0 || search < 0 || search > 64 || Cf < 0 || Cu < 0 || a0_stride < D ||
+      da_stride < D + Cf + Cu || pixels > INT_MAX) {
     return cudaErrorInvalidValue;
   }
-  const long long work = pixels * (C > Cf + Cu ? C : Cf + Cu);
-  auto s = static_cast<cudaStream_t>(stream);
+  int device = 0, smem_max = 0, sms = 0;
+  cudaError_t err = current_device(&device);
+  if (err == cudaSuccess) err = device_limits(device, &smem_max, &sms);
+  if (err != cudaSuccess) return err;
+  LevelBwd a{};
+  a.da0 = da0, a.a0 = a0, a.f1 = f1, a.f2 = f2, a.df1 = df1, a.df2 = df2, a.dfeat = dfeat, a.dflow = dflow;
+  a.da_stride = da_stride, a.a0_stride = a0_stride, a.d_bf16 = in_bf16, a.dfeat_bf16 = dfeat_bf16;
+  a.H = H, a.W = W, a.C = C, a.Cf = Cf, a.Cu = Cu, a.s = search;
+  a.tiles_x = (W + kLvlTileW - 1) / kLvlTileW;
+  a.tiles_y = (H + kLvlTileH - 1) / kLvlTileH;
+  a.slices = (C + kLvlSlice - 1) / kLvlSlice;
+  const int d = 2 * search + 1;
+  const size_t elem = in_bf16 ? 2 : 4;
+  a.row_slots = lvl_row_slots(kLvlTileW + 2 * search, in_bf16);
+  // The most shift rows a pass whose window rows and gates fit.
+  const auto smem_for = [&](int rows) {
+    return static_cast<size_t>(rows + kLvlTileH - 1) * a.row_slots * kLvlSlice * elem +
+           static_cast<size_t>(kLvlTileH) * kLvlTileW * rows * d * sizeof(float);
+  };
+  a.rows = d;
+  while (a.rows > 1 && smem_for(a.rows) > static_cast<size_t>(smem_max)) --a.rows;
+  const size_t smem = smem_for(a.rows);
+  if (smem > static_cast<size_t>(smem_max)) return cudaErrorInvalidValue;
+  const long long blocks2 = 2LL * B * a.tiles_y * a.tiles_x;  // (tile, gradient) pairs
+  a.per_item = a.rows == d && blocks2 >= 2LL * sms ? a.slices : 1;
+  a.groups = (a.slices + a.per_item - 1) / a.per_item;
+  a.items = blocks2 * a.groups;
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  a.vec_in = C % static_cast<int>(16 / elem) == 0 && aligned(f1) && aligned(f2);
+  a.vec_out = C % 4 == 0 && aligned(df1) && aligned(df2);
+  const bool s4 = search == 4 && a.rows == d;  // the davo levels' radius, in one pass
+  void (*kernel)(LevelBwd);
   if (in_bf16) {
-    flow_level_input_bwd_kernel<__nv_bfloat16><<<grid_for(work), 256, 0, s>>>(
-        da0, da_stride, a0, a0_stride, static_cast<const __nv_bfloat16*>(f1),
-        static_cast<const __nv_bfloat16*>(f2), df1, df2, 1, dfeat, dfeat_bf16, dflow, H, W, C, Cf,
-        Cu, search, pixels);
+    kernel = s4 ? &flow_level_input_bwd_kernel<4, __nv_bfloat16> : &flow_level_input_bwd_kernel<-1, __nv_bfloat16>;
   } else {
-    flow_level_input_bwd_kernel<float><<<grid_for(work), 256, 0, s>>>(
-        da0, da_stride, a0, a0_stride, static_cast<const float*>(f1), static_cast<const float*>(f2),
-        df1, df2, 0, dfeat, dfeat_bf16, dflow, H, W, C, Cf, Cu, search, pixels);
+    kernel = s4 ? &flow_level_input_bwd_kernel<4, float> : &flow_level_input_bwd_kernel<-1, float>;
   }
+  static int granted[2][2][kMaxDevices] = {};
+  err = allow_smem(kernel, device, smem, granted[in_bf16 != 0][s4]);
+  if (err != cudaSuccess) return err;
+  const unsigned grid = static_cast<unsigned>(a.items < (1LL << 20) ? a.items : (1LL << 20));
+  kernel<<<grid, kLvlThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();
 }
 

@@ -13,9 +13,15 @@ layer comes out in float32, unrounded.
 
 The one difference from the reference's arguments: weights are the
 port's OIHW float32 parameters (`Conv_0.weight`), as in the port's other
-kernels, not HWIO. The CUDA kernel reads them as they are (rounded to the
-compute dtype as it stages them), so a call makes no copy and launches
-exactly one kernel.
+kernels, not HWIO. In bfloat16 mode the kernel runs every layer on the
+tensor cores, the fused layer kernel's device code (`csrc/conv_mma.cuh`),
+and takes each weight as `rowconv._packed` packs it for that code (bf16,
+in its K order), packed once per parameter and kept until the parameter
+changes; each layer's tile width, channel tile and staging depth are
+the layer kernel's plan (`mma_plan` in `csrc/conv_mma.cuh`), made in C
+at the launch. In float32 mode it reads the OIHW float32 parameters
+as they are, on the FMA units. Packing is not part of the launch: a call
+launches exactly one kernel.
 
 Stride-2 layers read their input directly with Flax's low pad (total //
 2) and take any input size: the reference's "even dims" rule comes from
@@ -37,7 +43,7 @@ from typing import Sequence
 
 import torch
 
-from davo_tpu_torch.kernels import cuda_build
+from davo_tpu_torch.kernels import cuda_build, rowconv
 from davo_tpu_torch.kernels.rowconv import _check_serving, _layer_plain
 from davo_tpu_torch.models import common
 
@@ -99,15 +105,36 @@ def fused_conv_stack_plain(x, weights, biases, strides, relus, batch_tile=8,
     return y
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The C entry points of `csrc/conv_stack.cu`.
+SIGNATURES = {
+    "davo_conv_stack": [_I, _I, _P, _P, _P, _P, _P, _I, _P],
+    "davo_conv_stack_last_launch": [_P],
+}
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("conv_stack")
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.davo_conv_stack.argtypes = [I, I, P, P, P, P, P, I, P]
-    lib.davo_conv_stack.restype = I
-    lib.davo_cuda_error_string.argtypes = [I]
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, _I
+    lib.davo_cuda_error_string.argtypes = [_I]
     lib.davo_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def last_launch() -> dict:
+    """The last kernel launch: blocks, blocks per SM (the occupancy
+    query's answer at the launch's largest layer), dynamic shared memory
+    in bytes and, in bf16 mode, each layer's plan (tile width, nt
+    8-channel n-tiles, staging buffers)."""
+    out = (ctypes.c_int * (4 + 3 * MAX_LAYERS))()
+    _library().davo_conv_stack_last_launch(out)
+    grid = dict(zip(("blocks", "blocks_per_sm", "smem"), out))
+    if out[4]:
+        grid["plans"] = [dict(zip(("tile_w", "nt", "stages"), out[4 + 3 * i: 7 + 3 * i])) for i in range(out[3])]
+    return grid
 
 
 def _stack_cuda(x, weights, biases, strides, relus, compute):
@@ -119,17 +146,19 @@ def _stack_cuda(x, weights, biases, strides, relus, compute):
     if n > MAX_LAYERS:
         raise ValueError(f"the kernel takes at most {MAX_LAYERS} layers, got {n}")
     act_bf16 = int(compute == torch.bfloat16)
-    ws = [t.detach().float().contiguous() for t in weights]
+    # bf16: packed for the tensor cores, kept per parameter; else OIHW float32.
+    ws = ([rowconv._packed(w, torch.bfloat16, w.shape[1]) for w in weights] if act_bf16
+          else [w.detach().float().contiguous() for w in weights])
     bs = [t.detach().float().contiguous() for t in biases]
     # Layer geometry, and each intermediate's place in one workspace
     # (256-byte aligned; written once, read by the next layer only).
     params, offsets, nbytes = [], [], 0
-    for i, (wt, s, r) in enumerate(zip(ws, strides, relus)):
+    for i, (wt, s, r) in enumerate(zip(weights, strides, relus)):
         k, cout = wt.shape[-1], wt.shape[0]
         ho, pad_t, _ = same_pads(h, k, s)
         wo, pad_l, _ = same_pads(w, k, s)
-        # Layer 0 reads x (4 channels at a time only where x is aligned for
-        # it), the others the workspace in the compute dtype.
+        # Layer 0 reads x (vector loads only where x is aligned for them),
+        # the others the workspace in the compute dtype.
         x_bf16 = act_bf16 if i else int(x.dtype == torch.bfloat16)
         aligned = 1 if i else int(x.data_ptr() % (4 * x.element_size()) == 0)
         params += [x_bf16, aligned, h, w, cin, ho, wo, cout, k, s, pad_t, pad_l, int(bool(r))]

@@ -171,9 +171,9 @@ def flow_level_fused_plain(f1, f2, feat, flow_up, weights, biases, search, relus
 # --------------------------------------------------------------------- kernels
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("rowconv")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """`lib` (a build of `csrc/rowconv.cu`) with its entry points' ctypes
+    signatures set."""
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.davo_conv_layer.argtypes = [P, I, P, P, P, I] + [I] * 14 + [P]
     lib.davo_conv_layer.restype = I
@@ -184,6 +184,11 @@ def _library() -> ctypes.CDLL:
     lib.davo_cuda_error_string.argtypes = [I]
     lib.davo_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    return bind(cuda_build.load("rowconv"))
 
 
 def _raise_if(err: int, what: str) -> None:

@@ -205,15 +205,19 @@ SIGNATURES = {
 }
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("rowconv_bwd")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """`lib` (a build of `csrc/rowconv_bwd.cu`) with `SIGNATURES` set."""
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, _I
     lib.davo_cuda_error_string.argtypes = [_I]
     lib.davo_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    return bind(cuda_build.load("rowconv_bwd"))
 
 
 def _raise_if(err: int, what: str) -> None:

@@ -20,6 +20,7 @@ between bf16 and float32.
 
 import contextlib
 import ctypes
+import re
 import types
 
 import jax.numpy as jnp
@@ -30,7 +31,7 @@ import torch.nn.functional as F
 
 from davo_tpu.kernels import conv_stack as jconv_stack
 from davo_tpu_torch.convert import load_flax_params
-from davo_tpu_torch.kernels import conv_stack
+from davo_tpu_torch.kernels import conv_stack, cuda_build, rowconv
 from davo_tpu_torch.models.common import ConvBlock
 
 
@@ -202,43 +203,69 @@ def test_wrapper_counts_nothing_on_the_cpu_and_refuses_autograd():
         conv_stack.fused_conv_stack(x, ws, bs, (1,), (True,), batch_tile=1)
 
 
+def _view(ptr, dtype, shape):
+    count = int(np.prod(shape))
+    buf = (ctypes.c_char * (count * dtype.itemsize)).from_address(ptr)
+    return torch.frombuffer(buf, dtype=dtype, count=count).view(*shape)
+
+
+def _packed_shape(cout, cin, k):
+    """(Np, K) of `rowconv._pack_mma`'s weights."""
+    kp = -(-cin // 16) * 16 * k * k if rowconv.mma_chunked(cin) else -(-k * k * cin // 16) * 16
+    return -(-cout // 8) * 8, kp
+
+
+def _unpack(wp, cout, cin, k):
+    """`rowconv._pack_mma`'s (Np, K) back to OIHW (cout, cin, k, k)."""
+    if rowconv.mma_chunked(cin):
+        cp = -(-cin // 16) * 16
+        w = wp[:cout].reshape(cout, cp // 16, k, k, 16).permute(0, 1, 4, 2, 3).reshape(cout, cp, k, k)
+        return w[:, :cin]
+    return wp[:cout, : k * k * cin].reshape(cout, k, k, cin).permute(0, 3, 1, 2)
+
+
 def _emulated_launch(n, B, xs, outs, ws, bs, params, act_bf16, stream):
     """`davo_conv_stack` in PyTorch on the CPU: each layer from the
-    pointers and the geometry of the table alone, as the kernel reads them."""
-    def view(ptr, dtype, shape):
-        count = int(np.prod(shape))
-        buf = (ctypes.c_char * (count * dtype.itemsize)).from_address(ptr)
-        return torch.frombuffer(buf, dtype=dtype, count=count).view(*shape)
-
+    pointers and the geometry of the table alone, as the kernel reads them
+    (bf16 mode: the packed weights; the intermediates in one workspace at
+    256-byte aligned offsets), after the checks the kernel makes."""
+    assert len(params) == 13 * n
     for i in range(n):
         x_bf16, aligned, H, W, cin, Ho, Wo, cout, k, s, pad_t, pad_l, relu = params[13 * i: 13 * i + 13]
-        assert aligned == 1
-        x = view(xs[i], torch.bfloat16 if x_bf16 else torch.float32, (B, H, W, cin)).float()
-        w = view(ws[i], torch.float32, (cout, cin, k, k))
-        b = view(bs[i], torch.float32, (cout,))
+        assert aligned == 1 and (i == 0 or x_bf16 == act_bf16)
+        if i:  # the workspace's regions, 256 bytes apart (its base: the CUDA allocator's 512)
+            assert (xs[i] - xs[1]) % 256 == 0 and xs[i] == outs[i - 1]
+        x = _view(xs[i], torch.bfloat16 if x_bf16 else torch.float32, (B, H, W, cin)).float()
+        b = _view(bs[i], torch.float32, (cout,))
         if act_bf16:
-            x, w = x.to(torch.bfloat16).float(), w.to(torch.bfloat16).float()
+            w = _unpack(_view(ws[i], torch.bfloat16, _packed_shape(cout, cin, k)), cout, cin, k).float()
+            x = x.to(torch.bfloat16).float()
+        else:
+            w = _view(ws[i], torch.float32, (cout, cin, k, k))
         pad_b = max((Ho - 1) * s + k - H - pad_t, 0)
         pad_r = max((Wo - 1) * s + k - W - pad_l, 0)
         y = F.conv2d(F.pad(x.permute(0, 3, 1, 2), (pad_l, pad_r, pad_t, pad_b)), w, stride=s)
         y = (y + b[:, None, None]).permute(0, 2, 3, 1)
         y = torch.relu(y) if relu else y
         out_dtype = torch.bfloat16 if act_bf16 and i < n - 1 else torch.float32
-        view(outs[i], out_dtype, (B, Ho, Wo, cout)).copy_(y.to(out_dtype))
+        _view(outs[i], out_dtype, (B, Ho, Wo, cout)).copy_(y.to(out_dtype))
     return 0
 
 
 @pytest.mark.parametrize("mode", ["float32", "bfloat16"])
 def test_kernel_side_plumbing_with_the_launch_emulated(monkeypatch, mode):
     """The CUDA branch's layer table and workspace (geometry, SAME pads,
-    dtypes, pointers to each intermediate) run on the CPU, with the one
-    launch emulated from the table: the plain version's result."""
-    monkeypatch.setattr(conv_stack, "_library", lambda: types.SimpleNamespace(davo_conv_stack=_emulated_launch))
+    dtypes, pointers to each intermediate, 256-byte aligned; in bf16 the
+    packed weights) run on the CPU, with the one launch emulated from the
+    table: the plain version's result."""
+    stub = types.SimpleNamespace(davo_conv_stack=_emulated_launch)
+    monkeypatch.setattr(conv_stack, "_library", lambda: stub)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))
     rng = np.random.default_rng(6)
     for shape, ks, chans, strides in (((2, 13, 15, 4), (7, 5, 3), (8, 16, 4), (2, 2, 1)),
-                                      ((2, 16, 24, 9), (7, 5, 3, 3), (16, 32, 64, 128), (2,) * 4)):
+                                      ((2, 16, 24, 9), (7, 5, 3, 3), (16, 32, 64, 128), (2,) * 4),
+                                      ((1, 9, 21, 20), (3, 3), (20, 24), (1, 2))):
         relus = (True,) * (len(ks) - 1) + (False,)
         ws, bs = _port(*_make(rng, ks, chans, shape[-1], bias_scale=0.1))
         for x_dtype in (torch.float32, torch.bfloat16):
@@ -247,3 +274,112 @@ def test_kernel_side_plumbing_with_the_launch_emulated(monkeypatch, mode):
             want = conv_stack.fused_conv_stack_plain(x, ws, bs, strides, relus, 1, mode)
             assert got.dtype == torch.float32 and got.shape == want.shape
             assert torch.equal(got, want)
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    """Each entry point's argtypes in `conv_stack.SIGNATURES` follow its C
+    declaration in csrc/conv_stack.cu, a pointer per pointer and an int
+    per int (ctypes would pass a missing or extra argument unchecked); the
+    table's 13 ints a layer and MAX_LAYERS are the kernel's; the bf16
+    plan's shared-memory cap leaves four blocks an SM (228 KB, 1 KB
+    reserved per block)."""
+    src = (cuda_build.CSRC_DIR / "conv_stack.cu").read_text()
+    for name, argtypes in conv_stack.SIGNATURES.items():
+        params = re.search(rf"int {name}\(([^)]*)\)", src).group(1).split(",")
+        want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
+        assert argtypes == want, name
+    assert re.search(r"constexpr int kParams = 13;", src)
+    assert re.search(rf"constexpr int kMaxLayers = {conv_stack.MAX_LAYERS};", src)
+    cap = int(re.search(r"constexpr size_t kStackSmem = (\d+) \* 1024;", src).group(1)) * 1024
+    assert 4 * (cap + 1024) <= 228 * 1024
+
+
+def _emulate_mma_stack(x, ws, bs, strides, relus, tile_w=8, nt=8):
+    """The bf16 stack as the tensor-core kernel computes it, tile by tile
+    on the CPU: per layer 128-pixel tiles (128 / tile_w x tile_w) and
+    channel blocks of nt*8 packed weight rows (a plan of `mma_plan`'s);
+    per tile the K loop in the
+    packed order (chunked: chunks of 16 input channels, then taps; flat:
+    (tap, channel) flattened, zero-padded to a multiple of 16), each
+    16-deep step's products summed in float32 and added to the float32
+    accumulator; then + bias, one rounding to bf16 between layers (the
+    last layer float32), ReLU; only pixels and channels inside the map
+    are written."""
+    y = x.to(torch.bfloat16).float()
+    n = len(ws)
+    for i, (w, b, s, r) in enumerate(zip(ws, bs, strides, relus)):
+        B, H, W, cin = y.shape
+        cout, _, k, _ = w.shape
+        ho, pad_t, _ = conv_stack.same_pads(H, k, s)
+        wo, pad_l, _ = conv_stack.same_pads(W, k, s)
+        tile_h = 128 // tile_w
+        wp = rowconv._packed(w, torch.bfloat16, cin).float()
+        chunked = rowconv.mma_chunked(cin)
+        cp = -(-cin // 16) * 16 if chunked else cin
+        # Input padded for SAME and past every tile's halo; channels to cp.
+        hh, hw = (tile_h - 1) * s + k, (tile_w - 1) * s + k
+        th, tw = -(-ho // tile_h), -(-wo // tile_w)
+        xp = torch.zeros(B, th * tile_h * s + hh, tw * tile_w * s + hw, cp)
+        xp[:, pad_t: pad_t + H, pad_l: pad_l + W, :cin] = y
+        out = torch.zeros(B, ho, wo, cout)
+        for ty in range(th):
+            for tx in range(tw):
+                oy, ox = torch.meshgrid(torch.arange(tile_h), torch.arange(tile_w), indexing="ij")
+                oy, ox = (oy + ty * tile_h).reshape(-1), (ox + tx * tile_w).reshape(-1)
+                taps = [xp[:, oy * s + ky, ox * s + kx] for ky in range(k) for kx in range(k)]  # (B, 128, cp)
+                if chunked:
+                    cols = torch.stack(taps, 2).reshape(B, 128, k * k, cp // 16, 16).permute(0, 1, 3, 2, 4)
+                else:
+                    cols = torch.stack(taps, 2)
+                cols = cols.reshape(B, 128, -1)
+                cols = F.pad(cols, (0, wp.shape[1] - cols.shape[2]))
+                for co0 in range(0, wp.shape[0], nt * 8):
+                    acc = torch.zeros(B, 128, nt * 8)
+                    block = F.pad(wp[co0: co0 + nt * 8], (0, 0, 0, nt * 8 - wp[co0: co0 + nt * 8].shape[0]))
+                    for k0 in range(0, cols.shape[2], 16):
+                        acc = acc + cols[:, :, k0: k0 + 16] @ block[:, k0: k0 + 16].t()
+                    ncols = min(nt * 8, cout - co0)
+                    if ncols <= 0:
+                        continue
+                    v = acc[..., :ncols] + b[co0: co0 + ncols].float()
+                    if i < n - 1:
+                        v = v.to(torch.bfloat16).float()
+                    if r:
+                        v = torch.relu(v)
+                    inside = (oy < ho) & (ox < wo)
+                    out[:, oy[inside], ox[inside], co0: co0 + ncols] = v[:, inside]
+        y = out
+    return y
+
+
+@pytest.mark.parametrize("tile_w, nt", [(8, 8), (16, 2)])
+def test_emulated_tensor_core_stack_follows_plain_and_reference(tile_w, nt):
+    """The kernel's tile order (`_emulate_mma_stack`: flat K for the first
+    layer's 9 channels, 16-channel chunks behind it, packed weights, Cout
+    of 20 padded to 24, odd dims at strides 2 and 1) on a small pose-like
+    stack, with 16x8 tiles of 64 channels or 8x16 tiles of 16: each layer,
+    on the plain version's input to it, at most 1e-3 of its elements (one
+    element here) off the plain bf16 layer after rounding, by at most one
+    ulp; the stack's gap to the JAX kernel (interpret mode) at most half
+    of JAX's own bf16-to-f32 gap."""
+    rng = np.random.default_rng(31)
+    shape, ks, chans, strides = (2, 13, 30, 9), (7, 5, 3), (20, 32, 16), (2, 2, 1)
+    relus = (True, True, True)
+    x = rng.uniform(size=shape).astype(np.float32)
+    ws, bs = _make(rng, ks, chans, shape[-1], bias_scale=0.1)
+    wt, bt = _port(ws, bs)
+    xt = torch.from_numpy(x)
+    got = _emulate_mma_stack(xt, wt, bt, strides, relus, tile_w, nt)
+    inputs = [xt.to(torch.bfloat16)]
+    for i in range(len(ks) - 1):
+        inputs.append(rowconv._layer_plain(inputs[-1], wt[i], bt[i], strides[i], relus[i],
+                                           torch.bfloat16, torch.bfloat16))
+    for i, inp in enumerate(inputs):
+        args = (inp, [wt[i]], [bt[i]], (strides[i],), (relus[i],), 1, "bfloat16")
+        one = _emulate_mma_stack(inp, [wt[i]], [bt[i]], (strides[i],), (relus[i],), tile_w, nt)
+        share, ulps = _differ_share_and_ulps(one.numpy(), conv_stack.fused_conv_stack_plain(*args).numpy())
+        assert share * one.numel() <= max(1e-3 * one.numel(), 1) and ulps <= 1.0, (i, share, ulps)
+    want = _both(x, ws, bs, strides, relus, 1, "bfloat16")[1]
+    want32 = _both(x, ws, bs, strides, relus, 1, "float32")[1]
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    assert np.abs(got.numpy() - want).max() <= 0.5 * np.abs(want - want32).max()

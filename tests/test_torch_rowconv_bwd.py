@@ -1,7 +1,8 @@
 """The training chains' backward kernels (`csrc/rowconv_bwd.cu`) by a CPU
 emulation of their algorithm, and the Python side that launches them
 (`kernels/rowconv_ad.py`: `dgrad_plan`, `wgrad_plan`, `_pack_dgrad`, the
-gate's padding to `padded_cout`, the sweep in `_chain_bwd_cuda`).
+gate's padding to `padded_cout`, the sweep in `_chain_bwd_cuda`); and the
+flow level's input backward by an emulation of its tile plan.
 
 The emulation follows the kernels: split-TF32 products (each float32
 operand hi + lo, products lo*hi + hi*lo + hi*hi, the middle one dropped
@@ -30,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
-from test_torch_rowconv_ad import _chain_jax, _chain_port
+from test_torch_rowconv_ad import _assert_f32, _chain_jax, _chain_port, _level_jax, _level_port
 
 from davo_tpu_torch.kernels import cuda_build, rowconv, rowconv_ad
 
@@ -328,3 +329,193 @@ def test_sweep_of_the_emulated_kernels_matches_jax(monkeypatch):
         assert a.shape == b.shape and float(np.abs(a - b).max()) <= 1e-4 * float(np.abs(b).max())
     assert {k: v for k, v in rowconv_ad.device_launches.items() if v} == {
         "conv_chain_strided_ad": 3, "conv_layer_gate": 3, "conv_layer_wgrad": 3, "conv_layer_dgrad": 3}
+
+
+# ----------------------------------------------- the flow level's input backward
+
+
+def _level_constants():
+    """The tile plan's constants as csrc/rowconv_bwd.cu states them."""
+    src = (cuda_build.CSRC_DIR / "rowconv_bwd.cu").read_text()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+            for name in ("kLvlTileH", "kLvlTileW", "kLvlPix", "kLvlSlice")}
+
+
+def _stage_gates(da0, a0, C, b, y0, x0, search, is_df1, dy0, nr, gd):
+    """The kernel's `lvl_stage_gates` on the CPU: the tile's gates of shift
+    rows [dy0, dy0 + nr) from the strided rows of da0 and a0 (their widths
+    are the rows' strides), g = da0 * (a0 > 0) * float32(1 / C), 0 where
+    the term drops out, at gs[p * gd + r * d + dx], walked in the kernel's
+    element order (df2: by tile row, shift row, window column, dx). Slots
+    it does not write stay NaN."""
+    k = _level_constants()
+    th, tw = k["kLvlTileH"], k["kLvlTileW"]
+    B, H, W, _ = a0.shape
+    s, d = search, 2 * search + 1
+    ww = tw + 2 * s
+    da_flat, a0_flat = da0.float().reshape(-1), a0.float().reshape(-1)
+    inv_c = torch.tensor(1.0 / C, dtype=torch.float32)
+    e = torch.arange(th * tw * nr * d if is_df1 else th * nr * ww * d)
+    if is_df1:
+        p = e // (nr * d)
+        tl = e - p * (nr * d)
+        t = dy0 * d + tl
+        y, x = y0 + p // tw, x0 + p % tw
+        sy, sx = y + t // d - s, x + t % d - s
+        inside = (sy >= 0) & (sy < H) & (sx >= 0) & (sx < W)
+    else:
+        wx_dx, pair = e % (ww * d), e // (ww * d)
+        qy, r = pair // nr, pair % nr
+        wx, dx = wx_dx // d, wx_dx % d
+        px = wx - 2 * s + dx
+        tl, t = r * d + dx, (dy0 + r) * d + dx
+        p = torch.where((px >= 0) & (px < tw), qy * tw + px, -1)
+        y, x = y0 + qy + s - dy0 - r, x0 - s + wx
+        inside = (p >= 0) & (y0 + qy < H)
+    inside &= (y >= 0) & (y < H) & (x >= 0) & (x < W)
+    pix = (b * H + y.clamp(0, H - 1)) * W + x.clamp(0, W - 1)
+    gate = da_flat[pix * da0.shape[3] + t] * (a0_flat[pix * a0.shape[3] + t] > 0).float() * inv_c
+    gs = torch.full((th * tw * gd,), float("nan"))
+    keep = p >= 0
+    gs[p[keep] * gd + tl[keep]] = torch.where(inside, gate, 0.0)[keep]
+    return gs
+
+
+
+def _emulate_level_input_bwd(f1, f2, a0, da0, search, cf, cu, rows=None):
+    """`flow_level_input_bwd` as its kernel computes it, on the CPU: per
+    tile of kLvlTileH x kLvlTileW pixels, gradient and slice of kLvlSlice
+    channels, the d shift rows in passes of `rows` (all d: one pass), each
+    staging the gates of its shift rows (`_stage_gates`) and the rows of
+    the other map's window that they read (the window: the tile grown by
+    `search`, 0 outside the frame and past C; bf16 maps widened exactly),
+    the thread's reads indexed from the pass's first staged row; each
+    output summed over t ascending across the passes (an fma: the exact
+    product added in float64, then rounded to float32), written where it
+    lies in the frame, rounded once to f1's dtype; dfeat and dflow copied."""
+    k = _level_constants()
+    th, tw, slice_ = k["kLvlTileH"], k["kLvlTileW"], k["kLvlSlice"]
+    B, H, W, C = f1.shape
+    d = 2 * search + 1
+    D = d * d
+    rows = d if rows is None else rows
+    gd = rows * d
+    py, px = torch.meshgrid(torch.arange(th), torch.arange(tw), indexing="ij")
+    py, px = py.reshape(-1), px.reshape(-1)  # tile pixels
+    outs = {"df1": torch.zeros(B, H, W, C), "df2": torch.zeros(B, H, W, C)}
+    for b in range(B):
+        for y0 in range(0, H, th):
+            for x0 in range(0, W, tw):
+                y, x = y0 + py, x0 + px
+                for name, map_, is_df1 in (("df1", f2, True), ("df2", f1, False)):
+                    window = torch.zeros(th + 2 * search, tw + 2 * search, -(-C // slice_) * slice_)
+                    ys, xs = slice(max(y0 - search, 0), min(y0 + th + search, H)), slice(
+                        max(x0 - search, 0), min(x0 + tw + search, W))
+                    window[ys.start - (y0 - search): ys.stop - (y0 - search),
+                           xs.start - (x0 - search): xs.stop - (x0 - search), :C] = map_[b, ys, xs].float()
+                    acc = torch.zeros(th * tw, window.shape[2])
+                    for c0 in range(0, window.shape[2], slice_):
+                        part = torch.zeros(th * tw, slice_)
+                        for dy0 in range(0, d, rows):
+                            nr = min(rows, d - dy0)
+                            wr0 = dy0 if is_df1 else 2 * search - dy0 - nr + 1
+                            staged = window[wr0: wr0 + nr + th - 1, :, c0: c0 + slice_]
+                            assert staged.shape[0] == nr + th - 1
+                            gs = _stage_gates(da0, a0, C, b, y0, x0, search, is_df1, dy0, nr, gd)
+                            for r in range(nr):
+                                for dx in range(d):
+                                    sy = py + (r if is_df1 else nr - 1 - r)
+                                    sx = px + (dx if is_df1 else 2 * search - dx)
+                                    g = gs[(py * tw + px) * gd + r * d + dx]
+                                    m = staged[sy, sx]
+                                    part = (part.double() + g[:, None].double() * m.double()).float()
+                        acc[:, c0: c0 + slice_] = part
+                    inside = (y < H) & (x < W)
+                    outs[name][b, y[inside], x[inside]] = acc[inside, :C]
+    return (outs["df1"].to(f1.dtype), outs["df2"].to(f1.dtype), da0[..., D: D + cf].float(),
+            da0[..., D + cf: D + cf + cu].float())
+
+
+def _level_bwd_inputs(seed, B, H, W, C, search, dtype, cf=None, cu=2):
+    """f1, f2 (dtype), the float32 estimator input a0 (its width padded to
+    4, as the forward writes it) and a random da0 of the dgrad's width
+    (D + Cf + Cu: rows that are not 16-byte aligned)."""
+    rng = np.random.default_rng(seed)
+    cf = C if cf is None else cf
+    f1 = torch.from_numpy(rng.normal(size=(B, H, W, C)).astype(np.float32)).to(dtype)
+    f2 = torch.from_numpy(rng.normal(size=(B, H, W, C)).astype(np.float32)).to(dtype)
+    flow = torch.from_numpy(rng.normal(size=(B, H, W, cu)).astype(np.float32))
+    a0 = rowconv_ad.level_input_plain(f1, f2, f1 if cf == C else f1[..., :cf], flow, search)
+    a0 = F.pad(a0, (0, -(-a0.shape[3] // 4) * 4 - a0.shape[3]))
+    D = (2 * search + 1) ** 2
+    da0 = torch.from_numpy(rng.normal(size=(B, H, W, D + cf + cu)).astype(np.float32))
+    return f1, f2, a0, da0, cf, cu
+
+
+# (B, H, W, C, search, map dtype, shift rows a pass or None for one pass):
+# an odd frame smaller than a tile with C off the 32-channel slices; bf16
+# maps over several tiles with a ragged edge and two slices; search 3; the
+# passes a search too wide for one takes (here forced at small sizes),
+# with a shorter last pass.
+LEVEL_BWD_CASES = {
+    "odd_5x11_c20_s4_f32": (2, 5, 11, 20, 4, torch.float32, None),
+    "bf16_19x37_c40_s4": (1, 19, 37, 40, 4, torch.bfloat16, None),
+    "s3_9x17_c8_f32": (2, 9, 17, 8, 3, torch.float32, None),
+    "s3_9x17_c8_f32_rows3": (2, 9, 17, 8, 3, torch.float32, 3),
+    "bf16_11x21_c24_s5_rows2": (1, 11, 21, 24, 5, torch.bfloat16, 2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LEVEL_BWD_CASES))
+def test_emulated_level_input_bwd_matches_the_plain_version(name):
+    """The kernel's tile plan against `flow_level_input_bwd_plain` summed
+    in float64: float32 outputs within 1e-5 of each gradient's largest;
+    bf16 df1, df2 (rounded once) at most 1e-3 of their elements (or one)
+    off the float64 sum rounded to bf16, by at most one ulp at the
+    gradient's scale; dfeat and dflow exact copies."""
+    B, H, W, C, search, dtype, rows = LEVEL_BWD_CASES[name]
+    f1, f2, a0, da0, cf, cu = _level_bwd_inputs(7, B, H, W, C, search, dtype)
+    assert da0.shape[3] % 4 and a0.shape[3] % 4 == 0
+    got = _emulate_level_input_bwd(f1, f2, a0, da0, search, cf, cu, rows)
+    want = rowconv_ad.flow_level_input_bwd_plain(f1, f2, a0, da0.double(), search, cf, cu)
+    assert torch.equal(got[2], want[2].float()) and torch.equal(got[3], want[3].float())
+    for a, b in zip(got[:2], want[:2]):
+        assert a.dtype == dtype and a.shape == b.shape
+        if dtype == torch.float32:
+            assert _rel(a, b) <= LIMIT
+        else:
+            d = (a.float() - b.to(dtype).float()).abs()
+            assert int((d > 0).sum()) <= max(1e-3 * d.numel(), 1)
+            assert float(d.max()) <= 2.0**-7 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("rows", [1, 2])
+def test_level_input_bwd_passes_sum_as_one_pass(rows):
+    """Passes of `rows` shift rows (a wide search's plan) give df1 and df2
+    bitwise equal to one pass of all d rows: each output still sums its
+    terms in ascending t, and every gate and window element a pass reads
+    was staged by that pass."""
+    f1, f2, a0, da0, cf, cu = _level_bwd_inputs(9, 1, 10, 19, 12, 2, torch.float32)
+    one = _emulate_level_input_bwd(f1, f2, a0, da0, 2, cf, cu)
+    passes = _emulate_level_input_bwd(f1, f2, a0, da0, 2, cf, cu, rows)
+    assert all(torch.equal(a, b) for a, b in zip(one, passes))
+
+
+def test_emulated_level_input_bwd_in_the_flow_level_matches_jax(monkeypatch):
+    """The flow level's backward on the CPU with its input part computed
+    as the kernel's tile plan (`_emulate_level_input_bwd` in place of the
+    plain version), f1 of 8 channels and a 16-channel feat at search 4:
+    every gradient within 1e-4 of its largest of the JAX package's
+    `flow_level_fused_ad` (jax.vjp; Pallas in interpret mode)."""
+    calls = []
+
+    def emulated(*args):
+        calls.append(args[0].shape)
+        return _emulate_level_input_bwd(*args)
+
+    monkeypatch.setattr(rowconv_ad, "flow_level_input_bwd_plain", emulated)
+    got_out, got_grads = _level_port("search4_proj8", 0, "float32")
+    want_out, want_grads = _level_jax("search4_proj8", 0, "float32")
+    assert calls
+    _assert_f32(got_out, want_out)
+    _assert_f32(got_grads, want_grads)
