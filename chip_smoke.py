@@ -4,9 +4,11 @@
     python3 chip_smoke.py        # from the repository root, one GPU
     python3 chip_smoke.py --against OTHER/davo_tpu_torch/csrc
         # only another checkout's kernels against this one's, timed in
-        # turns on the main paths' shapes: the cost-volume forward, the
-        # banded forward, the fused serving kernels (rowconv.cu), the
-        # training backward (rowconv_bwd.cu: per fused unit, and
+        # turns on the main paths' shapes: the cost-volume forward and
+        # backward, the banded forward, the fused serving kernels
+        # (rowconv.cu: phase 3d's units in every mode, then
+        # flow_level_input per serving request and per fused train step),
+        # the training backward (rowconv_bwd.cu: per fused unit, and
         # flow_level_input_bwd at the B=4 and B=64 steps' levels) and the
         # conv stack (conv_stack.cu, the pose prefix at B=64 and 256)
 
@@ -14,7 +16,8 @@ Phases, in order; any failure exits non-zero:
   1. environment: card name and power limit, torch/CUDA versions, TF32 flags
   2. build: compile the CUDA kernels from davo_tpu_torch/csrc (one nvcc
      per source, all started together); SASS HMMA/FFMA counts per kernel
-     of rowconv_bwd.cu and conv_stack.cu
+     of rowconv.cu, rowconv_bwd.cu and conv_stack.cu (HMMA and no FFMA
+     asserted in the split-TF32 layer kernels and the stack's bf16 one)
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it, with times, the card's bound and, for
      the banded warp, F.grid_sample as the library yardstick: the cost
@@ -22,13 +25,21 @@ Phases, in order; any failure exits non-zero:
      one davo train step's levels at S*B=8 and 128, B=256 forwards, and
      odd frames, unaligned maps and searches 7 and 12; (3b) the
      cost-volume backward also at S*B=128 and on an odd frame (11x29,
-     C=20), (3c) the banded forward and backward at B=64 (C=3 and C=1
-     128x416, the backward with d/dimg) and on two edge frames (37x61,
-     5x7), and the forward on the coordinates of a davo train step at
-     B=64 and B=4, beside grid_sample; (3d) the
+     C=20), and at searches 1, 2, 3, 7, 8, 12 and 20 (shift rows in
+     passes from 8 on), float32 and bf16 maps, (3c) the banded forward
+     and backward at B=64 (C=3 and C=1 128x416, the backward with
+     d/dimg) and on two edge frames (37x61, 5x7), and the forward on the
+     coordinates of a davo train step at B=64 and B=4, beside
+     grid_sample; (3d) the
      fused serving kernels at one fused request's shapes in bf16, f32 and
-     bf16_dot, with the port's unfused route as the yardstick, and each
-     bf16 layer alone beside its bound and one cuDNN bf16 convolution;
+     bf16_dot, with the port's unfused route (bf16, or float32 with TF32
+     off) as the yardstick, and each bf16 and f32 layer alone beside its
+     bound and one cuDNN convolution in its dtype, and the float32 layer
+     on 8 more shape classes (odd dims, k=1, bf16 in or out, Cin 2-512,
+     Cout not a multiple of 8); then the flow level's
+     input kernel alone at the serving levels and the davo train levels
+     (S*B = 8 and 128, with and without a0) beside its bytes bound and
+     the unfused route (cost volume, ReLU, concatenation, cast);
      (3e) the
      training chains' backward kernels against their plain backwards at
      one fused davo train step's shapes, bf16 and f32, with the port's
@@ -40,8 +51,9 @@ Phases, in order; any failure exits non-zero:
      launch per stack; bf16 on the tensor cores, phase 2 asserts HMMA and
      no FFMA in its kernel) on the davo-fast pose prefix at B=64 and B=256
      through the bench package's speed-of-light run, then against its
-     plain version and the strided chain, bf16 and f32, and on the JAX
-     tests' shapes and odd dims, with each launch's grid
+     plain version and the strided chain, bf16 and f32 (each beside the
+     unfused route in its dtype), and on the JAX tests' shapes and odd
+     dims, with each launch's grid
   4. the serving path: davo-fast at 128x416 streams a 257-frame synthetic
      world through predict_sequence in 4 requests of 64 pairs, then
      assemble_trajectory and evaluate_sequence; plus one davo forward;
@@ -49,7 +61,8 @@ Phases, in order; any failure exits non-zero:
      fuse_flow_level, fuse_attention, fuse_pose_encoder) and `cli infer`
      with those flags; (4c) one fuse_estimator forward
   5. the port on the card against the port on the CPU (float32); (5b)
-     the same for the fused serving path (64x208)
+     the same for the fused serving path (64x208), whose float32 layers
+     run the split-TF32 kernels
   6. davo-fast forward throughput at B=256 (recorded, not claimed)
   7. where the time goes: the steady-state stream, device time per model
      layer and per kernel of the B=256 forward, and the device's busy
@@ -73,6 +86,7 @@ The line before the last names the card; the last line is the result.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import statistics
@@ -324,17 +338,67 @@ def _turns(fns, reps=20):
     return times
 
 
-def _with_library(module, lib, fn):
+def _with_library(module, lib, fn, **attrs):
     """`fn` as a callable that runs with `module._library()` giving `lib`
-    (another checkout's build of the module's source, bound alike)."""
+    (another checkout's build of the module's source, bound alike) and
+    the module's other attributes in `attrs` replaced."""
+    attrs["_library"] = lambda: lib
+
     def call():
-        saved = module._library
-        module._library = lambda: lib
+        saved = {name: getattr(module, name) for name in attrs}
+        for name, value in attrs.items():
+            setattr(module, name, value)
         try:
             return fn()
         finally:
-            module._library = saved
+            for name, value in saved.items():
+                setattr(module, name, value)
     return call
+
+
+def _bind_other_rowconv(torch, lib):
+    """(`lib`, another checkout's rowconv.cu build, bound; the attributes
+    of `kernels.rowconv` its layers need). A build with this checkout's
+    entry points binds alike; an earlier one, whose float32 layers run
+    the FMA kernel `davo_conv_layer` on (k, k, Cin, Cout) float32
+    weights, gets that entry and a `_launch_layer` that packs for it."""
+    import ctypes
+
+    import torch.nn.functional as F
+
+    from davo_tpu_torch.kernels import rowconv
+    from davo_tpu_torch.models.common import same_pads
+
+    if hasattr(lib, "davo_conv_layer_tf32"):
+        return rowconv.bind(lib), {}
+    P, I = ctypes.c_void_p, ctypes.c_int
+    signatures = {k: v for k, v in rowconv.SIGNATURES.items() if k != "davo_conv_layer_tf32"}
+    signatures["davo_conv_layer"] = [P, I, P, P, P, I] + [I] * 14 + [P]
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, I
+    lib.davo_cuda_error_string.argtypes, lib.davo_cuda_error_string.restype = [I], ctypes.c_char_p
+    launch, packed = rowconv._launch_layer, {}
+
+    def layer(x, w, b, out, stride, relu, act, dot):
+        if dot == torch.bfloat16:
+            return launch(x, w, b, out, stride, relu, act, dot)
+        B, H, W, cin = x.shape
+        _, Ho, Wo, cout = out.shape
+        k = w.shape[-1]
+        key = (w.data_ptr(), tuple(w.shape), cin)
+        if key not in packed:
+            packed[key] = (F.pad(w.detach(), (0, 0, 0, 0, 0, cin - w.shape[1])).permute(2, 3, 1, 0).contiguous(),
+                           b.detach().float().contiguous())
+        wp, bias = packed[key]
+        err = lib.davo_conv_layer(x.data_ptr(), int(x.dtype == torch.bfloat16), wp.data_ptr(), bias.data_ptr(),
+                                  out.data_ptr(), int(out.dtype == torch.bfloat16), B, H, W, cin, Ho, Wo, cout, k,
+                                  stride, same_pads(H, k, stride)[0], same_pads(W, k, stride)[0], 0,
+                                  int(act == torch.bfloat16), int(bool(relu)), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise AssertionError(f"other float32 conv layer: launch failed ({err})")
+
+    return lib, {"_launch_layer": layer}
 
 
 def compare_against(torch, other_csrc):
@@ -401,6 +465,38 @@ def compare_against(torch, other_csrc):
                     "bound_ms": bound_ms, "bound_by": bound_by,
                 }), flush=True)
 
+        other_bwd = libs["costvol"].davo_cost_volume_bwd_f32
+        other_bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        other_bwd.restype = ctypes.c_int
+
+        def other_bwd_call(f1, f2, g, s):
+            df1, df2 = torch.empty_like(f1), torch.empty_like(f2)
+            if other_bwd(f1.data_ptr(), f2.data_ptr(), g.data_ptr(), df1.data_ptr(), df2.data_ptr(), *f1.shape, s,
+                         stream()):
+                raise AssertionError("other cost volume backward: launch failed")
+            return df1, df2
+
+        for B, label, H, W, C in COSTVOL_BWD_SHAPES:
+            if not label.startswith("davo"):
+                continue
+            f1, f2 = (torch.randn(B, H, W, C, device="cuda", generator=gen) for _ in range(2))
+            g = torch.randn(B, H, W, 81, device="cuda", generator=gen)
+            fns = {"other": lambda: other_bwd_call(f1, f2, g, 4),
+                   "this": lambda: costvol._launch_bwd(f1, f2, g, 4, True, True)}
+            got = {name: fn() for name, fn in fns.items()}
+            want = costvol.cost_volume_plain_bwd(f1, f2, g, 4)
+            errs = {name: max(float((a - b).abs().max()) for a, b in zip(v, want)) for name, v in got.items()}
+            bitwise = all(torch.equal(a, b) for a, b in zip(got["other"], got["this"]))
+            if not (bitwise and max(errs.values()) <= COSTVOL_TOL):
+                raise AssertionError(f"cost volume backward {label} B={B}: errors {errs}, bitwise {bitwise}")
+            times = _turns(fns)
+            print(json.dumps({
+                "phase": "costvol_bwd_against", "other": str(other_csrc), "shape": label, "B": B, "H": H, "W": W,
+                "C": C, "search": 4, "max_abs_err": errs, "bitwise_equal": bitwise, "other_ms": times["other"],
+                "this_ms": times["this"],
+            }), flush=True)
+            del f1, f2, g, got, want
+
     if "bandwarp" in libs:
         other = libs["bandwarp"].davo_banded_warp_f32
         other.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -452,15 +548,15 @@ def compare_against(torch, other_csrc):
         from davo_tpu_torch.models import presets
         from davo_tpu_torch.models.davo import DavoModel
 
-        builds = {"other": rowconv.bind(libs["rowconv"]), "this": rowconv._library()}
+        builds = {"other": _bind_other_rowconv(torch, libs["rowconv"]), "this": (rowconv._library(), {})}
         model = DavoModel(presets.with_overrides("davo-fast", **FUSED_FLAGS).model, device="cuda", seed=0)
         for unit in _rowconv_units(torch, model, 64):
             for mode in ("bfloat16", "float32", "bf16_dot"):
                 inputs = _unit_inputs(torch, unit, mode)
                 with torch.inference_mode():
                     want, _ = _unit_plain(torch, rowconv, unit, mode, inputs)
-                    fns = {name: _with_library(rowconv, lib, lambda: _unit_call(rowconv, unit, mode, inputs))
-                           for name, lib in builds.items()}
+                    fns = {name: _with_library(rowconv, lib, lambda: _unit_call(rowconv, unit, mode, inputs), **attrs)
+                           for name, (lib, attrs) in builds.items()}
                     errs = {name: _rel_err(fn(), want) for name, fn in fns.items()}
                     times = _turns(fns, reps=5)
                 print(json.dumps({
@@ -472,11 +568,48 @@ def compare_against(torch, other_csrc):
                     raise AssertionError(f"{unit['unit']} float32: errors {errs}")
         del model
         torch.cuda.empty_cache()
+        _level_input_against(torch, {name: lib for name, (lib, _) in builds.items()}, other_csrc)
 
     if "rowconv_bwd" in libs:
         _compare_backward_against(torch, libs["rowconv_bwd"], other_csrc)
     if "conv_stack" in libs:
         _compare_conv_stack_against(torch, libs["conv_stack"], other_csrc)
+
+
+def _level_input_against(torch, builds, other_csrc):
+    """`--against`: the flow level's input kernel of two rowconv.cu builds
+    ({"other": lib, "this": lib}, behind this checkout's wrapper) at the
+    `LEVEL_INPUT_UNITS`, each held to the plain version (phase 3d's
+    criteria), timed in turns; prints a row per unit and the sums per
+    serving request and per fused train step."""
+    from davo_tpu_torch.kernels import rowconv
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    sums = {}
+    with torch.inference_mode():
+        for group, label, B, H, W, C, Cf, search, mode, with_a0 in LEVEL_INPUT_UNITS:
+            kernel, plain, _, nbytes, flops = _level_input_case(torch, rowconv, gen, B, H, W, C, Cf, search, mode,
+                                                                 with_a0)
+            fns = {name: _with_library(rowconv, lib, kernel) for name, lib in builds.items()}
+            want = plain()
+            errs = {name: _level_input_errors(torch, fn(), want, mode) for name, fn in fns.items()}
+            del want
+            if not all(_level_input_ok(e) for e in errs.values()):
+                raise AssertionError(f"flow_level_input {group} {label}: {errs}")
+            times = _turns(fns, reps=10)
+            bound_ms = _bound_ms(nbytes, flops)[0]
+            print(json.dumps({
+                "phase": "level_input_against", "other": str(other_csrc), "group": group, "unit": label,
+                "mode": mode, "errors": errs, "other_ms": times["other"], "this_ms": times["this"],
+                "bound_ms": bound_ms,
+            }), flush=True)
+            total = sums.setdefault(group, {"other": [0.0, 0.0], "this": [0.0, 0.0], "bound": 0.0})
+            for name in fns:
+                for i in (0, 1):
+                    total[name][i] += times[name][i]
+            total["bound"] += bound_ms
+    print(json.dumps({"phase": "level_input_against_sums", "other": str(other_csrc), "ms": sums}), flush=True)
+    torch.cuda.empty_cache()
 
 
 def _compare_backward_against(torch, lib, other_csrc):
@@ -937,6 +1070,47 @@ def check_cost_volume_backward(torch, costvol):
     return rows
 
 
+# Phase 3b's search sweep: a small `davo`-like level (S*B = 4, the /8
+# level's 16x52 at C = 64) at searches whose shift rows all fit one pass
+# (1: the run-time-radius instance; 2, 3: the compile-time ones; 7: the
+# widest one-pass search) and wider ones that walk the rows in passes
+# (8: 15 + 2 rows; 12; 20), float32 and bf16 maps.
+COSTVOL_BWD_SEARCHES = (1, 2, 3, 7, 8, 12, 20)
+
+
+def check_cost_volume_backward_searches(torch, costvol):
+    """Phase 3b, the backward kernel at `COSTVOL_BWD_SEARCHES` against
+    `cost_volume_plain_bwd` on the same maps (bf16 maps widened to
+    float32 first, as the autograd Function hands them to the kernel),
+    both gradients within COSTVOL_TOL; for bf16 maps also the autograd
+    path's gradients equal to the kernel's rounded to bf16. Prints one
+    line; raises on a miss."""
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    B, H, W, C = 4, 16, 52, 64
+    cases = []
+    for search in COSTVOL_BWD_SEARCHES:
+        D = (2 * search + 1) ** 2
+        for dt in (torch.float32, torch.bfloat16):
+            f1 = torch.randn(B, H, W, C, device="cuda", generator=gen).to(dt)
+            f2 = torch.randn(B, H, W, C, device="cuda", generator=gen).to(dt)
+            g = torch.randn(B, H, W, D, device="cuda", generator=gen)
+            got = costvol._launch_bwd(f1.float(), f2.float(), g, search, True, True)
+            want = costvol.cost_volume_plain_bwd(f1.float(), f2.float(), g, search)
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            case = {"search": search, "dtype": str(dt).split(".")[-1], "shape": [B, H, W, C], "max_abs_err": err}
+            ok = err <= COSTVOL_TOL
+            if dt == torch.bfloat16:
+                a, b = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+                costvol.cost_volume(a, b, search).backward(g)
+                case["autograd_equal"] = bool(torch.equal(a.grad, got[0].to(dt)) and torch.equal(b.grad, got[1].to(dt)))
+                ok = ok and case["autograd_equal"]
+            cases.append(case)
+            if not ok:
+                raise AssertionError(f"cost volume backward at search {search}: {case}")
+            del f1, f2, g, got, want
+    print(json.dumps({"phase": "costvol_bwd_searches", "cases": cases}), flush=True)
+
+
 def _band_coords(torch, gen, B, H, W):
     """Sample coordinates that reach every case of the kernels: a third
     of the displacements beyond the band on each axis, points out of
@@ -1222,6 +1396,21 @@ def _conv_params(mods):
     return [c.weight.detach() for c in convs], [c.bias.detach() for c in convs]
 
 
+def _in_float32(mod):
+    """A copy of `mod` (the port's unfused ConvBlocks, or a FlowEstimator)
+    that computes in float32: the same parameters, every compute dtype
+    float32 (cuDNN float32; TF32 off under `exact_f32`)."""
+    import copy
+
+    import torch
+
+    mod = copy.deepcopy(mod)
+    for m in mod.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = torch.float32
+    return mod
+
+
 def _rowconv_units(torch, model, N):
     """The fused kernels' calls of one davo-fast request of N pairs at
     128x416 (the pyramid sees both images of a pair, 2N), with weights
@@ -1247,9 +1436,10 @@ def _rowconv_units(torch, model, N):
             h, w = -(-h // s), -(-w // s)
             flops += 2 * x.shape[0] * h * w * wt.shape[0] * wt[0].numel()
         seq = torch.nn.Sequential(*mods)
+        seq32 = _in_float32(seq)
         return dict(kernel="conv_chain_strided", unit=label, kind="strided", x=x, ws=ws, bs=bs,
                     strides=strides, relus=relus, taps=taps, library=lambda: seq(x.to(torch.bfloat16)),
-                    flops=flops, weight_bytes=4 * sum(t.numel() for t in ws + bs))
+                    library32=lambda: seq32(x), flops=flops, weight_bytes=4 * sum(t.numel() for t in ws + bs))
 
     units = [
         strided("pyramid", "pyramid (2N, 128, 416, 3), taps 1/3/5", rand(2 * N, Hh, Ww, 3),
@@ -1270,23 +1460,27 @@ def _rowconv_units(torch, model, N):
         chain_flops = sum(2 * P * wt[0].numel() * wt.shape[0] for wt in ws)
         weight_bytes = 4 * sum(t.numel() for t in ws + bs)
 
-        def level_library(est=est, f1=f1, f2=f2, feat=feat, flow_up=flow_up):
+        est32 = _in_float32(est)
+
+        def level_library(est=est, f1=f1, f2=f2, feat=feat, flow_up=flow_up, dt=torch.bfloat16):
             cv = torch.relu(costvol.cost_volume(f1.float().contiguous(), f2.float().contiguous(), 3))
-            return est(cv, feat.to(torch.bfloat16), flow_up)
+            return est(cv, feat.to(dt), flow_up)
 
         units.append(dict(
             kernel="flow_level_fused", unit=f"flow level /{2 ** (level + 1)} ({N}, {h}, {w}), C=8, Cf={cf}",
             kind="level", f1=f1, f2=f2, feat=feat, flow_up=flow_up, ws=ws, bs=bs, relus=EST_RELUS,
-            library=level_library, flops=2 * P * D * 8 + chain_flops, weight_bytes=weight_bytes,
+            library=level_library, library32=functools.partial(level_library, est=est32, dt=torch.float32),
+            flops=2 * P * D * 8 + chain_flops, weight_bytes=weight_bytes,
         ))
         x = torch.cat([torch.relu(costvol.cost_volume_plain(f1, f2, 3)), feat, flow_up], -1)
 
-        def chain_library(est=est, x=x):
-            return est.flow(est.est2(est.est1(est.est0(x.to(torch.bfloat16))))).float()
+        def chain_library(est=est, x=x, dt=torch.bfloat16):
+            return est.flow(est.est2(est.est1(est.est0(x.to(dt))))).float()
 
         units.append(dict(
             kernel="conv_chain_nhwc", unit=f"estimator /{2 ** (level + 1)} ({N}, {h}, {w}, {x.shape[3]})",
             kind="nhwc", x=x, ws=ws, bs=bs, relus=EST_RELUS, library=chain_library,
+            library32=functools.partial(chain_library, est=est32, dt=torch.float32),
             flops=chain_flops, weight_bytes=weight_bytes,
         ))
     return units
@@ -1339,17 +1533,43 @@ def _rel_err(got, want):
     return max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)) / scale
 
 
+def _layer_yardsticks(torch, x, w, b, s, g, mode):
+    """One layer of phase 3d beside one cuDNN convolution of its shape in
+    the mode's dtype (channels-last; symmetric k // 2 padding; float32
+    with TF32 off under `exact_f32`) and its bound: input, weights and
+    bias read once (bf16 weights in bf16), output written once; the
+    products at the bf16 tensor-core rate, or for float32 as 3 TF32
+    passes at the TF32 rate, with the f32 FMA bound beside it."""
+    k = w.shape[-1]
+    dt = torch.bfloat16 if mode == "bfloat16" else torch.float32
+    xn = x.to(dt).permute(0, 3, 1, 2)  # NHWC storage: channels-last
+    wn = w.to(dt).contiguous(memory_format=torch.channels_last)
+    bn = b.to(dt)
+    flops = 2.0 * g.numel() * w[0].numel()
+    nbytes = x.numel() * x.element_size() + w.numel() * wn.element_size() + b.numel() * 4 + g.numel() * g.element_size()
+    out = dict(shape=[*x.shape, w.shape[0], k, s], flops=flops, bytes=nbytes,
+               conv2d_ms=_graph_ms(lambda: torch.nn.functional.conv2d(xn, wn, bn, stride=s, padding=k // 2), reps=5))
+    if mode == "bfloat16":
+        out["bound_ms"], out["bound_by"] = _bound_ms(nbytes, flops, BF16_FLOPS)
+    else:
+        out["bound_ms"], out["bound_by"] = _bound_ms(nbytes, 3 * flops, TF32_FLOPS)
+        out["fma_bound_ms"] = _bound_ms(nbytes, flops)[0]
+    return out
+
+
 def check_rowconv(torch, rowconv, N=64):
     """Phase 3d: the fused kernels against their plain versions on the
     card, at the fused serving path's shapes for one request of N pairs:
     bfloat16 (the path's mode: every layer by the ulp criterion, the chain
-    by the gap criterion), float32 (1e-5 of the largest), and bf16_dot
-    (every layer within the float32 limit). Device ms by CUDA-graph replay
-    of the wrapper (weights packed once, as the wrappers keep them), the
-    plain version's ms by CUDA events, and, as the library yardstick, the
-    device ms of the port's unfused route for the same function; each
-    bf16 layer alone beside its bound and one cuDNN bf16 convolution of
-    its shape. Weights: the seeded fused davo-fast."""
+    by the gap criterion), float32 (the chain and every layer within 1e-5
+    of the largest output), and bf16_dot (every layer within the float32
+    limit). Device ms by CUDA-graph replay of the wrapper (weights packed
+    once, as the wrappers keep them), the plain version's ms by CUDA
+    events, and, as the library yardstick, the device ms of the port's
+    unfused route for the same function in the mode's dtype (bf16, or
+    float32 with TF32 off for the float32 mode); each bf16 and float32
+    layer alone beside its bound and one cuDNN convolution of its shape
+    (`_layer_yardsticks`). Weights: the seeded fused davo-fast."""
     from davo_tpu_torch.models import presets
     from davo_tpu_torch.models.davo import DavoModel
 
@@ -1365,40 +1585,30 @@ def check_rowconv(torch, rowconv, N=64):
                 want, layers = _unit_plain(torch, rowconv, unit, mode, inputs)
                 row = {"kernel": unit["kernel"], "unit": unit["unit"], "mode": mode,
                        "max_rel_err": _rel_err(got, want)}
-                ok = mode == "float32" and row["max_rel_err"] <= ROWCONV_F32_TOL
-                if mode != "float32":
-                    # Every layer alone, on the plain version's input to it.
-                    layer_err = []
-                    for i, (x, y) in enumerate(layers):
-                        strides = unit.get("strides", (1,) * len(unit["ws"]))
-                        w, b, s = unit["ws"][i], unit["bs"][i], strides[i]
+                # Every layer alone, on the plain version's input to it.
+                layer_err = []
+                for i, (x, y) in enumerate(layers):
+                    strides = unit.get("strides", (1,) * len(unit["ws"]))
+                    w, b, s = unit["ws"][i], unit["bs"][i], strides[i]
 
-                        def one(x=x, w=w, b=b, s=s, r=unit["relus"][i]):
-                            return rowconv.conv_chain_strided(x.contiguous(), [w], [b], (s,), (r,), None, mode)
+                    def one(x=x, w=w, b=b, s=s, r=unit["relus"][i]):
+                        return rowconv.conv_chain_strided(x.contiguous(), [w], [b], (s,), (r,), None, mode)
 
-                        g = one()
-                        d = (g.float() - y.float()).abs()
+                    g = one()
+                    d = (g.float() - y.float()).abs()
+                    if mode == "float32":
+                        entry = {"max_rel_err": float(d.max() / y.float().abs().max())}
+                    else:
                         entry = {"differ_share": float((d > 0).float().mean()),
                                  "max_err_in_ulps": float(d.max() / (2.0**-7 * y.float().abs().max()))}
-                        if mode == "bfloat16":
-                            # The layer alone, beside one cuDNN bf16 convolution of the
-                            # same shape (channels-last; symmetric k // 2 padding), and
-                            # its bound: input, bf16 weights and bias read once, output
-                            # written once; the products at the bf16 tensor-core rate.
-                            k = w.shape[-1]
-                            xn = x.to(torch.bfloat16).permute(0, 3, 1, 2)  # NHWC storage: channels-last
-                            wn = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-                            bn = b.to(torch.bfloat16)
-                            flops = 2.0 * g.numel() * w[0].numel()
-                            nbytes = (x.numel() * x.element_size() + w.numel() * 2 + b.numel() * 4
-                                      + g.numel() * g.element_size())
-                            bound_ms, bound_by = _bound_ms(nbytes, flops, BF16_FLOPS)
-                            entry.update(
-                                shape=[*x.shape, w.shape[0], k, s], ms=_graph_ms(one, reps=5),
-                                conv2d_ms=_graph_ms(lambda xn=xn, wn=wn, bn=bn, s=s, k=k: torch.nn.functional.conv2d(
-                                    xn, wn, bn, stride=s, padding=k // 2), reps=5),
-                                flops=flops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
-                        layer_err.append(entry)
+                    if mode != "bf16_dot":
+                        entry.update(ms=_graph_ms(one, reps=5), **_layer_yardsticks(torch, x, w, b, s, g, mode))
+                    layer_err.append(entry)
+                row["layers"] = layer_err
+                if mode == "float32":
+                    ok = row["max_rel_err"] <= ROWCONV_F32_TOL and all(
+                        e["max_rel_err"] <= ROWCONV_F32_TOL for e in layer_err)
+                else:
                     want32, _ = _unit_plain(torch, rowconv, unit, "float32", _unit_inputs(torch, unit, "float32"))
 
                     def gaps(a, b):  # (mean, max) |a - b| over every element of the outputs
@@ -1406,7 +1616,7 @@ def check_rowconv(torch, rowconv, N=64):
                         return float(d.mean()), float(d.max())
 
                     (gap, gap_max), (ref_gap, ref_gap_max) = gaps(got, want), gaps(want, want32)
-                    row.update(layers=layer_err, chain_gap_mean=gap, reference_gap_mean=ref_gap,
+                    row.update(chain_gap_mean=gap, reference_gap_mean=ref_gap,
                                chain_gap_max=gap_max, reference_gap_max=ref_gap_max,
                                gap_ratio=gap / ref_gap if ref_gap > 0 else math.inf)
                     if mode == "bfloat16":
@@ -1427,9 +1637,15 @@ def check_rowconv(torch, rowconv, N=64):
                     plain_ms=_event_ms(lambda: _unit_plain(torch, rowconv, unit, mode, inputs), 3),
                     bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=unit["flops"],
                 )
+                route = "cuDNN bf16 ConvBlocks" if mode == "bfloat16" else "cuDNN float32 ConvBlocks, TF32 off"
                 if mode == "bfloat16":
                     row["library_ms"] = _graph_ms(unit["library"], reps=5)
-                    row["library_is"] = "the port's unfused route (cuDNN bf16 ConvBlocks" + (
+                elif mode == "float32":
+                    # The float32 products as 3 TF32 passes (the layer kernel's design).
+                    row["tf32_bound_ms"] = _bound_ms(nbytes, 3 * unit["flops"], TF32_FLOPS)[0]
+                    row["library_ms"] = _graph_ms(unit["library32"], reps=5)
+                if mode != "bf16_dot":
+                    row["library_is"] = f"the port's unfused route ({route}" + (
                         ", cost-volume kernel, ReLU, concatenation)" if unit["kind"] == "level" else ")")
             print(json.dumps({"phase": "rowconv", **row}), flush=True)
             if not ok:
@@ -1437,6 +1653,163 @@ def check_rowconv(torch, rowconv, N=64):
             rows.append(row)
     torch.cuda.empty_cache()
     return rows
+
+
+# The float32 layer kernel's shape classes beyond the model's, as (B, H,
+# W, Cin, Cout, k, stride, input dtype, output dtype): odd dims and a
+# Cout that is not a multiple of 8, k=1 at stride 2, a bf16 input (no lo
+# staged) with bf16 and float32 outputs, the flat order at k=7 and Cin
+# 15, Cin 2 at stride 2, Cin 16 (one chunk) into NT=8, a deep K (9*512).
+F32_LAYER_SHAPES = [
+    (3, 13, 29, 20, 10, 3, 1, "float32", "float32"),
+    (3, 14, 30, 3, 16, 1, 2, "float32", "float32"),
+    (2, 9, 11, 83, 37, 5, 1, "bfloat16", "float32"),
+    (2, 10, 14, 9, 24, 7, 2, "bfloat16", "bfloat16"),
+    (2, 12, 20, 15, 8, 7, 1, "float32", "float32"),
+    (4, 17, 23, 2, 16, 3, 2, "float32", "float32"),
+    (2, 11, 13, 16, 64, 3, 2, "float32", "bfloat16"),
+    (2, 16, 16, 512, 16, 3, 1, "float32", "float32"),
+]
+
+
+def check_float32_layer_shapes(torch, rowconv):
+    """Phase 3d, the float32 layer kernel (split TF32) at
+    `F32_LAYER_SHAPES` against `_layer_plain` in float32 on the same
+    input: a float32 output within ROWCONV_F32_TOL of the largest, a
+    bf16 one (rounded once) at most 1e-3 of its elements (or one) off by
+    at most one ulp at its scale. Prints one line; raises on a miss."""
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    cases = []
+    with torch.inference_mode():
+        for B, H, W, cin, cout, k, s, x_dt, out_dt in F32_LAYER_SHAPES:
+            x = (torch.rand(B, H, W, cin, device="cuda", generator=gen) * 2 - 1).to(getattr(torch, x_dt))
+            w = torch.randn(cout, cin, k, k, device="cuda", generator=gen) / (k * k * cin) ** 0.5
+            b = torch.randn(cout, device="cuda", generator=gen) * 0.1
+            act = getattr(torch, out_dt)
+            out = torch.empty(B, -(-H // s), -(-W // s), cout, dtype=act, device="cuda")
+            rowconv._launch_layer(x, w, b, out, s, True, act, torch.float32)
+            want = rowconv._layer_plain(x.float(), w, b, s, True, act, torch.float32)
+            d = (out.float() - want.float()).abs()
+            case = {"shape": [B, H, W, cin, cout, k, s], "input": x_dt, "output": out_dt}
+            if act == torch.float32:
+                case["max_rel_err"] = float(d.max() / want.abs().max())
+                ok = case["max_rel_err"] <= ROWCONV_F32_TOL
+            else:
+                case.update(differ=int((d > 0).sum()), max_err_in_ulps=float(d.max() / (2.0**-7 * want.float().abs().max())))
+                ok = case["differ"] <= max(ROWCONV_BF16_SHARE * d.numel(), 1) and case["max_err_in_ulps"] <= 1.0
+            cases.append(case)
+            if not ok:
+                raise AssertionError(f"float32 layer kernel at {case}")
+    print(json.dumps({"phase": "rowconv_f32_shapes", "cases": cases}), flush=True)
+
+
+# The flow level's input kernel (#5's `flow_level_input`) alone, as
+# (group, label, B, H, W, C, Cf, search, maps, with a0): one fused serving
+# request's two levels (davo-fast at B=64: C=8, s=3), bf16 (the path's
+# mode) and float32; the `davo` levels (/16, /8, /4: C = Cf = 96, 64,
+# 32, s=4) of the fused B=4 and B=64 train steps (S*B = 8 and 128) on
+# bf16 maps with the float32 a0 the training forward keeps, and without
+# it. Cu = 2 throughout.
+LEVEL_INPUT_UNITS = [
+    (f"serving request, {mode}", f"/{f} (64, {h}, {w})", 64, h, w, 8, cf, 3, mode, False)
+    for mode in ("bfloat16", "float32") for f, h, w, cf in ((8, 16, 52, 64), (4, 32, 104, 32))
+] + [
+    (f"B={B} step{'' if a0 else ', no a0'}", f"/{f} ({2 * B}, {h}, {w}, {c})", 2 * B, h, w, c, c, 4,
+     "bfloat16", a0)
+    for a0 in (True, False) for B in (4, 64) for f, h, w, c in ((16, 8, 26, 96), (8, 16, 52, 64), (4, 32, 104, 32))
+]
+
+
+def _level_input_case(torch, rowconv, gen, B, H, W, C, Cf, search, mode, with_a0):
+    """(kernel call, plain call, unfused-route call, bytes, flops) of one
+    `LEVEL_INPUT_UNITS` entry on random maps (flow_up ~2 px). Each call
+    returns (the estimator input in the mode's dtype, a0 or None)."""
+    import torch.nn.functional as F
+
+    from davo_tpu_torch.kernels import costvol, rowconv_ad
+
+    dt = torch.bfloat16 if mode == "bfloat16" else torch.float32
+    f1, f2, feat = (torch.randn(B, H, W, c, device="cuda", generator=gen).to(dt) for c in (C, C, Cf))
+    flow_up = torch.randn(B, H, W, 2, device="cuda", generator=gen) * 2.0
+    D = (2 * search + 1) ** 2
+    cpad = -(-(D + Cf + 2) // 4) * 4
+
+    def kernel():
+        x = torch.empty((B, H, W, cpad), dtype=dt, device="cuda")
+        a0 = torch.empty((B, H, W, cpad), dtype=torch.float32, device="cuda") if with_a0 else None
+        rowconv._launch_level_input(f1, f2, feat, flow_up, x, search, a0)
+        return x, a0
+
+    def plain():
+        a0 = F.pad(rowconv_ad.level_input_plain(f1, f2, feat, flow_up, search), (0, cpad - D - Cf - 2))
+        return a0.to(dt), (a0 if with_a0 else None)
+
+    def unfused():  # the cost-volume kernel, ReLU, concatenation, cast
+        cv = torch.relu(costvol.cost_volume(f1, f2, search))
+        if with_a0:
+            a0 = torch.cat([cv, feat.float(), flow_up], -1)
+            return a0.to(dt), a0
+        return torch.cat([cv.to(dt), feat, flow_up.to(dt)], -1), None
+
+    esize = f1.element_size()
+    nbytes = B * H * W * ((2 * C + Cf) * esize + 2 * 4 + cpad * esize + (cpad * 4 if with_a0 else 0))
+    return kernel, plain, unfused, nbytes, 2.0 * B * H * W * D * C
+
+
+def _level_input_errors(torch, got, want, mode):
+    """float32: the largest absolute error of the output and a0; bf16:
+    the output's share of elements that differ and its largest gap in
+    bf16 ulps at the output's scale, and a0's largest absolute error."""
+    x, a0 = got
+    wx, wa0 = want
+    row = {}
+    if mode == "float32":
+        row["max_abs_err"] = float((x - wx).abs().max())
+    else:
+        d = (x.float() - wx.float()).abs()
+        row["differ_share"] = float((d > 0).float().mean())
+        row["max_err_in_ulps"] = float(d.max() / (2.0**-7 * wx.float().abs().max()))
+    if a0 is not None:
+        row["a0_max_abs_err"] = float((a0 - wa0).abs().max())
+    return row
+
+
+def _level_input_ok(row):
+    return (row.get("max_abs_err", 0.0) <= COSTVOL_TOL and row.get("a0_max_abs_err", 0.0) <= COSTVOL_TOL
+            and row.get("differ_share", 0.0) <= ROWCONV_BF16_SHARE and row.get("max_err_in_ulps", 0.0) <= 1.0)
+
+
+def check_level_input(torch, rowconv):
+    """Phase 3d, `flow_level_input` as a unit of its own (#5's input
+    kernel; `LEVEL_INPUT_UNITS`): against its plain version (float32
+    output and a0 within 1e-5 absolute; the bf16 output at most 1e-3 of
+    its elements off, by at most one ulp at its scale), device ms by
+    CUDA-graph replay beside its bytes bound, the plain version (CUDA
+    events) and the port's unfused route for the same output (the
+    cost-volume kernel, ReLU, concatenation and cast). Prints a row per
+    unit and the sums per serving request and per fused train step."""
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    rows, sums = [], {}
+    with torch.inference_mode():
+        for group, label, B, H, W, C, Cf, search, mode, with_a0 in LEVEL_INPUT_UNITS:
+            kernel, plain, unfused, nbytes, flops = _level_input_case(
+                torch, rowconv, gen, B, H, W, C, Cf, search, mode, with_a0)
+            row = {"group": group, "unit": label, "C": C, "Cf": Cf, "search": search, "mode": mode,
+                   "a0": with_a0, **_level_input_errors(torch, kernel(), plain(), mode)}
+            bound_ms, bound_by = _bound_ms(nbytes, flops)
+            row.update(ms=_graph_ms(kernel, reps=10), plain_ms=_event_ms(plain, 3),
+                       library_ms=_graph_ms(unfused, reps=10), bound_ms=bound_ms, bound_by=bound_by,
+                       bytes=nbytes, flops=flops)
+            print(json.dumps({"phase": "level_input", **row}), flush=True)
+            if not _level_input_ok(row):
+                raise AssertionError(f"flow_level_input {group} {label}: {row}")
+            rows.append(row)
+            total = sums.setdefault(group, dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0))
+            for key in total:
+                total[key] += row[key]
+    print(json.dumps({"phase": "level_input_sums", "ms": sums}), flush=True)
+    torch.cuda.empty_cache()
+    return rows, sums
 
 
 # ---------------------------------------------------------------- fused training kernels
@@ -2137,10 +2510,14 @@ def check_conv_stack(torch, card):
                 sol_roofline_ms=p["sol"].roofline_us / 1e3,
                 timing="CUDA-graph replay of the wrapper (the cooperative launch is captured)",
             )
-            if mode == "bfloat16":
-                seq = torch.nn.Sequential(*mods)
-                row["library_ms"] = _graph_ms(lambda: seq(x), reps=5)
-                row["library_is"] = "the port's unfused route (cuDNN bf16 ConvBlocks enc0..enc4)"
+            seq = torch.nn.Sequential(*mods)
+            if mode == "float32":
+                seq = _in_float32(seq)
+                # The float32 products as 3 TF32 passes (the layer kernel's design).
+                row["tf32_bound_ms"] = _bound_ms(nbytes, 3 * flops, TF32_FLOPS)[0]
+            row["library_ms"] = _graph_ms(lambda: seq(x), reps=5)
+            row["library_is"] = "the port's unfused route ({} ConvBlocks enc0..enc4)".format(
+                "cuDNN bf16" if mode == "bfloat16" else "cuDNN float32, TF32 off")
             print(json.dumps({"phase": "conv_stack", **row, "card": card}), flush=True)
             if not ok:
                 raise AssertionError(f"conv stack {row['unit']} {mode}: {row}")
@@ -2161,7 +2538,7 @@ def check_conv_stack(torch, card):
 
 
 def _fused_counts(costvol, rowconv):
-    return {"cost_volume": costvol.launches, **rowconv.launches,
+    return {"cost_volume": costvol.launches, **rowconv.launches, "flow_level_input": rowconv.level_input_launches,
             "device_launches": dict(rowconv.device_launches)}
 
 
@@ -2191,7 +2568,8 @@ def fused_path(torch, costvol, rowconv, stream):
     counts = _fused_counts(costvol, rowconv)
     traj = assemble_trajectory(rels)
     unfused_rels = predict_sequence(unfused_fn, frames, seg=seg, batch_size=64)
-    want = {"cost_volume": 0, "flow_level_fused": 2 * 4, "conv_chain_strided": 3 * 4, "conv_chain_nhwc": 0}
+    want = {"cost_volume": 0, "flow_level_fused": 2 * 4, "flow_level_input": 2 * 4, "conv_chain_strided": 3 * 4,
+            "conv_chain_nhwc": 0}
     print(json.dumps({
         "phase": "fused_path", "preset": "davo-fast", "flags": FUSED_FLAGS, "frames": len(frames),
         "requests": 4, "batch": 64, "launches": counts, "stream_s": stream_s,
@@ -2213,7 +2591,8 @@ def fused_path(torch, costvol, rowconv, stream):
     rows = np.loadtxt(out)
     print(json.dumps({"phase": "fused_cli_infer", "rc": rc, "poses": list(rows.shape),
                       "launches": cli_counts}), flush=True)
-    cli_want = {"cost_volume": 0, "flow_level_fused": 2, "conv_chain_strided": 3, "conv_chain_nhwc": 0}
+    cli_want = {"cost_volume": 0, "flow_level_fused": 2, "flow_level_input": 2, "conv_chain_strided": 3,
+                "conv_chain_nhwc": 0}
     if rc != 0 or rows.shape != (32, 12) or not np.isfinite(rows).all():
         raise AssertionError(f"fused cli infer: rc {rc}, poses {rows.shape}")
     if {k: cli_counts[k] for k in cli_want} != cli_want:
@@ -2241,7 +2620,8 @@ def fused_estimator(torch, costvol, rowconv):
     counts = _fused_counts(costvol, rowconv)
     print(json.dumps({"phase": "fused_estimator", "batch": 64, "launches": counts,
                       "poses_finite": bool(torch.isfinite(poses).all())}), flush=True)
-    want = {"cost_volume": 2, "flow_level_fused": 0, "conv_chain_strided": 0, "conv_chain_nhwc": 2}
+    want = {"cost_volume": 2, "flow_level_fused": 0, "flow_level_input": 0, "conv_chain_strided": 0,
+            "conv_chain_nhwc": 2}
     if {k: counts[k] for k in want} != want or not torch.isfinite(poses).all():
         raise AssertionError(f"fused estimator: launches {counts}, want {want}")
     return counts
@@ -2325,7 +2705,7 @@ def fused_throughput(torch, card, unfused, fused):
     s = torch.randint(0, 19, (64, cfg.img_height, cfg.img_width), device="cuda", generator=gen)
     rows, device_ms, wall_ms = _kernel_profile(torch, lambda: fused(x, y, seg=s), 3)
     ours = sum(ms for k, ms, _ in rows if any(part in k for part in (
-        "conv_layer_kernel", "conv_mma_", "flow_level_input_kernel")))
+        "conv_tf32_", "conv_mma_", "flow_level_input_")))
     print(json.dumps({
         "phase": "fused_profile_kernels", "batch": 64, "device_ms_per_forward": device_ms,
         "wall_ms_per_forward": wall_ms, "device_busy_share": device_ms / wall_ms,
@@ -2343,7 +2723,7 @@ def _train_counts(costvol, bandwarp):
 
     return {
         **_counts(costvol, bandwarp), **{f"serving_{k}": v for k, v in rowconv.launches.items()},
-        **rowconv_ad.launches,
+        "flow_level_input": rowconv.level_input_launches, **rowconv_ad.launches,
         **{f"{k}_backward": v for k, v in rowconv_ad.backward_launches.items()},
         "device_launches": dict(rowconv_ad.device_launches),
     }
@@ -2465,7 +2845,7 @@ def _want_counts(counts, per_step, steps):
 # it.
 FUSED_TRAIN_PER_STEP = {
     "banded_warp": 16, "banded_warp_backward": 16,
-    "flow_level_fused_ad": 3, "flow_level_fused_ad_backward": 3,
+    "flow_level_fused_ad": 3, "flow_level_fused_ad_backward": 3, "flow_level_input": 3,
     "conv_chain_strided_ad": 4, "conv_chain_strided_ad_backward": 4,
     "device:flow_level_fused_ad": 3 * 5, "device:conv_chain_strided_ad": 8 + 3 + 5 + 10,
     "device:conv_layer_gate": 8 + 3 + 5 + 10 + 3 * 4,
@@ -2663,7 +3043,7 @@ def train_step_time(torch, card, batch4, phase="train_step_time", flags=None):
                            ("banded_warp_backward", "banded_warp_bwd_"),
                            ("cost_volume_backward", "cost_volume_bwd_kernel"),
                            ("cost_volume", "cost_volume_kernel<"),
-                           ("rowconv_layers", "conv_layer_kernel<"),
+                           ("rowconv_tf32_layers", "conv_tf32_"),
                            ("rowconv_mma_layers", "conv_mma_"),
                            ("flow_level_input", "flow_level_input_kernel<"),
                            ("conv_layer_gate", "conv_gate_kernel"),
@@ -2768,18 +3148,25 @@ def main() -> int:
             future.result()
     build_s = time.perf_counter() - t0
     print(json.dumps({"phase": "build", "seconds": build_s, "log": cuda_build.BUILD_LOG}), flush=True)
-    sass = {source: _sass_counts(cuda_build.load(source)._name) for source in ("rowconv_bwd", "conv_stack")}
+    sass = {source: _sass_counts(cuda_build.load(source)._name) for source in ("rowconv", "rowconv_bwd", "conv_stack")}
     for source, per_kernel in sass.items():
         print(json.dumps({"phase": "sass", "source": source, "per_kernel": per_kernel}), flush=True)
     mma_sass = next(v for k, v in sass["conv_stack"].items() if "conv_stack_mma_kernel" in k)
     if not (mma_sass["HMMA"] > 0 and mma_sass["FFMA"] == 0):
         raise AssertionError(f"conv_stack_mma_kernel SASS: {mma_sass}, want HMMA and no FFMA")
+    # The float32 layer kernels: split TF32 on the tensor cores, no float32 FMA anywhere in them.
+    tf32_sass = {k: v for k, v in sass["rowconv"].items() if "conv_tf32_" in k}
+    if not tf32_sass or any(v["HMMA"] == 0 or v["FFMA"] for v in tf32_sass.values()):
+        raise AssertionError(f"conv_tf32 kernels' SASS: {tf32_sass}, want HMMA and no FFMA in each")
 
     rows = check_cost_volume(torch, costvol)
     bwd_rows = check_cost_volume_backward(torch, costvol)
+    check_cost_volume_backward_searches(torch, costvol)
     band_rows, extra_band_rows = check_banded_warp(torch, bandwarp)
     _, warp_step_sums = check_banded_warp_on_step(torch, bandwarp, _step_warp_inputs(torch, bandwarp))
     rowconv_rows = check_rowconv(torch, rowconv)
+    check_float32_layer_shapes(torch, rowconv)
+    level_input_rows, level_input_sums = check_level_input(torch, rowconv)
     bwd_kernel_rows, bwd_layer_rows = check_rowconv_backward(torch, rowconv, rowconv_ad)
     check_rowconv_backward_shapes(torch, rowconv_ad)
     check_level_input_bwd_searches(torch, rowconv, rowconv_ad)
@@ -2931,7 +3318,33 @@ def main() -> int:
             "library_is": "the port's unfused route for the same function",
             "float32_ms": sum(r["ms"] for r in f32_rows),
             "float32_bound_ms": sum(r["bound_ms"] for r in f32_rows),
+            "float32_tf32_bound_ms": sum(r["tf32_bound_ms"] for r in f32_rows),
+            "float32_library_ms": sum(r["library_ms"] for r in f32_rows),
+            "float32_library_is": "the port's unfused route in float32 (cuDNN float32, TF32 off)",
         })
+    # The flow level's input kernel: the work of one fused serving request
+    # (its two levels at B=64) in bf16, the path's mode, beside one fused
+    # train step's three levels (with a0) at B=4 and B=64; launches on the
+    # fused serving path (4 requests) and the fused training path (5
+    # steps). max_abs_err: the float32 output's and a0's, absolute.
+    serving = level_input_sums["serving request, bfloat16"]
+    kernels.append({
+        "name": "flow_level_input", "route": "cuda", "source": "davo_tpu_torch/csrc/rowconv.cu",
+        "replaces": "davo_tpu/kernels/rowconv.py:283 (flow_level_fused's pallas_call, its input part)",
+        "launches": fused_counts["flow_level_input"] + fused_train_counts["flow_level_input"],
+        "launches_by_path": {"fused serving": fused_counts["flow_level_input"],
+                             "fused training path": fused_train_counts["flow_level_input"]},
+        "max_abs_err": max(max(r.get("max_abs_err", 0.0), r.get("a0_max_abs_err", 0.0)) for r in level_input_rows),
+        "max_err_is": "absolute: the float32 output and the float32 a0",
+        "bf16_max_differ_share": max(r.get("differ_share", 0.0) for r in level_input_rows),
+        "ms": serving["ms"], "plain_ms": serving["plain_ms"], "bound_ms": serving["bound_ms"], "bound_by": "bytes",
+        "library_ms": serving["library_ms"],
+        "library_is": "the port's unfused route: the cost-volume kernel, ReLU, concatenation, cast",
+        "b4_step_ms": level_input_sums["B=4 step"]["ms"], "b4_step_bound_ms": level_input_sums["B=4 step"]["bound_ms"],
+        "b64_step_ms": level_input_sums["B=64 step"]["ms"],
+        "b64_step_bound_ms": level_input_sums["B=64 step"]["bound_ms"],
+        "b64_step_library_ms": level_input_sums["B=64 step"]["library_ms"],
+    })
     # The training chains: the work of one davo train step at B=4 (the
     # units of phase 3e) in bf16, the path's mode: "ms" is the backward
     # kernels' device time (the forwards are the serving kernels, timed
@@ -3041,6 +3454,7 @@ def main() -> int:
         "library_ms": unit["library_ms"], "library_is": unit["library_is"],
         "conv_chain_strided_ms": unit["conv_chain_strided_ms"],
         "float32_ms": unit32["ms"], "float32_bound_ms": unit32["bound_ms"],
+        "float32_tf32_bound_ms": unit32["tf32_bound_ms"], "float32_library_ms": unit32["library_ms"],
         "grid": unit["grid"], "sass_bf16_kernel": mma_sass,
     })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,6 @@
 // Helpers shared by the kernels of davo_tpu_torch/csrc: asynchronous
-// copies into shared memory, and the limits of the current device.
+// copies into shared memory, split-TF32 operands and products on the
+// tensor cores, and the limits of the current device.
 // Each source includes this header; kernels/cuda_build.py rebuilds every
 // source when it changes.
 
@@ -55,6 +56,41 @@ __device__ __forceinline__ void copy_async_wait_group() {
 
 __device__ __forceinline__ void copy_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Split TF32 (CUTLASS's 3xTF32): a float32 operand is v = hi + lo with
+// hi = tf32_rna(v) and lo = tf32_rna(v - hi), and a product is
+// lo_a hi_b + hi_a lo_b + hi_a hi_b, which leaves ~2^-22 of it (lo*lo
+// dropped), against 2^-11 for one TF32 pass. A value TF32 holds exactly
+// (bf16) needs no lo.
+__device__ __forceinline__ unsigned tf32_rna(float v) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// v = hi + lo, both TF32 values (the low 13 mantissa bits zero).
+__device__ __forceinline__ void split(float v, unsigned& hi, unsigned& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+// c += a (16x8, row) * b (8x8, col), TF32 operands, f32 accumulators.
+__device__ __forceinline__ void mma_tf32(float c[4], const unsigned a[4], unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = a * b, the accumulator starting at zero.
+__device__ __forceinline__ void mma_tf32_fresh(float d[4], const unsigned a[4], unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.0f));
 }
 
 // The current device, refused (cudaErrorInvalidDevice) at kMaxDevices or

@@ -1,10 +1,24 @@
-// The bf16 tensor-core conv layer of davo_tpu_torch/csrc, shared by the
+// The tensor-core conv layer of davo_tpu_torch/csrc, shared by the
 // stand-alone layer kernels of rowconv.cu and the one-launch conv stack of
 // conv_stack.cu: one SAME conv layer (any odd k, stride 1 or 2, Flax's
-// pads) as an implicit GEMM on mma.sync m16n8k16 (bf16 x bf16 -> f32).
-// A block computes one tile at a time through `conv_mma_chunked_tile` or
-// `conv_mma_flat_tile`; the caller says which tile (a stand-alone kernel:
-// its block index; the stack: each tile of its grid-stride walk).
+// pads) as an implicit GEMM, in two precisions on the same tiles, K
+// orders and plan (`mma_plan`):
+//   bf16: mma.sync m16n8k16 (bf16 x bf16 -> f32), `conv_mma_chunked_tile`
+//     and `conv_mma_flat_tile`;
+//   float32: mma.sync m16n8k8 in split TF32 (common.cuh: each float32
+//     operand hi + lo, three TF32 products), `conv_tf32_chunked_tile` and
+//     `conv_tf32_flat_tile`. Each operand is split once: the weights by
+//     the host (`_pack_tf32` in kernels/rowconv.py, hi and lo planes), the
+//     input as it is staged (hi and lo planes in shared memory; a bf16
+//     input is exact in TF32 and stages no lo, 2 products). The products
+//     of every 16 K (a tap of a chunk; two k-steps of the flat order) go
+//     into a fresh accumulator that is added to the running sum on the
+//     FP32 units: a running mma sum drifts past 1e-5 of the largest
+//     output over a deep K (rowconv_bwd.cu's note), an FP32 add rounds as
+//     an FMA loop's does.
+// A block computes one tile at a time through one of them; the caller
+// says which tile (a stand-alone kernel: its block index; the stack: each
+// tile of its grid-stride walk).
 //
 // M = a tile's 128 or 256 output pixels (a Layout), N = its NT*8 output
 // channels, K = k*k*Cin in one of two orders (the weights' packing,
@@ -178,6 +192,9 @@ __device__ __forceinline__ unsigned short bf16_bits(const float* p) {
   const __nv_bfloat16 v = __float2bfloat16_rn(load_in<kCoherent>(p));
   return *reinterpret_cast<const unsigned short*>(&v);
 }
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // Halo column of input column offset hx within the tile's halo: stride 2
 // stores even and odd columns apart, so that the 8 output columns of an
@@ -525,6 +542,368 @@ __device__ __forceinline__ void conv_mma_flat_tile(const TIn* __restrict__ x, co
   mma_epilogue<NT, L>(acc, smem4, bias, out, g, t);
 }
 
+// ------------------------------------------------------------- split TF32
+
+// Four input channels of one pixel as float32, zero past `avail`: one
+// 16-byte load of float32 (piece 4), one 8-byte load of bf16 (piece 4 or
+// more), else element loads.
+template <bool kCoherent>
+__device__ __forceinline__ float4 load_quad(const float* src, int avail, int piece) {
+  if (piece == 4 && avail >= 4) return load_in<kCoherent>(reinterpret_cast<const float4*>(src));
+  float v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v[j] = j < avail ? load_in<kCoherent>(src + j) : 0.0f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+template <bool kCoherent>
+__device__ __forceinline__ float4 load_quad(const __nv_bfloat16* src, int avail, int piece) {
+  unsigned lo, hi;  // bf16 pairs, element 0 in the low half
+  if (piece >= 4 && avail >= 4) {
+    const uint2 q = load_in<kCoherent>(reinterpret_cast<const uint2*>(src));
+    lo = q.x;
+    hi = q.y;
+  } else {
+    const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+    unsigned v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = j < avail ? load_in<kCoherent>(s + j) : 0u;
+    lo = v[0] | (v[1] << 16);
+    hi = v[2] | (v[3] << 16);
+  }
+  return make_float4(__uint_as_float(lo << 16), __uint_as_float(lo & 0xffff0000u), __uint_as_float(hi << 16),
+                     __uint_as_float(hi & 0xffff0000u));
+}
+
+// v's hi into *hi and, with kLo, its lo into *lo (4 floats each).
+template <bool kLo>
+__device__ __forceinline__ void stage_split(uint4* hi, uint4* lo, float4 v) {
+  unsigned h[4], l[4];
+  split(v.x, h[0], l[0]);
+  split(v.y, h[1], l[1]);
+  split(v.z, h[2], l[2]);
+  split(v.w, h[3], l[3]);
+  *hi = make_uint4(h[0], h[1], h[2], h[3]);
+  if (kLo) *lo = make_uint4(l[0], l[1], l[2], l[3]);
+}
+// Element i of a flat halo: (hi, lo) as one float2 (kLo), else hi.
+template <bool kLo>
+__device__ __forceinline__ void stage_split1(float* halo, int i, float v) {
+  unsigned h, l;
+  split(v, h, l);
+  if (kLo) {
+    reinterpret_cast<float2*>(halo)[i] = make_float2(__uint_as_float(h), __uint_as_float(l));
+  } else {
+    halo[i] = __uint_as_float(h);
+  }
+}
+
+// t = a * b over one 16-K step (two k-steps of 8: b[0..1] and b[2..3]) in
+// split TF32 into a fresh accumulator, the small terms first; kALo: the
+// input has a lo (float32), else its lo is zero (bf16: two products).
+template <bool kALo>
+__device__ __forceinline__ void mma_tf32_step(float t[4], const unsigned (&ahi)[2][4], const unsigned (&alo)[2][4],
+                                              const unsigned bhi[4], const unsigned blo[4]) {
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    if (kALo) {
+      if (ks == 0) {
+        mma_tf32_fresh(t, alo[ks], bhi[2 * ks], bhi[2 * ks + 1]);
+      } else {
+        mma_tf32(t, alo[ks], bhi[2 * ks], bhi[2 * ks + 1]);
+      }
+      mma_tf32(t, ahi[ks], blo[2 * ks], blo[2 * ks + 1]);
+    } else if (ks == 0) {
+      mma_tf32_fresh(t, ahi[ks], blo[2 * ks], blo[2 * ks + 1]);
+    } else {
+      mma_tf32(t, ahi[ks], blo[2 * ks], blo[2 * ks + 1]);
+    }
+    mma_tf32(t, ahi[ks], bhi[2 * ks], bhi[2 * ks + 1]);
+  }
+}
+
+// Chunked order, float32: chunk `chunk`'s halo (4 16-byte units of 4
+// channels a pixel; unit o of slot q at 4q + (o ^ bits 1-2 of q), hi and
+// lo planes) and weights (taps*4 units a row; unit u of row n at
+// n*taps*4 + (u ^ bits 1-2 of n), hi and lo planes from the host's
+// packing [2][Np][chunks][taps][16]) into shared memory. Each swizzle puts
+// the 8 rows of every ldmatrix into 8 distinct 16-byte bank groups.
+template <bool kCoherent, bool kALo, typename TIn>
+__device__ __forceinline__ void stage_chunk_tf32(uint4* hhi, uint4* hlo, uint4* whi, uint4* wlo,
+                                                 const TIn* __restrict__ x, const float* __restrict__ w,
+                                                 const MmaGeo& g, const Tile& t, int chunk) {
+  const int iy0 = t.oy0 * g.stride - g.pad_t, ix0 = t.ox0 * g.stride - g.pad_l;
+  const int units = g.HH * g.HW * 4;
+  for (int i = threadIdx.x; i < units; i += blockDim.x) {
+    const int o = i & 3, p = i >> 2;
+    const int hy = p / g.HW, hx = p - hy * g.HW;
+    const int q = hy * g.HWs + halo_col(g, hx);
+    const int u = 4 * q + (o ^ ((q >> 1) & 3));
+    const int iy = iy0 + hy, ix = ix0 + hx, ch = chunk * 16 + o * 4;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // SAME zero padding, zero channels
+    if (iy >= 0 && iy < g.H && ix >= 0 && ix < g.W && ch < g.cin) {
+      v = load_quad<kCoherent>(x + ((static_cast<size_t>(t.b) * g.H + iy) * g.W + ix) * g.cin + ch, g.cin - ch,
+                               g.piece);
+    }
+    stage_split<kALo>(hhi + u, hlo + u, v);
+  }
+  const int row = g.taps * 4;
+  const size_t plane = static_cast<size_t>(g.npad) * g.nchunks * g.taps * 16;  // floats of the hi plane
+  for (int i = threadIdx.x; i < g.n_rows * row; i += blockDim.x) {
+    const int n = i / row, u = i - n * row;
+    const int dst = n * row + (u ^ ((n >> 1) & 3));
+    const int co = t.co0 + n;
+    if (co < g.npad) {
+      const float* src = w + (static_cast<size_t>(co) * g.nchunks + chunk) * g.taps * 16 + u * 4;
+      copy_async16(whi + dst, src);
+      copy_async16(wlo + dst, src + plane);
+    } else {
+      whi[dst] = wlo[dst] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+// The chunked order in float32 (Cin >= 16): K chunks staged and double-
+// buffered as `conv_mma_chunked_tile` stages them; per chunk and tap each
+// warp loads its two 16-pixel A tiles' hi and lo for the tap's two
+// k-steps with ldmatrix, and per 8-channel n-tile the tap's B hi and lo,
+// then runs each (A tile, n-tile)'s split products into a fresh sum added
+// to the running one. The caller syncs the block before shared memory is
+// staged again.
+template <typename TIn, int NT, typename L, bool kCoherent>
+__device__ __forceinline__ void conv_tf32_chunked_tile(const TIn* __restrict__ x, const float* __restrict__ w,
+                                                       const float* __restrict__ bias, void* __restrict__ out,
+                                                       const MmaGeo& g, const Tile& t, uint4* smem4) {
+  constexpr bool kALo = sizeof(TIn) == 4;  // a bf16 input is exact in TF32
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int halo_units = g.HH * g.HWs * 4, w_units = g.n_rows * g.taps * 4;
+  const int stage_units = (kALo ? 2 : 1) * halo_units + 2 * w_units;
+  // A: this lane's ldmatrix row is pixel (lane & 15) of each 16-pixel tile,
+  // its k half (lane >> 4) of a k-step; B: row n = lane & 7 of an n-tile,
+  // k quarter lane >> 3 of the tap's 16.
+  int hrow[2], hcol[2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int r = warp * 32 + mt * 16 + (lane & 15);
+    hrow[mt] = (r / L::kTw) * g.stride;
+    hcol[mt] = r % L::kTw;
+  }
+  const int khalf = lane >> 4, brow = lane & 7, bquarter = lane >> 3;
+  const int wrow = g.taps * 4;
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+
+  auto stage = [&](int c, uint4* base) {
+    uint4* hlo = base + halo_units;
+    uint4* whi = hlo + (kALo ? halo_units : 0);
+    stage_chunk_tf32<kCoherent, kALo>(base, hlo, whi, whi + w_units, x, w, g, t, c);
+  };
+  stage(0, smem4);
+  copy_async_commit();
+  for (int c = 0; c < g.nchunks; ++c) {
+    const int buf = g.stages == 2 ? (c & 1) : 0;
+    if (g.stages == 2 && c + 1 < g.nchunks) {
+      stage(c + 1, smem4 + ((c + 1) & 1) * stage_units);
+      copy_async_commit();
+      copy_async_wait_group<1>();
+    } else {
+      copy_async_wait_group<0>();
+    }
+    __syncthreads();
+    const uint4* hhi = smem4 + buf * stage_units;
+    const uint4* hlo = hhi + halo_units;
+    const uint4* whi = hlo + (kALo ? halo_units : 0);
+    const uint4* wlo = whi + w_units;
+    for (int tap = 0; tap < g.taps; ++tap) {
+      const int ky = tap / g.k, kx = tap - ky * g.k;
+      const int kxs = halo_col(g, kx);  // the tap's column offset (hx = stride*col + kx)
+      unsigned ahi[2][2][4], alo[2][2][4];  // [A tile][k-step]
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int q = (hrow[mt] + ky) * g.HWs + hcol[mt] + kxs;
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          const int u = 4 * q + ((2 * ks + khalf) ^ ((q >> 1) & 3));
+          ldmatrix_x4(ahi[mt][ks], hhi + u);
+          if (kALo) ldmatrix_x4(alo[mt][ks], hlo + u);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int n = nt * 8 + brow;
+        const int wu = n * wrow + ((tap * 4 + bquarter) ^ ((n >> 1) & 3));
+        unsigned bhi[4], blo[4];
+        ldmatrix_x4(bhi, whi + wu);
+        ldmatrix_x4(blo, wlo + wu);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          float s4[4];
+          mma_tf32_step<kALo>(s4, ahi[mt], alo[mt], bhi, blo);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] += s4[e];
+        }
+      }
+    }
+    if (g.stages == 1) {
+      if (c + 1 < g.nchunks) {
+        __syncthreads();
+        stage(c + 1, smem4);
+        copy_async_commit();
+      }
+    } else {
+      __syncthreads();  // this buffer is staged again two chunks on
+    }
+  }
+  mma_epilogue<NT, L>(acc, smem4, bias, out, g, t);
+}
+
+// The flat order in float32 (Cin < 16): the whole halo, all its
+// channels, split into hi and lo (one float2 an element: one load gives
+// both), and all of K's weight
+// rows (Kp/4 + 1 units a row: odd, so ldmatrix rows fall in distinct bank
+// groups; hi and lo planes from the host's [2][Np][Kp]) staged once; each
+// k-step's A fragment is gathered from the halo through the table of the
+// K index's offset (tap, channel). Every 16 K's products go into a fresh
+// sum added to the running one.
+template <typename TIn, int NT, typename L, bool kCoherent>
+__device__ __forceinline__ void conv_tf32_flat_tile(const TIn* __restrict__ x, const float* __restrict__ w,
+                                                    const float* __restrict__ bias, void* __restrict__ out,
+                                                    const MmaGeo& g, const Tile& t, uint4* smem4) {
+  constexpr bool kALo = sizeof(TIn) == 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wrow = g.kp / 4 + 1;
+  uint4* whi = smem4;
+  uint4* wlo = whi + g.n_rows * wrow;
+  int* koff = reinterpret_cast<int*>(wlo + g.n_rows * wrow);
+  float* halo = reinterpret_cast<float*>(koff + g.kp);
+  const int halo_elems = g.HH * g.HW * g.cin;
+
+  const int wunits = g.n_rows * (g.kp / 4);
+  const size_t plane = static_cast<size_t>(g.npad) * g.kp;
+  for (int i = threadIdx.x; i < wunits; i += L::kThreads) {
+    const int n = i / (g.kp / 4), u = i - n * (g.kp / 4);
+    const int co = t.co0 + n;
+    if (co < g.npad) {
+      const float* src = w + static_cast<size_t>(co) * g.kp + u * 4;
+      copy_async16(whi + n * wrow + u, src);
+      copy_async16(wlo + n * wrow + u, src + plane);
+    } else {
+      whi[n * wrow + u] = wlo[n * wrow + u] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  copy_async_commit();
+  const int K = g.taps * g.cin;
+  for (int kk = threadIdx.x; kk < g.kp; kk += L::kThreads) {
+    int off = 0;  // K padding: any finite element, times a zero weight
+    if (kk < K) {
+      const int tap = kk / g.cin, c = kk - tap * g.cin;
+      const int ky = tap / g.k, kx = tap - ky * g.k;
+      off = (ky * g.HW + kx) * g.cin + c;
+    }
+    koff[kk] = off;
+  }
+  // The halo, as `conv_mma_flat_tile` walks it: rows of 128 elements or
+  // more a row per warp, shorter ones lane-dense over the whole halo.
+  const int iy0 = t.oy0 * g.stride - g.pad_t, ix0 = t.ox0 * g.stride - g.pad_l;
+  const int row_elems = g.HW * g.cin;
+  const int e_lo = max(-ix0, 0) * g.cin, e_hi = min(g.HW, g.W - ix0) * g.cin, e_off = ix0 * g.cin;
+  const TIn* image = x + static_cast<size_t>(t.b) * g.H * g.W * g.cin;
+  if (row_elems >= 128) {
+    for (int hy = warp; hy < g.HH; hy += L::kThreads / 32) {
+      const int iy = iy0 + hy;
+      const TIn* row = image + static_cast<size_t>(iy < 0 || iy >= g.H ? 0 : iy) * g.W * g.cin;
+      const int lo = iy < 0 || iy >= g.H ? row_elems : e_lo;
+#pragma unroll 4
+      for (int e = lane; e < row_elems; e += 32) {
+        const float v = e >= lo && e < e_hi ? to_float(load_in<kCoherent>(row + e_off + e)) : 0.0f;
+        stage_split1<kALo>(halo, hy * row_elems + e, v);
+      }
+    }
+  } else {
+    const int step_rows = L::kThreads / row_elems, step_elems = L::kThreads - step_rows * row_elems;
+    int hy = threadIdx.x / row_elems, e = threadIdx.x - hy * row_elems;
+    for (int i = threadIdx.x; i < halo_elems; i += L::kThreads) {
+      const int iy = iy0 + hy;
+      const float v = iy >= 0 && iy < g.H && e >= e_lo && e < e_hi
+                          ? to_float(load_in<kCoherent>(image + static_cast<size_t>(iy) * g.W * g.cin + e_off + e))
+                          : 0.0f;
+      stage_split1<kALo>(halo, i, v);
+      hy += step_rows;
+      e += step_elems;
+      if (e >= row_elems) {
+        e -= row_elems;
+        ++hy;
+      }
+    }
+  }
+  copy_async_wait_group<0>();
+  __syncthreads();
+
+  const int gr = lane >> 2, tc = lane & 3;
+  int base[2][2];  // halo element of tap (0, 0), channel 0 for rows gr and gr + 8 of each A tile
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 32 + mt * 16 + h * 8 + gr;
+      base[mt][h] = ((r / L::kTw) * g.stride * g.HW + (r % L::kTw) * g.stride) * g.cin;
+    }
+  }
+  const int brow = lane & 7, bquarter = lane >> 3;
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+
+  for (int k16 = 0; k16 < g.kp / 16; ++k16) {
+    unsigned ahi[2][2][4], alo[2][2][4];  // [A tile][k-step]: a0 (gr, tc), a1 (gr+8, tc), a2 (gr, tc+4), a3 (gr+8, tc+4)
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const int k0 = k16 * 16 + ks * 8 + tc;
+      const int o0 = koff[k0], o4 = koff[k0 + 4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int offs[4] = {base[mt][0] + o0, base[mt][1] + o0, base[mt][0] + o4, base[mt][1] + o4};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (kALo) {
+            const float2 v = reinterpret_cast<const float2*>(halo)[offs[j]];
+            ahi[mt][ks][j] = __float_as_uint(v.x);
+            alo[mt][ks][j] = __float_as_uint(v.y);
+          } else {
+            ahi[mt][ks][j] = __float_as_uint(halo[offs[j]]);
+            alo[mt][ks][j] = 0u;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int wu = (nt * 8 + brow) * wrow + k16 * 4 + bquarter;
+      unsigned bhi[4], blo[4];
+      ldmatrix_x4(bhi, whi + wu);
+      ldmatrix_x4(blo, wlo + wu);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        float s4[4];
+        mma_tf32_step<kALo>(s4, ahi[mt], alo[mt], bhi, blo);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += s4[e];
+      }
+    }
+  }
+  mma_epilogue<NT, L>(acc, smem4, bias, out, g, t);
+}
+
 // ------------------------------------------------------------------ host
 
 // Whether K runs in chunks of 16 input channels (kernels/rowconv.py
@@ -570,16 +949,31 @@ inline int mma_piece(const void* x, int x_bf16, int cin) {
   return (cin % 4 == 0 && addr % 16 == 0) ? 4 : 1;
 }
 
+// The operands' precision: bf16, or float32 in split TF32 with the input's
+// lo staged (a float32 input) or not (a bf16 one, exact in TF32).
+enum class MmaPrec { kBf16, kTf32, kTf32NoALo };
+
 // Shared memory of one tile: the larger of the operands and the epilogue's
 // staged outputs, bytes.
-inline size_t mma_smem(const MmaGeo& g, bool flat) {
+inline size_t mma_smem(const MmaGeo& g, bool flat, MmaPrec prec = MmaPrec::kBf16) {
   const size_t epi = static_cast<size_t>(g.tile_h) * g.tile_w * (g.n_rows + 4) * sizeof(float);
   size_t ops;
-  if (flat) {
-    ops = static_cast<size_t>(g.n_rows) * (g.kp / 8 + 1) * 16 + g.kp * sizeof(int) +
-          static_cast<size_t>(g.HH) * g.HW * g.cin * 2;
+  if (prec == MmaPrec::kBf16) {
+    if (flat) {
+      ops = static_cast<size_t>(g.n_rows) * (g.kp / 8 + 1) * 16 + g.kp * sizeof(int) +
+            static_cast<size_t>(g.HH) * g.HW * g.cin * 2;
+    } else {
+      ops = static_cast<size_t>(g.stages) * (static_cast<size_t>(g.HH) * g.HWs * 2 + g.n_rows * g.taps * 2) * 16;
+    }
   } else {
-    ops = static_cast<size_t>(g.stages) * (static_cast<size_t>(g.HH) * g.HWs * 2 + g.n_rows * g.taps * 2) * 16;
+    const size_t a_planes = prec == MmaPrec::kTf32 ? 2 : 1;  // halo hi (and lo); weights hi and lo
+    if (flat) {
+      ops = 2 * static_cast<size_t>(g.n_rows) * (g.kp / 4 + 1) * 16 + g.kp * sizeof(int) +
+            a_planes * g.HH * g.HW * g.cin * sizeof(float);
+    } else {
+      ops = static_cast<size_t>(g.stages) *
+            (a_planes * g.HH * g.HWs * 4 + 2 * static_cast<size_t>(g.n_rows) * g.taps * 4) * 16;
+    }
   }
   return ops > epi ? ops : epi;
 }
@@ -595,10 +989,11 @@ inline size_t mma_smem(const MmaGeo& g, bool flat) {
 // 12 for Cout 96 where `nt12`) whose shared memory fits, halving from
 // there. Two staging buffers where K has more than one chunk and they
 // fit. Fills g (geometry, n_rows, stages; the caller sets piece and the
-// epilogue's flags) and returns its shared memory in bytes, 0 where no
-// channel tile fits.
+// epilogue's flags) and returns its shared memory in bytes for operands
+// of precision `prec`, 0 where no channel tile fits.
 inline size_t mma_plan(MmaGeo& g, int B, int H, int W, int cin, int Ho, int Wo, int cout, int k, int stride,
-                       int pad_t, int pad_l, int sms, size_t cap, bool wide, bool nt12) {
+                       int pad_t, int pad_l, int sms, size_t cap, bool wide, bool nt12,
+                       MmaPrec prec = MmaPrec::kBf16) {
   const bool flat = mma_flat(cin);
   static const int kShapes[3][2] = {{16, 8}, {8, 16}, {16, 16}};
   auto computed = [&](int s) {
@@ -616,10 +1011,10 @@ inline size_t mma_plan(MmaGeo& g, int B, int H, int W, int cin, int Ho, int Wo, 
   for (;;) {
     g.n_rows = nt * 8;
     g.stages = !flat && g.nchunks > 1 ? 2 : 1;
-    size_t smem = mma_smem(g, flat);
+    size_t smem = mma_smem(g, flat, prec);
     if (smem > cap && g.stages == 2) {
       g.stages = 1;
-      smem = mma_smem(g, flat);
+      smem = mma_smem(g, flat, prec);
     }
     if (smem <= cap) return smem;
     if (nt == 1) return 0;

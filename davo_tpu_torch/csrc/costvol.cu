@@ -94,7 +94,16 @@
 // inner, fmaf, times 1/C last), so it stays within 1e-5 of the plain
 // version. One launch serves both gradients (the block index selects).
 // Shared memory, 4*((8+2s)(16+2s)*32 + 128*D) bytes: 90.6 KB at s=4
-// (two blocks per SM), more than a block may have beyond s=7.
+// (two blocks per SM), more than a block may have beyond s=7. There
+// (and wherever the host finds that the whole window and the D
+// cotangent rows do not fit) a block walks the 2s+1 shift rows in
+// passes of `rows`, as the flow level's input backward does
+// (rowconv_bwd.cu): each pass stages the window rows and the
+// cotangents that its shift rows read (the tile's 8 rows + rows - 1
+// window rows, 128 x rows*(2s+1) cotangents); the accumulators carry
+// over the passes, so every sum keeps its ascending shift order. One
+// shift row a pass fits up to s = 64. s = 2, 3, 4 stay compile-time
+// one-pass instances.
 
 #include <climits>
 #include <cstdint>
@@ -102,6 +111,7 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "costvol_tile.cuh"
 
 namespace {
 
@@ -109,227 +119,26 @@ using namespace davo;
 
 // ---------------------------------------------------------------- forward
 
-constexpr int kFwdPix = 4;        // adjacent output pixels per thread
-constexpr int kFwdRows = 4;       // tile rows at s = 3, 4 (fewer on small grids)
-constexpr int kFwdSliceBytes = 64;  // of each pixel, per channel slice
-constexpr int kFwdChunk = 8;      // dx per thread in the generic instantiation
-constexpr int kFwdGenericThreads = 1024;
-
-// The forward's geometry, chosen on the host (plan_forward).
-struct FwdPlan {
-  int th, tw, groups;          // tile rows, columns; column groups of kFwdPix pixels
-  int wh, ww;                  // window rows, columns (tile + 2s; columns padded to 4)
-  int nq, nq_log2;             // 16-byte units per pixel of one slice (a power of 2)
-  int cs, slices, stages;      // channels per slice; slices; 1 or 2 staging buffers
-  int tile_plane, win_plane;   // 16-byte units of one plane (one unit of every pixel)
-  int tile_units, win_units;   // 16-byte units of one buffer's f1 tile and f2 window
-  int chunks, items;           // dx chunks per (row, dy); work items (one a thread)
-  int row_stride;              // output staging: floats per tile row
-  int threads, tiles_x, tiles_y;
-  int smem;                    // dynamic shared memory, bytes
-};
-
-// Shared memory holds one plane per 16-byte unit of a pixel's slice
-// (unit q of every pixel), row-major over the tile or window, with one
-// unit of padding after every 4 pixels: the 8 lanes of a quarter-warp,
-// whose pixels lie 4 apart, then land 5 units apart, in 8 bank groups,
-// and a thread's loads sit at fixed offsets from one base.
-__device__ __forceinline__ int padded(int pix) { return pix + (pix >> 2); }
-
-// Four channels of unit `u` (of their quad `h` within it) widened to
-// float32: 16 bytes of float, or 8 bytes of bf16 (the high half of a
-// float32: exact).
-__device__ __forceinline__ void load4(const uint4* units, int u, int, const float*,
-                                      float (&v)[4]) {
-  const uint4 x = units[u];
-  v[0] = __uint_as_float(x.x);
-  v[1] = __uint_as_float(x.y);
-  v[2] = __uint_as_float(x.z);
-  v[3] = __uint_as_float(x.w);
-}
-
-__device__ __forceinline__ void load4(const uint4* units, int u, int h, const unsigned short*,
-                                      float (&v)[4]) {
-  const uint2 x = reinterpret_cast<const uint2*>(units)[2 * u + h];
-  v[0] = __uint_as_float(x.x << 16);
-  v[1] = __uint_as_float(x.x & 0xffff0000u);
-  v[2] = __uint_as_float(x.y << 16);
-  v[3] = __uint_as_float(x.y & 0xffff0000u);
-}
-
-// Stages unit q (channels c .. c + 16 / sizeof(T) - 1) of the pixels
-// p0, p0 + step, ... of a rows x cols region whose first pixel is image
-// pixel (y_first, x_first), into plane q of `dst` (padded); 0 outside
-// the frame and past C. The pixel's row and column advance by addition.
-template <typename T>
-__device__ __forceinline__ void stage_region(const T* __restrict__ map, uint4* dst, int rows,
-                                             int cols, int y_first, int x_first, int H, int W,
-                                             int C, long long row0, int c, int p0, int step,
-                                             bool vec) {
-  constexpr int kVE = 16 / sizeof(T);
-  const int n = rows * cols, step_rows = step / cols, step_cols = step - step_rows * cols;
-  int py = p0 / cols, px = p0 - py * cols;
-  for (int pix = p0; pix < n; pix += step) {
-    const int y = y_first + py, x = x_first + px;
-    const bool in = y >= 0 && y < H && x >= 0 && x < W && c < C;
-    const T* src = in ? map + ((row0 + y) * W + x) * C + c : map;
-    uint4* to = dst + padded(pix);
-    if (vec) {
-      copy_async16(to, src, in);
-    } else {
-      T* e = reinterpret_cast<T*>(to);
-#pragma unroll
-      for (int j = 0; j < kVE; ++j) e[j] = in && c + j < C ? src[j] : T(0);
-    }
-    py += step_rows;
-    px += step_cols;
-    if (px >= cols) {
-      px -= cols;
-      ++py;
-    }
-  }
-}
-
-// Stages channels c0 .. c0 + cs - 1 of the f1 tile and the f2 window into
-// `buf` (tile planes first); 0 outside the frame and past C. By cp.async
-// when `vec`, else by plain loads. Thread t stages unit t % nq of every
-// (blockDim / nq)-th pixel (blockDim is a multiple of nq).
-template <typename T>
-__device__ __forceinline__ void fwd_stage(const T* __restrict__ f1, const T* __restrict__ f2,
-                                          uint4* buf, const FwdPlan& p, int H, int W, int C,
-                                          int s, long long row0, int y0, int x0, int c0,
-                                          bool vec) {
-  constexpr int kVE = 16 / sizeof(T);
-  const int q = threadIdx.x & (p.nq - 1), p0 = threadIdx.x >> p.nq_log2;
-  const int step = blockDim.x >> p.nq_log2, c = c0 + q * kVE;
-  stage_region(f1, buf + q * p.tile_plane, p.th, p.tw, y0, x0, H, W, C, row0, c, p0, step, vec);
-  stage_region(f2, buf + p.tile_units + q * p.win_plane, p.wh, p.ww, y0 - s, x0 - s, H, W, C,
-               row0, c, p0, step, vec);
-}
-
-// One block per tile of th x tw output pixels of one image, one thread
-// per work item: (column group g, tile row r, dy, dx chunk); a thread
-// accumulates the kFwdPix pixels of group g in row r over the chunk's
-// dx. kS is the search when known at compile time (one chunk of all
-// 2s+1 dx), else -1.
+// One block per tile of the volume (`cv_correlate`); each tile row's
+// outputs then leave shared memory as one contiguous run of `out`.
 template <typename T, int kS>
 __global__ void __launch_bounds__(kS >= 0 ? 8 * kFwdRows * (2 * kS + 1) : kFwdGenericThreads,
                                   kS == 3 ? 3 : kS == 4 ? 2 : 1)
 cost_volume_kernel(const T* __restrict__ f1, const T* __restrict__ f2, float* __restrict__ out,
                    int H, int W, int C, int s_rt, bool vec, FwdPlan p) {
-  constexpr int kVE = 16 / sizeof(T);
-  constexpr int kD = kS >= 0 ? 2 * kS + 1 : kFwdChunk;
   extern __shared__ uint4 smem_u[];
   const int s = kS >= 0 ? kS : s_rt;
-  const int d = 2 * s + 1, D = d * d;
-  int t = blockIdx.x;
-  const int x0 = (t % p.tiles_x) * p.tw;
-  t /= p.tiles_x;
-  const int y0 = (t % p.tiles_y) * p.th;
-  const long long row0 = static_cast<long long>(t / p.tiles_y) * H;  // b*H
-  const int stage_units = p.tile_units + p.win_units;
-  // Output elements of `out` before the next 16-byte boundary.
+  const int D = (2 * s + 1) * (2 * s + 1);
+  const CvTile ct = cv_tile_at(p, H);
+  const int x0 = ct.x0, y0 = ct.y0;
+  const long long row0 = ct.row0;
+  // Output elements of `out` before the next 16-byte boundary; row r's
+  // run starts at the same offset mod 4 floats in shared memory.
   const int out_mis = static_cast<int>((reinterpret_cast<uintptr_t>(out) >> 2) & 3);
-  const float inv_c = 1.0f / static_cast<float>(C);
-
-  const bool active = static_cast<int>(threadIdx.x) < p.items;
-  int g = 0, r = 0, dy = 0, dx0 = 0, nd = kD;
-  if (active) {
-    g = threadIdx.x % p.groups;
-    const int slot = threadIdx.x / p.groups;
-    dx0 = (slot % p.chunks) * kD;
-    nd = min(kD, d - dx0);
-    // The k-th (row, dy) pair in order of row + dy, then row.
-    int k = slot / p.chunks;
-    for (int wy = 0;; ++wy) {
-      const int lo = max(0, wy - (d - 1)), hi = min(p.th - 1, wy);
-      if (k <= hi - lo) {
-        r = lo + k;
-        dy = wy - r;
-        break;
-      }
-      k -= hi - lo + 1;
-    }
-  }
-  // Plane offsets of this thread's first f1 pixel and first window
-  // pixel; tw, ww and dx0 are multiples of 4, so its f1 pixel i lies at
-  // + i and its window pixel j at + j + j / 4.
-  const int tbase = padded(r * p.tw + kFwdPix * g);
-  const int wbase = padded((r + dy) * p.ww + kFwdPix * g + dx0);
-
-  float acc[kFwdPix][kD];
-#pragma unroll
-  for (int i = 0; i < kFwdPix; ++i) {
-#pragma unroll
-    for (int j = 0; j < kD; ++j) acc[i][j] = 0.0f;
-  }
-
-  fwd_stage(f1, f2, smem_u, p, H, W, C, s, row0, y0, x0, 0, vec);
-  copy_async_commit();
-  for (int k = 0; k < p.slices; ++k) {
-    const int c0 = k * p.cs;
-    if (p.stages == 2 && k + 1 < p.slices) {
-      fwd_stage(f1, f2, smem_u + ((k + 1) & 1) * stage_units, p, H, W, C, s, row0, y0, x0,
-                c0 + p.cs, vec);
-      copy_async_commit();
-      copy_async_wait_group<1>();
-    } else {
-      copy_async_wait_group<0>();
-    }
-    __syncthreads();
-    if (active) {
-      const uint4* tile = smem_u + (p.stages == 2 ? (k & 1) * stage_units : 0);
-      const uint4* win = tile + p.tile_units;
-      // Four channels at a time: a unit holds kVE / 4 such quads (past C
-      // they hold zeros).
-      const int units = min(p.nq, (C - c0 + kVE - 1) / kVE);
-      for (int q = 0; q < units; ++q) {
-        const uint4* tq = tile + q * p.tile_plane + tbase;
-        const uint4* wq = win + q * p.win_plane + wbase;
-#pragma unroll
-        for (int h = 0; h < kVE / 4; ++h) {
-          float a[kFwdPix][4];
-#pragma unroll
-          for (int i = 0; i < kFwdPix; ++i) load4(tq, i, h, f1, a[i]);
-#pragma unroll
-          for (int j = 0; j < kFwdPix + kD - 1; ++j) {
-            if (kS < 0 && j >= kFwdPix - 1 + nd) break;  // a narrower last chunk
-            float w[4];
-            load4(wq, j + (j >> 2), h, f1, w);
-#pragma unroll
-            for (int i = 0; i < kFwdPix; ++i) {
-              const int dx = j - i;  // pixel i meets window pixel j at dx0 + dx
-              if (dx >= 0 && dx < kD) {
-#pragma unroll
-                for (int e = 0; e < 4; ++e) acc[i][dx] = fmaf(a[i][e], w[e], acc[i][dx]);
-              }
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-    if (p.stages == 1 && k + 1 < p.slices) {
-      fwd_stage(f1, f2, smem_u, p, H, W, C, s, row0, y0, x0, c0 + p.cs, vec);
-      copy_async_commit();
-    }
-  }
-  // The outputs into the staging rows (over the input buffers): row r's
-  // run starts at the same offset mod 4 floats as its place in `out`.
-  float* out_s = reinterpret_cast<float*>(smem_u);
-  if (active) {
-    const int mis = static_cast<int>(
-        (out_mis + ((row0 + y0 + r) * W + x0) * static_cast<long long>(D)) & 3);
-    float* o = out_s + r * p.row_stride + mis + (kFwdPix * g) * D + dy * d + dx0;
-#pragma unroll
-    for (int i = 0; i < kFwdPix; ++i) {
-#pragma unroll
-      for (int j = 0; j < kD; ++j) {
-        if (kS >= 0 || j < nd) o[i * D + j] = acc[i][j] * inv_c;
-      }
-    }
-  }
-  __syncthreads();
+  cv_correlate<T, kS>(f1, f2, H, W, C, s_rt, vec, p, ct, smem_u, [&](int r) {
+    return static_cast<int>((out_mis + ((row0 + y0 + r) * W + x0) * static_cast<long long>(D)) & 3);
+  });
+  const float* out_s = reinterpret_cast<const float*>(smem_u);
   // Each tile row's outputs are one contiguous run of `out`: scalar
   // stores up to a 16-byte boundary, then 16-byte streaming stores.
   const int n = min(p.tw, W - x0) * D;
@@ -346,68 +155,6 @@ cost_volume_kernel(const T* __restrict__ f1, const T* __restrict__ f2, float* __
     for (int e = threadIdx.x; e < body; e += blockDim.x) __stcs(dst4 + e, src4[e]);
     for (int e = head + 4 * body + threadIdx.x; e < n; e += blockDim.x) __stcs(dst + e, src[e]);
   }
-}
-
-// The largest tile, then slice, then number of buffers whose shared
-// memory fits `smem_max`; false if even a 1x4 tile with one 16-byte
-// unit per pixel does not. At s = 3, 4 the tile is 32 wide, and has
-// fewer than 4 rows while the tiles would number under half the SMs
-// (`sms`): there each block's serial channel loop, not the halo, is the
-// cost.
-bool plan_forward(int B, int H, int W, int C, int s, int elem, int smem_max, int sms,
-                  FwdPlan* p) {
-  static const int kTiles[][2] = {{kFwdRows, 32}, {2, 32}, {1, 32}, {1, 16}, {1, 8}, {1, 4}};
-  const int ve = 16 / elem, d = 2 * s + 1;
-  const long long D = static_cast<long long>(d) * d;
-  const bool fixed = s == 3 || s == 4;  // the instantiations with all dx in registers
-  const int kd = fixed ? d : kFwdChunk;
-  int cs_first = ve;
-  while (cs_first < C && cs_first * elem < kFwdSliceBytes) cs_first *= 2;
-  for (const auto& tile : kTiles) {
-    const int th = tile[0], tw = tile[1];
-    if (fixed && tw != 32) break;
-    if (fixed && th > 1 &&
-        2LL * B * ((H + th - 1) / th) * ((W + tw - 1) / tw) < sms) {
-      continue;
-    }
-    const int chunks = (d + kd - 1) / kd, items = tw / kFwdPix * th * d * chunks;
-    if (items > kFwdGenericThreads) continue;
-    for (int cs = cs_first; cs >= ve; cs /= 2) {
-      const int slices = (C + cs - 1) / cs;
-      for (int stages = slices > 1 ? 2 : 1; stages >= 1; --stages) {
-        FwdPlan q{};
-        q.th = th;
-        q.tw = tw;
-        q.groups = tw / kFwdPix;
-        q.wh = th + 2 * s;
-        q.ww = (tw + 2 * s + 3) / 4 * 4;
-        q.nq = cs / ve;
-        while ((1 << q.nq_log2) < q.nq) ++q.nq_log2;
-        q.cs = cs;
-        q.slices = slices;
-        q.stages = stages;
-        q.tile_plane = th * tw + th * tw / 4;
-        q.win_plane = q.wh * q.ww + q.wh * q.ww / 4;
-        q.tile_units = q.nq * q.tile_plane;
-        q.win_units = q.nq * q.win_plane;
-        q.chunks = chunks;
-        q.items = items;
-        q.threads = (items + 31) / 32 * 32;
-        const long long row_stride = (tw * D + 3 + 3) / 4 * 4;
-        const long long in_bytes = 16LL * stages * (q.tile_units + q.win_units);
-        const long long out_bytes = 4LL * th * row_stride;
-        const long long smem = in_bytes > out_bytes ? in_bytes : out_bytes;
-        if (smem > smem_max) continue;
-        q.row_stride = static_cast<int>(row_stride);
-        q.tiles_x = (W + tw - 1) / tw;
-        q.tiles_y = (H + th - 1) / th;
-        q.smem = static_cast<int>(smem);
-        *p = q;
-        return true;
-      }
-    }
-  }
-  return false;
 }
 
 // Raises the kernel's dynamic shared-memory limit once per device (not
@@ -477,28 +224,34 @@ constexpr int kBwdTileH = 8, kBwdTileW = 16, kBwdSlice = 32, kBwdPix = 4;
 constexpr int kBwdThreads = 32 * kBwdTileH;
 static_assert(kBwdTileW == 4 * kBwdPix && kBwdSlice == 8 * 4, "lane layout");
 
-__host__ __device__ constexpr long long bwd_smem_floats(int search) {
-  return static_cast<long long>(kBwdTileH + 2 * search) * (kBwdTileW + 2 * search) * kBwdSlice +
-         static_cast<long long>(kBwdTileH) * kBwdTileW * (2 * search + 1) * (2 * search + 1);
+// Shared memory of a pass of `rows` shift rows: the window rows it reads
+// and the tile's cotangents of those rows (rows = 2s+1: the one-pass plan).
+__host__ __device__ constexpr long long bwd_smem_floats(int search, int rows) {
+  return static_cast<long long>(kBwdTileH + rows - 1) * (kBwdTileW + 2 * search) * kBwdSlice +
+         static_cast<long long>(kBwdTileH) * kBwdTileW * rows * (2 * search + 1);
 }
 
-// acc[i][.] += sum over the shifts of gs[pixel i, k] * the window at
-// pixel i shifted by +delta_k (d f1) or -delta_k (d f2), dy outer and dx
-// inner per output. `ms` points at the window pixel of the group's first
-// output pixel (its row, unshifted) and this thread's 4 channels, `gs` at
-// the group's first cotangent row.
+// acc[i][.] += sum over one pass's nr shift rows of gs[pixel i, k] * the
+// window at pixel i shifted by +delta_k (d f1) or -delta_k (d f2), dy
+// outer and dx inner per output. `ms` points at the staged window pixel
+// of the group's first output pixel (its row, the pass's first staged
+// row) and this thread's 4 channels, `gs` at the group's first
+// cotangent row (gd a pixel; shift row r of the pass at r * d). kS >= 0:
+// one pass of all d rows.
 template <bool kDf1, int kS>
 __device__ __forceinline__ void accumulate_shifts(float (&acc)[kBwdPix][4], const float* ms,
-                                                  const float* gs, int s_rt) {
+                                                  const float* gs, int s_rt, int nr_rt, int gd_rt) {
   const int s = kS >= 0 ? kS : s_rt;
-  const int d = 2 * s + 1, D = d * d, ww = kBwdTileW + 2 * s;
+  const int d = 2 * s + 1, ww = kBwdTileW + 2 * s;
+  const int nr = kS >= 0 ? d : nr_rt, gd = kS >= 0 ? d * d : gd_rt;
   const int span = kBwdPix + 2 * s;  // window pixels one row of shifts reaches
 #pragma unroll
-  for (int dy = 0; dy < d; ++dy) {
-    // d f1 reads window row ly + dy; d f2 row ly + 2s - dy.
-    const int wrow = kDf1 ? dy : 2 * s - dy;
+  for (int r = 0; r < nr; ++r) {
+    // Staged from the pass's first window row: d f1 reads row ly + r,
+    // d f2 row ly + nr - 1 - r.
+    const int wrow = kDf1 ? r : nr - 1 - r;
     const float4* mrow = reinterpret_cast<const float4*>(ms + wrow * ww * kBwdSlice);
-    const float* grow = gs + dy * d;
+    const float* grow = gs + r * d;
 #pragma unroll
     for (int jj = 0; jj < span; ++jj) {
       // Output pixel i meets window pixel j at dx = j - i (d f1) or
@@ -509,7 +262,7 @@ __device__ __forceinline__ void accumulate_shifts(float (&acc)[kBwdPix][4], cons
       for (int i = 0; i < kBwdPix; ++i) {
         const int dx = kDf1 ? j - i : i + 2 * s - j;
         if (dx >= 0 && dx < d) {
-          const float gk = grow[i * D + dx];
+          const float gk = grow[i * gd + dx];
           acc[i][0] = fmaf(gk, m.x, acc[i][0]);
           acc[i][1] = fmaf(gk, m.y, acc[i][1]);
           acc[i][2] = fmaf(gk, m.z, acc[i][2]);
@@ -522,20 +275,22 @@ __device__ __forceinline__ void accumulate_shifts(float (&acc)[kBwdPix][4], cons
 
 
 // One block per (image, tile, gradient, channel slice), grid-stride.
-// kS is the search radius when known at compile time, else -1.
+// kS is the search radius when known at compile time (one pass of all
+// 2s+1 shift rows), else -1 (passes of `rows` shift rows).
 template <int kS>
 __global__ void __launch_bounds__(kBwdThreads, 2)
 cost_volume_bwd_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
                        const float* __restrict__ g, float* __restrict__ df1,
-                       float* __restrict__ df2, int H, int W, int C, int s_rt, int tiles_x,
-                       int tiles_y, int slices, int first_grad, int grads, bool vec,
+                       float* __restrict__ df2, int H, int W, int C, int s_rt, int rows_rt,
+                       int tiles_x, int tiles_y, int slices, int first_grad, int grads, bool vec,
                        long long blocks) {
   extern __shared__ float4 smem4[];
   const int s = kS >= 0 ? kS : s_rt;
   const int d = 2 * s + 1, D = d * d;
-  const int ww = kBwdTileW + 2 * s, wh = kBwdTileH + 2 * s;
-  float* ms = reinterpret_cast<float*>(smem4);  // window: (wh*ww) x kBwdSlice
-  float* gs = ms + wh * ww * kBwdSlice;          // cotangents: (tile pixels) x D
+  const int rows = kS >= 0 ? d : rows_rt, gd = rows * d;
+  const int ww = kBwdTileW + 2 * s;
+  float* ms = reinterpret_cast<float*>(smem4);         // window: (rows + 7) x ww pixels x kBwdSlice
+  float* gs = ms + (kBwdTileH + rows - 1) * ww * kBwdSlice;  // cotangents: (tile pixels) x gd
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float inv_c = 1.0f / static_cast<float>(C);
   for (long long t = blockIdx.x; t < blocks; t += gridDim.x) {
@@ -551,85 +306,100 @@ cost_volume_bwd_kernel(const float* __restrict__ f1, const float* __restrict__ f
     const float* other = is_df1 ? f2 : f1;
     float* out = is_df1 ? df1 : df2;
 
-    __syncthreads();  // the previous block's reads of shared memory are done
-    // Staging, all through cp.async so that every load of the block is in
-    // flight at once. The other map's window, lanes over the slice's
-    // channels: 16 bytes a lane, four window pixels a warp, when C % 4 == 0
-    // (`vec`), else 4 bytes a lane, one pixel a warp.
-    if (vec) {
-      const int c = c0 + 4 * (lane & 7);
-      for (int wp = (lane >> 3) + 4 * warp; wp < wh * ww; wp += 4 * kBwdTileH) {
-        const int wy = wp / ww, wx = wp - (wp / ww) * ww;
-        const int y = y0 - s + wy, x = x0 - s + wx;
-        const bool in = y >= 0 && y < H && x >= 0 && x < W && c < C;
-        copy_async16(ms + wp * kBwdSlice + 4 * (lane & 7),
-                     in ? other + ((row0 + y) * W + x) * C + c : other, in);
-      }
-    } else {
-      for (int wp = warp; wp < wh * ww; wp += kBwdTileH) {
-        const int wy = wp / ww, wx = wp - (wp / ww) * ww;
-        const int y = y0 - s + wy, x = x0 - s + wx, c = c0 + lane;
-        const bool in = y >= 0 && y < H && x >= 0 && x < W && c < C;
-        const float* src = in ? other + ((row0 + y) * W + x) * C + c : other;
-        copy_async4(ms + wp * kBwdSlice + lane, src, in);
-      }
-    }
-    if (is_df1) {
-      // g[p, :] of the tile's pixels: one warp per tile row, whose
-      // cotangents are one contiguous run (16 bytes a lane when the run
-      // starts 16-byte aligned, as it does for W % 4 == 0).
-      for (int ty = warp; ty < kBwdTileH; ty += kBwdTileH) {
-        const int y = y0 + ty, tw = min(kBwdTileW, W - x0);
-        float* dst = gs + ty * kBwdTileW * D;
-        if (y >= H) {
-          for (int e = lane; e < kBwdTileW * D; e += 32) dst[e] = 0.0f;
-          continue;
-        }
-        const float* src = g + ((row0 + y) * W + x0) * D;
-        const int n = tw * D;  // floats of the run
-        int e0 = 0;
-        if (reinterpret_cast<unsigned long long>(src) % 16 == 0) {
-          e0 = n / 4 * 4;
-          for (int e = 4 * lane; e < e0; e += 128) copy_async16(dst + e, src + e, true);
-        }
-        for (int e = e0 + lane; e < n; e += 32) copy_async4(dst + e, src + e, true);
-        for (int e = n + lane; e < kBwdTileW * D; e += 32) dst[e] = 0.0f;  // past the frame
-      }
-    } else {
-      // g[q - delta_k, k] for the tile's q. For a tile row qy and a shift
-      // row dy the sources lie on one image row (y0 + qy + s - dy): one
-      // warp per (qy, dy), lanes over (window column, dx), dx fastest, so
-      // that a warp reads runs of d contiguous cotangents; each (q, k) of
-      // the tile is written once, 0 where its source leaves the frame.
-      for (int pair = warp; pair < kBwdTileH * d; pair += kBwdTileH) {
-        const int qy = pair / d, dy = pair - (pair / d) * d;
-        const int y = y0 + qy + s - dy;
-        const bool row_in = y >= 0 && y < H && y0 + qy < H;
-        for (int e = lane; e < ww * d; e += 32) {
-          const int wx = e / d, dx = e - (e / d) * d;
-          const int qx = wx - 2 * s + dx;
-          if (qx < 0 || qx >= kBwdTileW) continue;
-          const int x = x0 - s + wx;
-          const bool in = row_in && x >= 0 && x < W;
-          copy_async4(gs + (qy * kBwdTileW + qx) * D + dy * d + dx,
-                     in ? g + ((row0 + y) * W + x) * D + dy * d + dx : g, in);
-        }
-      }
-    }
-    copy_async_wait_all();
-    __syncthreads();
-
     // Thread: tile row `warp`, pixels 4*grp .. 4*grp+3, channels
     // c0 + 4*c4 .. +3.
     const int c4 = lane & 7, grp = lane >> 3;
     const int lx0 = grp * kBwdPix;
     const float* mbase = ms + (warp * ww + lx0) * kBwdSlice + 4 * c4;
-    const float* gbase = gs + (warp * kBwdTileW + lx0) * D;
+    const float* gbase = gs + (warp * kBwdTileW + lx0) * gd;
     float acc[kBwdPix][4] = {};
-    if (is_df1) {
-      accumulate_shifts<true, kS>(acc, mbase, gbase, s);
-    } else {
-      accumulate_shifts<false, kS>(acc, mbase, gbase, s);
+    for (int dy0 = 0; dy0 < d; dy0 += rows) {
+      const int nr = min(rows, d - dy0);
+      // The window rows the pass reads: d f1 dy0 .. dy0 + nr + 6; d f2
+      // 2s - dy0 - nr + 1 .. 2s - dy0 + 7.
+      const int wr0 = is_df1 ? dy0 : 2 * s - dy0 - nr + 1;
+      const int wh = kBwdTileH + nr - 1;
+      __syncthreads();  // every read of shared memory by the last pass or block is done
+      // Staging, all through cp.async so that every load of the pass is
+      // in flight at once. The other map's window rows, lanes over the
+      // slice's channels: 16 bytes a lane, four window pixels a warp,
+      // when C % 4 == 0 (`vec`), else 4 bytes a lane, one pixel a warp.
+      if (vec) {
+        const int c = c0 + 4 * (lane & 7);
+        for (int wp = (lane >> 3) + 4 * warp; wp < wh * ww; wp += 4 * kBwdTileH) {
+          const int wy = wp / ww, wx = wp - (wp / ww) * ww;
+          const int y = y0 - s + wr0 + wy, x = x0 - s + wx;
+          const bool in = y >= 0 && y < H && x >= 0 && x < W && c < C;
+          copy_async16(ms + wp * kBwdSlice + 4 * (lane & 7),
+                       in ? other + ((row0 + y) * W + x) * C + c : other, in);
+        }
+      } else {
+        for (int wp = warp; wp < wh * ww; wp += kBwdTileH) {
+          const int wy = wp / ww, wx = wp - (wp / ww) * ww;
+          const int y = y0 - s + wr0 + wy, x = x0 - s + wx, c = c0 + lane;
+          const bool in = y >= 0 && y < H && x >= 0 && x < W && c < C;
+          const float* src = in ? other + ((row0 + y) * W + x) * C + c : other;
+          copy_async4(ms + wp * kBwdSlice + lane, src, in);
+        }
+      }
+      if (is_df1 && nr == d) {
+        // g[p, :] of the tile's pixels: one warp per tile row, whose
+        // cotangents are one contiguous run (16 bytes a lane when the run
+        // starts 16-byte aligned, as it does for W % 4 == 0).
+        const int y = y0 + warp, tw = min(kBwdTileW, W - x0);
+        float* dst = gs + warp * kBwdTileW * D;
+        if (y >= H) {
+          for (int e = lane; e < kBwdTileW * D; e += 32) dst[e] = 0.0f;
+        } else {
+          const float* src = g + ((row0 + y) * W + x0) * D;
+          const int n = tw * D;  // floats of the run
+          int e0 = 0;
+          if (reinterpret_cast<unsigned long long>(src) % 16 == 0) {
+            e0 = n / 4 * 4;
+            for (int e = 4 * lane; e < e0; e += 128) copy_async16(dst + e, src + e, true);
+          }
+          for (int e = e0 + lane; e < n; e += 32) copy_async4(dst + e, src + e, true);
+          for (int e = n + lane; e < kBwdTileW * D; e += 32) dst[e] = 0.0f;  // past the frame
+        }
+      } else if (is_df1) {
+        // A pass's shift rows of g[p, :]: per tile row, a run of nr*d
+        // contiguous cotangents a pixel, lanes over (pixel, element).
+        const int y = y0 + warp, gn = nr * d;
+        for (int e = lane; e < kBwdTileW * gn; e += 32) {
+          const int px = e / gn, k = e - px * gn, x = x0 + px;
+          const bool in = y < H && x < W;
+          copy_async4(gs + (warp * kBwdTileW + px) * gd + k,
+                      in ? g + ((row0 + y) * W + x) * D + dy0 * d + k : g, in);
+        }
+      } else {
+        // g[q - delta_k, k] for the tile's q. For a tile row qy and a
+        // shift row dy the sources lie on one image row (y0 + qy + s -
+        // dy): one warp per (qy, dy), lanes over (window column, dx), dx
+        // fastest, so that a warp reads runs of d contiguous cotangents;
+        // each (q, k) of the tile is written once, 0 where its source
+        // leaves the frame.
+        for (int pair = warp; pair < kBwdTileH * nr; pair += kBwdTileH) {
+          const int qy = pair / nr, rr = pair - (pair / nr) * nr, dy = dy0 + rr;
+          const int y = y0 + qy + s - dy;
+          const bool row_in = y >= 0 && y < H && y0 + qy < H;
+          for (int e = lane; e < ww * d; e += 32) {
+            const int wx = e / d, dx = e - (e / d) * d;
+            const int qx = wx - 2 * s + dx;
+            if (qx < 0 || qx >= kBwdTileW) continue;
+            const int x = x0 - s + wx;
+            const bool in = row_in && x >= 0 && x < W;
+            copy_async4(gs + (qy * kBwdTileW + qx) * gd + rr * d + dx,
+                        in ? g + ((row0 + y) * W + x) * D + dy * d + dx : g, in);
+          }
+        }
+      }
+      copy_async_wait_all();
+      __syncthreads();
+      if (is_df1) {
+        accumulate_shifts<true, kS>(acc, mbase, gbase, s, nr, gd);
+      } else {
+        accumulate_shifts<false, kS>(acc, mbase, gbase, s, nr, gd);
+      }
     }
     const int y = y0 + warp, c = c0 + 4 * c4;
     if (y < H && c < C) {
@@ -652,25 +422,30 @@ cost_volume_bwd_kernel(const float* __restrict__ f1, const float* __restrict__ f
   }
 }
 
-// Raises the kernel's dynamic shared-memory limit once per device (not
-// while a CUDA graph captures the launch: the first call is eager).
+// Raises the kernel's dynamic shared-memory limit once per device and
+// size (not while a CUDA graph captures the launch: the first call is
+// eager).
 template <int kS>
 cudaError_t launch_bwd(const float* f1, const float* f2, const float* g, float* df1, float* df2,
-                       int H, int W, int C, int search, int tiles_x, int tiles_y, int slices,
-                       int first_grad, int grads, bool vec, long long blocks,
+                       int H, int W, int C, int search, int rows, int tiles_x, int tiles_y,
+                       int slices, int first_grad, int grads, bool vec, long long blocks,
                        int device, int smem, cudaStream_t stream) {
   static int granted[kMaxDevices] = {};
-  if (granted[device] < smem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        cost_volume_bwd_kernel<kS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    granted[device] = smem;
-  }
+  const cudaError_t err = allow_smem(cost_volume_bwd_kernel<kS>, device, smem, granted);
+  if (err != cudaSuccess) return err;
   const int grid = static_cast<int>(blocks < (1LL << 20) ? blocks : (1LL << 20));
   cost_volume_bwd_kernel<kS><<<grid, kBwdThreads, smem, stream>>>(
-      f1, f2, g, df1, df2, H, W, C, search, tiles_x, tiles_y, slices, first_grad, grads, vec,
-      blocks);
+      f1, f2, g, df1, df2, H, W, C, search, rows, tiles_x, tiles_y, slices, first_grad, grads,
+      vec, blocks);
   return cudaGetLastError();
+}
+
+// The most shift rows a pass whose window rows and cotangents fit `smem_max`
+// bytes (2s+1: one pass); 0 where not even one row fits.
+int bwd_rows(int search, int smem_max) {
+  int rows = 2 * search + 1;
+  while (rows > 0 && 4 * bwd_smem_floats(search, rows) > smem_max) --rows;
+  return rows;
 }
 
 }  // namespace
@@ -696,27 +471,22 @@ int davo_cost_volume_bf16(const void* f1, const void* f2, void* out, int B, int 
 
 // g: (B, H, W, (2*search+1)^2) cotangent of the forward's output;
 // df1, df2: (B, H, W, C) float32 or null for a map that needs no
-// gradient. One launch computes the requested maps on `stream`; same
-// return contract as davo_cost_volume_f32 (cudaErrorInvalidValue also
-// for a search whose tiles do not fit a block's shared memory, s > 7).
+// gradient. One launch computes the requested maps on `stream`, for any
+// search up to 64 (wide searches walk the shift rows in passes); same
+// return contract as davo_cost_volume_f32.
 int davo_cost_volume_bwd_f32(const void* f1, const void* f2, const void* g, void* df1,
                              void* df2, int B, int H, int W, int C, int search, void* stream) {
   if (B < 0 || H < 0 || W < 0 || C < 1 || search < 0 || search > 64 ||
       static_cast<long long>(B) * H * W > INT_MAX / 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  static int smem_max[kMaxDevices] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  int device = 0, smem_max = 0, sms = 0;
+  cudaError_t err = current_device(&device);
+  if (err == cudaSuccess) err = device_limits(device, &smem_max, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (smem_max[device] == 0) {
-    err = cudaDeviceGetAttribute(&smem_max[device], cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                                 device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const long long smem = static_cast<long long>(sizeof(float)) * bwd_smem_floats(search);
-  if (smem > smem_max[device]) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = bwd_rows(search, smem_max);
+  if (rows == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = static_cast<int>(4 * bwd_smem_floats(search, rows));
   const int grads = (df1 != nullptr) + (df2 != nullptr);
   if (static_cast<long long>(B) * H * W == 0 || grads == 0) {
     return static_cast<int>(cudaGetLastError());
@@ -737,22 +507,23 @@ int davo_cost_volume_bwd_f32(const void* f1, const void* f2, const void* g, void
   float* o1 = static_cast<float*>(df1);
   float* o2 = static_cast<float*>(df2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (search) {
+  const bool one_pass = rows == 2 * search + 1;
+  switch (one_pass ? search : -1) {
     case 2:
-      err = launch_bwd<2>(a, b, gp, o1, o2, H, W, C, search, tiles_x, tiles_y, slices, first_grad,
-                          grads, vec, blocks, device, static_cast<int>(smem), s);
+      err = launch_bwd<2>(a, b, gp, o1, o2, H, W, C, search, rows, tiles_x, tiles_y, slices,
+                          first_grad, grads, vec, blocks, device, smem, s);
       break;
     case 3:
-      err = launch_bwd<3>(a, b, gp, o1, o2, H, W, C, search, tiles_x, tiles_y, slices, first_grad,
-                          grads, vec, blocks, device, static_cast<int>(smem), s);
+      err = launch_bwd<3>(a, b, gp, o1, o2, H, W, C, search, rows, tiles_x, tiles_y, slices,
+                          first_grad, grads, vec, blocks, device, smem, s);
       break;
     case 4:
-      err = launch_bwd<4>(a, b, gp, o1, o2, H, W, C, search, tiles_x, tiles_y, slices, first_grad,
-                          grads, vec, blocks, device, static_cast<int>(smem), s);
+      err = launch_bwd<4>(a, b, gp, o1, o2, H, W, C, search, rows, tiles_x, tiles_y, slices,
+                          first_grad, grads, vec, blocks, device, smem, s);
       break;
     default:
-      err = launch_bwd<-1>(a, b, gp, o1, o2, H, W, C, search, tiles_x, tiles_y, slices,
-                           first_grad, grads, vec, blocks, device, static_cast<int>(smem), s);
+      err = launch_bwd<-1>(a, b, gp, o1, o2, H, W, C, search, rows, tiles_x, tiles_y, slices,
+                           first_grad, grads, vec, blocks, device, smem, s);
   }
   return static_cast<int>(err);
 }

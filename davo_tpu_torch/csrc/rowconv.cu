@@ -21,7 +21,7 @@
 //                       straight into its buffer (no separate concat).
 //
 // Two layer kernels, chosen by mode (explicitly; neither stands in for
-// the other):
+// the other), on one tile design:
 //
 // conv_mma_chunked_kernel / conv_mma_flat_kernel (bfloat16 and bf16_dot):
 //   every product there has bf16 operands (activations bf16, or rounded
@@ -55,13 +55,20 @@
 //   tile, staging depth: `mma_plan`) are conv_mma.cuh's, which the
 //   one-launch conv stack (conv_stack.cu) runs too.
 //
-// conv_layer_kernel (float32): exact f32 products on the FMA units (67
-//   TFLOP/s; no TF32, as the port runs exact f32). A block of 128 threads
-//   shares one slice of CO output channels, whose k*k*Cin*CO weights it
-//   stages in shared memory; each thread computes 4 consecutive output
-//   pixels of a row x CO channels and reads the input through L1 (4
-//   channels at a time when Cin % 4 == 0). What limits it: the f32 FMA
-//   rate, and L1 traffic from input rows that neighbouring threads re-read.
+// conv_tf32_chunked_kernel / conv_tf32_flat_kernel (float32): the same
+//   tiles, K orders, staging and plan (`mma_plan`, NT up to 8) on
+//   mma.sync m16n8k8 in split TF32 (conv_mma.cuh): float32 products and
+//   sums within ~2^-22 of each product, as the FMA kernel it replaced
+//   kept them. The weights come split from the host (`_pack_tf32`: hi and
+//   lo planes of float32 in `_pack_mma`'s K order); the input is split
+//   once, as it is staged (a bf16 input is exact in TF32: no lo, 2
+//   products instead of 3); every 16 K's products go into a fresh
+//   accumulator added to the running sum in float32. Bound on this card:
+//   operations, the FLOPs as 3 TF32 passes at 494.7 TFLOP/s (the f32 FMA
+//   rate, 67, bounded the FMA kernel); the /4 estimator at B=64, 62.6
+//   GFLOP, 0.38 ms. What limits it: mma.sync issue (3 products for one),
+//   the float32 staging (4x the bf16 bytes: hi and lo, 4 bytes each),
+//   the FP32 adds of the fresh sums.
 
 #include <climits>
 #include <cstdint>
@@ -72,204 +79,16 @@
 
 #include "common.cuh"
 #include "conv_mma.cuh"
+#include "costvol_tile.cuh"
 
 namespace {
 
 using namespace davo;
 
-constexpr int kThreads = 128;
-constexpr int kPx = 4;                      // output pixels of one row per thread
-constexpr size_t kMaxSmem = 227 * 1024;     // dynamic shared memory a block can use
-
+// One element widened to float32: float32, or bf16 (as its bits).
 __device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
-  return __uint_as_float(static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(p))) << 16);
-}
-
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
-  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = q.x;
-  v[1] = q.y;
-  v[2] = q.z;
-  v[3] = q.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
-  // bf16 -> f32 is a 16-bit shift; element 0 sits in the low half.
-  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
-  v[0] = __uint_as_float(q.x << 16);
-  v[1] = __uint_as_float(q.x & 0xffff0000u);
-  v[2] = __uint_as_float(q.y << 16);
-  v[3] = __uint_as_float(q.y & 0xffff0000u);
-}
-
-template <int CO>
-__device__ __forceinline__ void load_weights(const float* w, float wv[CO]) {
-  if constexpr (CO % 4 == 0) {
-#pragma unroll
-    for (int o = 0; o < CO; o += 4) {
-      const float4 q = *reinterpret_cast<const float4*>(w + o);
-      wv[o] = q.x;
-      wv[o + 1] = q.y;
-      wv[o + 2] = q.z;
-      wv[o + 3] = q.w;
-    }
-  } else {
-#pragma unroll
-    for (int o = 0; o < CO; ++o) wv[o] = w[o];
-  }
-}
-
-// x (B, H, W, cin) NHWC; w (k, k, cin, cout) f32 holding dot-dtype values;
-// out (B, Ho, Wo, cout). Block (blockIdx.x, blockIdx.y): 128 pixel groups
-// of kPx outputs x the output channels [CO*blockIdx.y, CO*blockIdx.y + CO).
-template <typename TIn, int CO, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-conv_layer_kernel(const TIn* __restrict__ x, const float* __restrict__ w,
-                  const float* __restrict__ bias, void* __restrict__ out, int out_bf16,
-                  int H, int W, int cin, int Ho, int Wo, int cout, int k, int stride,
-                  int pad_t, int pad_l, int round_in, int round_out, int relu,
-                  long long groups) {
-  extern __shared__ __align__(16) float sw[];  // (k*k*cin, CO)
-  const int co0 = blockIdx.y * CO;
-  const int rows = k * k * cin;
-  for (int i = threadIdx.x; i < rows * CO; i += blockDim.x) {
-    sw[i] = w[static_cast<long long>(i / CO) * cout + co0 + i % CO];
-  }
-  __syncthreads();
-
-  const long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (g >= groups) return;
-  const int wgroups = (Wo + kPx - 1) / kPx;
-  const int ox0 = static_cast<int>(g % wgroups) * kPx;
-  const long long q = g / wgroups;  // b * Ho + oy
-  const int oy = static_cast<int>(q % Ho);
-  const long long b = q / Ho;
-
-  float acc[kPx][CO];
-#pragma unroll
-  for (int p = 0; p < kPx; ++p) {
-#pragma unroll
-    for (int o = 0; o < CO; ++o) acc[p][o] = 0.0f;
-  }
-
-  for (int ky = 0; ky < k; ++ky) {
-    const int iy = oy * stride - pad_t + ky;
-    if (iy < 0 || iy >= H) continue;  // SAME zero padding
-    const TIn* row = x + (b * H + iy) * static_cast<long long>(W) * cin;
-    for (int kx = 0; kx < k; ++kx) {
-      const TIn* src[kPx];
-      bool ok[kPx];
-#pragma unroll
-      for (int p = 0; p < kPx; ++p) {
-        const int ix = (ox0 + p) * stride - pad_l + kx;
-        ok[p] = ix >= 0 && ix < W && ox0 + p < Wo;
-        src[p] = row + static_cast<long long>(ok[p] ? ix : 0) * cin;
-      }
-      const float* wt = sw + (ky * k + kx) * cin * CO;
-      if constexpr (kVec) {
-        for (int c = 0; c < cin; c += 4) {
-          float v[kPx][4];
-#pragma unroll
-          for (int p = 0; p < kPx; ++p) {
-            if (ok[p]) {
-              load4(src[p] + c, v[p]);
-              if (round_in) {
-#pragma unroll
-                for (int j = 0; j < 4; ++j) v[p][j] = round_bf16(v[p][j]);
-              }
-            } else {
-#pragma unroll
-              for (int j = 0; j < 4; ++j) v[p][j] = 0.0f;
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            float wv[CO];
-            load_weights<CO>(wt + (c + j) * CO, wv);
-#pragma unroll
-            for (int p = 0; p < kPx; ++p) {
-#pragma unroll
-              for (int o = 0; o < CO; ++o) acc[p][o] = fmaf(v[p][j], wv[o], acc[p][o]);
-            }
-          }
-        }
-      } else {
-        for (int c = 0; c < cin; ++c) {
-          float v[kPx];
-#pragma unroll
-          for (int p = 0; p < kPx; ++p) {
-            v[p] = ok[p] ? load1(src[p] + c) : 0.0f;
-            if (round_in) v[p] = round_bf16(v[p]);
-          }
-          float wv[CO];
-          load_weights<CO>(wt + c * CO, wv);
-#pragma unroll
-          for (int p = 0; p < kPx; ++p) {
-#pragma unroll
-            for (int o = 0; o < CO; ++o) acc[p][o] = fmaf(v[p], wv[o], acc[p][o]);
-          }
-        }
-      }
-    }
-  }
-
-  float bv[CO];
-#pragma unroll
-  for (int o = 0; o < CO; ++o) bv[o] = __ldg(bias + co0 + o);
-#pragma unroll
-  for (int p = 0; p < kPx; ++p) {
-    if (ox0 + p >= Wo) break;
-    const long long base = (q * Wo + ox0 + p) * cout + co0;
-#pragma unroll
-    for (int o = 0; o < CO; ++o) {
-      float v = acc[p][o] + bv[o];
-      if (round_out) v = round_bf16(v);
-      if (relu) v = fmaxf(v, 0.0f);
-      store1(out, base + o, v, out_bf16);
-    }
-  }
-}
-
-template <typename TIn, int CO>
-cudaError_t launch_conv(const void* x, const float* w, const float* bias, void* out, int out_bf16,
-                        int B, int H, int W, int cin, int Ho, int Wo, int cout, int k,
-                        int stride, int pad_t, int pad_l, int round_in, int round_out,
-                        int relu, cudaStream_t stream) {
-  const bool vec = cin % 4 == 0 && reinterpret_cast<uintptr_t>(x) % (4 * sizeof(TIn)) == 0;
-  auto kernel = vec ? conv_layer_kernel<TIn, CO, true> : conv_layer_kernel<TIn, CO, false>;
-  const size_t smem = static_cast<size_t>(k) * k * cin * CO * sizeof(float);
-  static int granted[2][kMaxDevices] = {};
-  int device = 0;
-  cudaError_t err = current_device(&device);
-  if (err == cudaSuccess) err = allow_smem(kernel, device, smem, granted[vec]);
-  if (err != cudaSuccess) return err;
-  const long long groups = static_cast<long long>(B) * Ho * ((Wo + kPx - 1) / kPx);
-  const dim3 grid(static_cast<unsigned>((groups + kThreads - 1) / kThreads), cout / CO);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const TIn*>(x), w, bias, out, out_bf16, H, W, cin, Ho, Wo, cout, k, stride,
-      pad_t, pad_l, round_in, round_out, relu, groups);
-  return cudaGetLastError();
-}
-
-template <typename TIn>
-cudaError_t dispatch_conv(int co, const void* x, const float* w, const float* bias, void* out,
-                          int out_bf16, int B, int H, int W, int cin, int Ho, int Wo, int cout,
-                          int k, int stride, int pad_t, int pad_l, int round_in, int round_out,
-                          int relu, cudaStream_t stream) {
-#define DAVO_CONV(N)                                                                       \
-  case N:                                                                                  \
-    return launch_conv<TIn, N>(x, w, bias, out, out_bf16, B, H, W, cin, Ho, Wo, cout, k,   \
-                               stride, pad_t, pad_l, round_in, round_out, relu, stream);
-  switch (co) {
-    DAVO_CONV(16)
-    DAVO_CONV(8)
-    DAVO_CONV(4)
-    DAVO_CONV(2)
-    DAVO_CONV(1)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef DAVO_CONV
+__device__ __forceinline__ float load1(const unsigned short* p) {
+  return __uint_as_float(static_cast<unsigned>(__ldg(p)) << 16);
 }
 
 // The estimator input of a flow level: out (B, H, W, cpad) channels
@@ -281,19 +100,93 @@ cudaError_t dispatch_conv(int co, const void* x, const float* w, const float* bi
 // and cast. The training forward also keeps the unrounded values in a0
 // (float32, same layout; null when serving): the reference's backward
 // reads the float32 estimator input (layer 0's dW, the cost-volume gate).
-// One thread per output element, channels fastest (coalesced stores; a
-// warp's shift threads read the same f1 row).
-template <typename TIn>
+//
+// Bound on this card: bytes. Per pixel it reads f1, f2 and feat (C, C,
+// Cf elements) and flow_up, and writes cpad activations (and cpad floats
+// of a0); the 2*D*C FLOPs of the correlations take less time than those
+// bytes at every level of the presets. The first design (one thread per
+// output element, each re-reading a C-long dot product from device
+// memory) read D*C*2 elements per pixel through the caches instead.
+// Design: the cost volume's forward tile (costvol_tile.cuh, `cv_correlate`:
+// the f1 tile and the f2 window staged by cp.async and read in place as
+// bf16 or float32, 4 pixels x the shifts of a (tile row, dy) in
+// registers; every sum runs over the channels ascending, fmaf, times 1/C
+// last). The epilogue writes each tile row, one contiguous run of
+// pixels x cpad channels, in groups of 4 channels a thread (cpad is a
+// multiple of 4: a group never straddles a pixel): the staged
+// correlations ReLU'd, feat and flow_up read as they come, zeros past
+// them; 8-byte (bf16) or 16-byte (float32) stores, and a0's 16-byte ones.
+// Where the tile plan refuses the search (above 43, whose smallest tile's
+// window and outputs exceed a block's shared memory) the element kernel
+// below computes the same values, one thread per output element.
+template <typename T, int kS>
+__global__ void __launch_bounds__(kS >= 0 ? 8 * kFwdRows * (2 * kS + 1) : kFwdGenericThreads,
+                                  kS == 3 ? 3 : kS == 4 ? 2 : 1)
+flow_level_input_kernel(const T* __restrict__ f1, const T* __restrict__ f2, const T* __restrict__ feat,
+                        const float* __restrict__ flow_up, void* __restrict__ out, int out_bf16,
+                        float* __restrict__ a0, int H, int W, int C, int Cf, int Cu, int s_rt, int cpad, bool vec,
+                        FwdPlan p) {
+  extern __shared__ uint4 smem_u[];
+  const int s = kS >= 0 ? kS : s_rt;
+  const int D = (2 * s + 1) * (2 * s + 1);
+  const CvTile ct = cv_tile_at(p, H);
+  cv_correlate<T, kS>(f1, f2, H, W, C, s_rt, vec, p, ct, smem_u, [](int) { return 0; });
+  const float* cv = reinterpret_cast<const float*>(smem_u);
+  // Thread t takes groups t, t + blockDim, ... of a row's pixels x cpad/4
+  // groups, its (pixel, group) advanced by a fixed step.
+  const int groups = cpad / 4, n = min(p.tw, W - ct.x0) * groups;
+  const int step_px = blockDim.x / groups, step_g = blockDim.x - step_px * groups;
+  for (int r = 0; r < p.th && ct.y0 + r < H; ++r) {
+    const long long pix0 = (ct.row0 + ct.y0 + r) * W + ct.x0;
+    int px = threadIdx.x / groups, gi = threadIdx.x - px * groups;
+    for (int e = threadIdx.x; e < n; e += blockDim.x) {
+      const int x = px, c0 = gi * 4;
+      const long long pix = pix0 + x;
+      px += step_px;
+      gi += step_g;
+      if (gi >= groups) {
+        gi -= groups;
+        ++px;
+      }
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int ch = c0 + j;
+        if (ch < D) {
+          v[j] = fmaxf(cv[r * p.row_stride + x * D + ch], 0.0f);
+        } else if (ch < D + Cf) {
+          v[j] = load1(feat + pix * Cf + (ch - D));
+        } else if (ch < D + Cf + Cu) {
+          v[j] = __ldg(flow_up + pix * Cu + (ch - D - Cf));
+        } else {
+          v[j] = 0.0f;
+        }
+      }
+      const long long o = pix * cpad + c0;
+      if (out_bf16) {
+        *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(out) + o) =
+            make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+      } else {
+        *reinterpret_cast<float4*>(static_cast<float*>(out) + o) = make_float4(v[0], v[1], v[2], v[3]);
+      }
+      if (a0 != nullptr) *reinterpret_cast<float4*>(a0 + o) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// The same values one thread per output element, channels fastest: the
+// searches the tile plan refuses.
+template <typename T>
 __global__ void __launch_bounds__(256)
-flow_level_input_kernel(const TIn* __restrict__ f1, const TIn* __restrict__ f2,
-                        const TIn* __restrict__ feat, const float* __restrict__ flow_up,
-                        void* __restrict__ out, int out_bf16, float* __restrict__ a0, int H, int W,
-                        int C, int Cf, int Cu, int search, int cpad, long long elements) {
+flow_level_input_element_kernel(const T* __restrict__ f1, const T* __restrict__ f2, const T* __restrict__ feat,
+                                const float* __restrict__ flow_up, void* __restrict__ out, int out_bf16,
+                                float* __restrict__ a0, int H, int W, int C, int Cf, int Cu, int search, int cpad,
+                                long long elements) {
   const int d = 2 * search + 1;
   const int D = d * d;
+  const float inv_c = 1.0f / static_cast<float>(C);
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < elements;
-       i += step) {
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < elements; i += step) {
     const int ch = static_cast<int>(i % cpad);
     const long long p = i / cpad;
     float v = 0.0f;
@@ -302,11 +195,11 @@ flow_level_input_kernel(const TIn* __restrict__ f1, const TIn* __restrict__ f2,
       const int w = static_cast<int>(p % W);
       const int h = static_cast<int>((p / W) % H);
       if (h + dy >= 0 && h + dy < H && w + dx >= 0 && w + dx < W) {
-        const TIn* a = f1 + p * C;
-        const TIn* b = f2 + (p + static_cast<long long>(dy) * W + dx) * C;
+        const T* a = f1 + p * C;
+        const T* b = f2 + (p + static_cast<long long>(dy) * W + dx) * C;
         float acc = 0.0f;
         for (int c = 0; c < C; ++c) acc = fmaf(load1(a + c), load1(b + c), acc);
-        v = fmaxf(acc / static_cast<float>(C), 0.0f);
+        v = fmaxf(acc * inv_c, 0.0f);
       }
     } else if (ch < D + Cf) {
       v = load1(feat + p * Cf + (ch - D));
@@ -315,6 +208,52 @@ flow_level_input_kernel(const TIn* __restrict__ f1, const TIn* __restrict__ f2,
     }
     store1(out, i, out_bf16 ? round_bf16(v) : v, out_bf16);
     if (a0 != nullptr) a0[i] = v;
+  }
+}
+
+template <typename T, int kS>
+cudaError_t launch_level_input(const void* f1, const void* f2, const void* feat, const float* flow_up, void* out,
+                               int out_bf16, float* a0, int B, int H, int W, int C, int Cf, int Cu, int search,
+                               int cpad, bool vec, const FwdPlan& p, int device, cudaStream_t stream) {
+  static int granted[kMaxDevices] = {};
+  const cudaError_t err = allow_smem(flow_level_input_kernel<T, kS>, device, p.smem, granted);
+  if (err != cudaSuccess) return err;
+  const long long tiles = static_cast<long long>(B) * p.tiles_y * p.tiles_x;
+  flow_level_input_kernel<T, kS><<<static_cast<unsigned>(tiles), p.threads, p.smem, stream>>>(
+      static_cast<const T*>(f1), static_cast<const T*>(f2), static_cast<const T*>(feat), flow_up, out, out_bf16,
+      a0, H, W, C, Cf, Cu, search, cpad, vec, p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t level_input(const void* f1, const void* f2, const void* feat, const float* flow_up, void* out,
+                        int out_bf16, float* a0, int B, int H, int W, int C, int Cf, int Cu, int search, int cpad,
+                        cudaStream_t stream) {
+  int device = 0, smem_max = 0, sms = 0;
+  cudaError_t err = current_device(&device);
+  if (err == cudaSuccess) err = device_limits(device, &smem_max, &sms);
+  if (err != cudaSuccess) return err;
+  FwdPlan p{};
+  if (!plan_forward(B, H, W, C, search, sizeof(T), smem_max, sms, &p)) {
+    const long long elements = static_cast<long long>(B) * H * W * cpad;
+    const int blocks = static_cast<int>((elements + 255) / 256 < 132 * 32 ? (elements + 255) / 256 : 132 * 32);
+    flow_level_input_element_kernel<T><<<blocks, 256, 0, stream>>>(
+        static_cast<const T*>(f1), static_cast<const T*>(f2), static_cast<const T*>(feat), flow_up, out, out_bf16,
+        a0, H, W, C, Cf, Cu, search, cpad, elements);
+    return cudaGetLastError();
+  }
+  const auto aligned = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
+  const bool vec = (C * sizeof(T)) % 16 == 0 && aligned(f1) && aligned(f2);
+  switch (search) {
+    case 3:
+      return launch_level_input<T, 3>(f1, f2, feat, flow_up, out, out_bf16, a0, B, H, W, C, Cf, Cu, search, cpad,
+                                      vec, p, device, stream);
+    case 4:
+      return launch_level_input<T, 4>(f1, f2, feat, flow_up, out, out_bf16, a0, B, H, W, C, Cf, Cu, search, cpad,
+                                      vec, p, device, stream);
+    default:
+      return launch_level_input<T, -1>(f1, f2, feat, flow_up, out, out_bf16, a0, B, H, W, C, Cf, Cu, search, cpad,
+                                       vec, p, device, stream);
   }
 }
 
@@ -350,11 +289,36 @@ conv_mma_flat_kernel(const TIn* __restrict__ x, const __nv_bfloat16* __restrict_
   conv_mma_flat_tile<TIn, NT, L, false>(x, w, bias, out, g, tile_at(g, blockIdx.x, blockIdx.y), smem4);
 }
 
-template <typename TIn, int NT, typename L, bool kFlat>
-cudaError_t launch_mma(const void* x, const __nv_bfloat16* w, const float* bias, void* out, int B,
-                       const MmaGeo& g, size_t smem, int device, cudaStream_t stream) {
-  void (*kernel)(const TIn*, const __nv_bfloat16*, const float*, void*, MmaGeo);
-  if constexpr (kFlat) {
+// The float32 mode: the same tiles in split TF32 (conv_mma.cuh), weights
+// as `_pack_tf32` packs them.
+template <typename TIn, int NT, typename L>
+__global__ void __launch_bounds__(L::kThreads)
+conv_tf32_chunked_kernel(const TIn* __restrict__ x, const float* __restrict__ w, const float* __restrict__ bias,
+                         void* __restrict__ out, const MmaGeo g) {
+  extern __shared__ __align__(16) uint4 smem4[];
+  conv_tf32_chunked_tile<TIn, NT, L, false>(x, w, bias, out, g, tile_at(g, blockIdx.x, blockIdx.y), smem4);
+}
+
+template <typename TIn, int NT, typename L>
+__global__ void __launch_bounds__(L::kThreads)
+conv_tf32_flat_kernel(const TIn* __restrict__ x, const float* __restrict__ w, const float* __restrict__ bias,
+                      void* __restrict__ out, const MmaGeo g) {
+  extern __shared__ __align__(16) uint4 smem4[];
+  conv_tf32_flat_tile<TIn, NT, L, false>(x, w, bias, out, g, tile_at(g, blockIdx.x, blockIdx.y), smem4);
+}
+
+// One layer's kernel by precision, K order, input dtype, channel tile and
+// tile layout.
+template <bool kTf32, typename TIn, int NT, typename L, bool kFlat>
+cudaError_t launch_mma(const void* x, const void* w, const float* bias, void* out, int B, const MmaGeo& g,
+                       size_t smem, int device, cudaStream_t stream) {
+  using TW = typename std::conditional<kTf32, float, __nv_bfloat16>::type;
+  void (*kernel)(const TIn*, const TW*, const float*, void*, MmaGeo);
+  if constexpr (kTf32 && kFlat) {
+    kernel = conv_tf32_flat_kernel<TIn, NT, L>;
+  } else if constexpr (kTf32) {
+    kernel = conv_tf32_chunked_kernel<TIn, NT, L>;
+  } else if constexpr (kFlat) {
     kernel = conv_mma_flat_kernel<TIn, NT, L>;
   } else if constexpr (std::is_same<TIn, float>::value && NT == 12) {
     kernel = conv_mma_chunked_f32_kernel<NT, L>;
@@ -365,46 +329,50 @@ cudaError_t launch_mma(const void* x, const __nv_bfloat16* w, const float* bias,
   const cudaError_t err = allow_smem(kernel, device, smem, granted);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(B * g.tiles), static_cast<unsigned>((g.npad + g.n_rows - 1) / g.n_rows));
-  kernel<<<grid, L::kThreads, smem, stream>>>(static_cast<const TIn*>(x), w, bias, out, g);
+  kernel<<<grid, L::kThreads, smem, stream>>>(static_cast<const TIn*>(x), static_cast<const TW*>(w), bias, out, g);
   return cudaGetLastError();
 }
 
-template <typename TIn, typename L, bool kFlat>
-cudaError_t dispatch_nt(int nt, const void* x, const __nv_bfloat16* w, const float* bias, void* out,
-                        int B, const MmaGeo& g, size_t smem, int device, cudaStream_t stream) {
+template <bool kTf32, typename TIn, typename L, bool kFlat>
+cudaError_t dispatch_nt(int nt, const void* x, const void* w, const float* bias, void* out, int B,
+                        const MmaGeo& g, size_t smem, int device, cudaStream_t stream) {
   switch (nt) {
-    case 12: return launch_mma<TIn, 12, L, kFlat>(x, w, bias, out, B, g, smem, device, stream);
-    case 8: return launch_mma<TIn, 8, L, kFlat>(x, w, bias, out, B, g, smem, device, stream);
-    case 4: return launch_mma<TIn, 4, L, kFlat>(x, w, bias, out, B, g, smem, device, stream);
-    case 2: return launch_mma<TIn, 2, L, kFlat>(x, w, bias, out, B, g, smem, device, stream);
-    case 1: return launch_mma<TIn, 1, L, kFlat>(x, w, bias, out, B, g, smem, device, stream);
+    case 12:
+      if constexpr (!kTf32) return launch_mma<kTf32, TIn, 12, L, kFlat>(x, w, bias, out, B, g, smem, device, stream);
+      return cudaErrorInvalidValue;  // the split-TF32 plan stops at 8 (its registers)
+    case 8: return launch_mma<kTf32, TIn, 8, L, kFlat>(x, w, bias, out, B, g, smem, device, stream);
+    case 4: return launch_mma<kTf32, TIn, 4, L, kFlat>(x, w, bias, out, B, g, smem, device, stream);
+    case 2: return launch_mma<kTf32, TIn, 2, L, kFlat>(x, w, bias, out, B, g, smem, device, stream);
+    case 1: return launch_mma<kTf32, TIn, 1, L, kFlat>(x, w, bias, out, B, g, smem, device, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // The tile layouts: 4 warps, 16x8 or 8x16 pixels; 8 warps, 16x16 (the
 // chunked order only).
-template <typename TIn>
-cudaError_t dispatch_mma(int nt, const void* x, const __nv_bfloat16* w, const float* bias, void* out,
-                         int B, const MmaGeo& g, bool flat, size_t smem, int device, cudaStream_t stream) {
+template <bool kTf32, typename TIn>
+cudaError_t dispatch_mma(int nt, const void* x, const void* w, const float* bias, void* out, int B,
+                         const MmaGeo& g, bool flat, size_t smem, int device, cudaStream_t stream) {
   if (flat) {
     if (g.tile_w == 16) {
-      return dispatch_nt<TIn, Layout<4, 16>, true>(nt, x, w, bias, out, B, g, smem, device, stream);
+      return dispatch_nt<kTf32, TIn, Layout<4, 16>, true>(nt, x, w, bias, out, B, g, smem, device, stream);
     }
-    return dispatch_nt<TIn, Layout<4, 8>, true>(nt, x, w, bias, out, B, g, smem, device, stream);
+    return dispatch_nt<kTf32, TIn, Layout<4, 8>, true>(nt, x, w, bias, out, B, g, smem, device, stream);
   }
   if (g.tile_h * g.tile_w == 256) {
-    return dispatch_nt<TIn, Layout<8, 16>, false>(nt, x, w, bias, out, B, g, smem, device, stream);
+    return dispatch_nt<kTf32, TIn, Layout<8, 16>, false>(nt, x, w, bias, out, B, g, smem, device, stream);
   }
   if (g.tile_w == 16) {
-    return dispatch_nt<TIn, Layout<4, 16>, false>(nt, x, w, bias, out, B, g, smem, device, stream);
+    return dispatch_nt<kTf32, TIn, Layout<4, 16>, false>(nt, x, w, bias, out, B, g, smem, device, stream);
   }
-  return dispatch_nt<TIn, Layout<4, 8>, false>(nt, x, w, bias, out, B, g, smem, device, stream);
+  return dispatch_nt<kTf32, TIn, Layout<4, 8>, false>(nt, x, w, bias, out, B, g, smem, device, stream);
 }
 
-int conv_layer_mma(const void* x, int x_bf16, const void* w, const float* bias, void* out,
-                   int out_bf16, int B, int H, int W, int cin, int Ho, int Wo, int cout, int k,
-                   int stride, int pad_t, int pad_l, int round_out, int relu, cudaStream_t s) {
+// One layer on the tensor cores: bf16 products (tf32 false) or float32
+// ones in split TF32.
+int conv_layer_mma(bool tf32, const void* x, int x_bf16, const void* w, const float* bias, void* out,
+                   int out_bf16, int B, int H, int W, int cin, int Ho, int Wo, int cout, int k, int stride,
+                   int pad_t, int pad_l, int round_out, int relu, cudaStream_t s) {
   const bool flat = mma_flat(cin);
   if (B <= 0 || H <= 0 || W <= 0 || Ho <= 0 || Wo <= 0 || cin <= 0 || cout <= 0 || k <= 0 ||
       k % 2 == 0 || (stride != 1 && stride != 2)) {
@@ -415,76 +383,72 @@ int conv_layer_mma(const void* x, int x_bf16, const void* w, const float* bias, 
   if (err == cudaSuccess) err = device_limits(device, &smem_max, &sms);
   if (err != cudaSuccess) return err;
   MmaGeo g{};
-  const size_t smem = mma_plan(g, B, H, W, cin, Ho, Wo, cout, k, stride, pad_t, pad_l, sms, smem_max, true, true);
+  const MmaPrec prec = !tf32 ? MmaPrec::kBf16 : x_bf16 ? MmaPrec::kTf32NoALo : MmaPrec::kTf32;
+  const size_t smem =
+      mma_plan(g, B, H, W, cin, Ho, Wo, cout, k, stride, pad_t, pad_l, sms, smem_max, true, !tf32, prec);
   if (smem == 0 || static_cast<long long>(B) * g.tiles > INT_MAX) return cudaErrorInvalidValue;
   g.round_out = round_out;
   g.relu = relu;
   g.out_bf16 = out_bf16;
   g.piece = mma_piece(x, x_bf16, cin);
   const int nt = g.n_rows / 8;
-  const auto* wb = static_cast<const __nv_bfloat16*>(w);
-  if (x_bf16) return dispatch_mma<__nv_bfloat16>(nt, x, wb, bias, out, B, g, flat, smem, device, s);
-  return dispatch_mma<float>(nt, x, wb, bias, out, B, g, flat, smem, device, s);
+  if (tf32) {
+    if (x_bf16) return dispatch_mma<true, __nv_bfloat16>(nt, x, w, bias, out, B, g, flat, smem, device, s);
+    return dispatch_mma<true, float>(nt, x, w, bias, out, B, g, flat, smem, device, s);
+  }
+  if (x_bf16) return dispatch_mma<false, __nv_bfloat16>(nt, x, w, bias, out, B, g, flat, smem, device, s);
+  return dispatch_mma<false, float>(nt, x, w, bias, out, B, g, flat, smem, device, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// One fused conv layer. x_bf16 / out_bf16: bfloat16 (else float32)
-// storage; round_in: round float32 input to bf16 before the products
-// (the bf16_dot mode); round_out: round the biased sum to bf16 (the
-// activation dtype is bf16). Returns a cudaError_t (InvalidValue when no
-// channel slice of the weights fits shared memory).
-int davo_conv_layer(const void* x, int x_bf16, const float* w, const float* bias, void* out,
-                    int out_bf16, int B, int H, int W, int cin, int Ho, int Wo, int cout, int k,
-                    int stride, int pad_t, int pad_l, int round_in, int round_out, int relu,
-                    void* stream) {
-  if (B <= 0 || Ho <= 0 || Wo <= 0 || cin <= 0 || cout <= 0 || k <= 0) return cudaErrorInvalidValue;
-  int co = 16;  // the widest channel slice that divides cout and fits shared memory
-  while (co > 1 && (cout % co != 0 || static_cast<size_t>(k) * k * cin * co * 4 > kMaxSmem)) co /= 2;
-  if (static_cast<size_t>(k) * k * cin * co * 4 > kMaxSmem) return cudaErrorInvalidValue;
-  auto s = static_cast<cudaStream_t>(stream);
-  if (x_bf16) {
-    return dispatch_conv<__nv_bfloat16>(co, x, w, bias, out, out_bf16, B, H, W, cin, Ho, Wo, cout,
-                                        k, stride, pad_t, pad_l, round_in, round_out, relu, s);
-  }
-  return dispatch_conv<float>(co, x, w, bias, out, out_bf16, B, H, W, cin, Ho, Wo, cout, k, stride,
-                              pad_t, pad_l, round_in, round_out, relu, s);
-}
-
-// One fused conv layer on the tensor cores (the bfloat16 and bf16_dot
-// modes: operands in bf16, a float32 input rounded to bf16 as it is
-// staged). w: the layer's weights as `_pack_mma` packs them (bf16, the
+// One fused conv layer on the tensor cores in bf16 (the bfloat16 and
+// bf16_dot modes: operands in bf16, a float32 input rounded to bf16 as it
+// is staged). w: the layer's weights as `_pack_mma` packs them (bf16, the
 // chunked order for cin >= 16, else the flat one). round_out: round the
 // biased sum to bf16 (the activation dtype is bf16). Returns a
 // cudaError_t (InvalidValue for sizes the kernel does not take).
 int davo_conv_layer_mma(const void* x, int x_bf16, const void* w, const float* bias, void* out,
                         int out_bf16, int B, int H, int W, int cin, int Ho, int Wo, int cout, int k,
                         int stride, int pad_t, int pad_l, int round_out, int relu, void* stream) {
-  return conv_layer_mma(x, x_bf16, w, bias, out, out_bf16, B, H, W, cin, Ho, Wo, cout, k, stride,
+  return conv_layer_mma(false, x, x_bf16, w, bias, out, out_bf16, B, H, W, cin, Ho, Wo, cout, k, stride,
                         pad_t, pad_l, round_out, relu, static_cast<cudaStream_t>(stream));
 }
 
+// The same layer in float32 (the float32 mode: float32 products and
+// sums, in split TF32 on the tensor cores). w: the weights as
+// `_pack_tf32` packs them (float32 hi and lo planes, `_pack_mma`'s K
+// order); x float32 or bf16.
+int davo_conv_layer_tf32(const void* x, int x_bf16, const void* w, const float* bias, void* out,
+                         int out_bf16, int B, int H, int W, int cin, int Ho, int Wo, int cout, int k,
+                         int stride, int pad_t, int pad_l, int round_out, int relu, void* stream) {
+  return conv_layer_mma(true, x, x_bf16, w, bias, out, out_bf16, B, H, W, cin, Ho, Wo, cout, k, stride,
+                        pad_t, pad_l, round_out, relu, static_cast<cudaStream_t>(stream));
+}
+
+// The flow level's estimator input (see flow_level_input_kernel): f1,
+// f2, feat (B, H, W, C / C / Cf) float32 or bf16 (in_bf16), flow_up
+// (B, H, W, Cu) float32; out (B, H, W, cpad), cpad a multiple of 4,
+// bf16 (out_bf16) or float32, 16-byte aligned; a0 the same in float32, or
+// null. Returns a cudaError_t.
 int davo_flow_level_input(const void* f1, const void* f2, const void* feat, int in_bf16,
                           const float* flow_up, void* out, int out_bf16, float* a0, int B, int H,
                           int W, int C, int Cf, int Cu, int search, int cpad, void* stream) {
-  const long long elements = static_cast<long long>(B) * H * W * cpad;
-  if (elements <= 0 || C <= 0) return cudaErrorInvalidValue;
-  const int blocks = static_cast<int>((elements + 255) / 256 < 132 * 32 ? (elements + 255) / 256 : 132 * 32);
+  const long long pixels = static_cast<long long>(B) * H * W;
+  const int D = (2 * search + 1) * (2 * search + 1);
+  if (pixels <= 0 || pixels > INT_MAX / 2 || C <= 0 || Cf < 0 || Cu < 0 || search < 0 || search > 64 ||
+      cpad % 4 != 0 || cpad < D + Cf + Cu || reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(a0) % 16 != 0) {
+    return cudaErrorInvalidValue;
+  }
   auto s = static_cast<cudaStream_t>(stream);
   if (in_bf16) {
-    flow_level_input_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(f1), static_cast<const __nv_bfloat16*>(f2),
-        static_cast<const __nv_bfloat16*>(feat), flow_up, out, out_bf16, a0, H, W, C, Cf, Cu,
-        search, cpad, elements);
-  } else {
-    flow_level_input_kernel<float><<<blocks, 256, 0, s>>>(
-        static_cast<const float*>(f1), static_cast<const float*>(f2),
-        static_cast<const float*>(feat), flow_up, out, out_bf16, a0, H, W, C, Cf, Cu, search,
-        cpad, elements);
+    return level_input<unsigned short>(f1, f2, feat, flow_up, out, out_bf16, a0, B, H, W, C, Cf, Cu, search,
+                                       cpad, s);
   }
-  return cudaGetLastError();
+  return level_input<float>(f1, f2, feat, flow_up, out, out_bf16, a0, B, H, W, C, Cf, Cu, search, cpad, s);
 }
 
 const char* davo_cuda_error_string(int err) {

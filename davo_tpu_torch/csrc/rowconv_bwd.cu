@@ -177,35 +177,7 @@ struct Cotangent {
 
 // ------------------------------------------------------------------ split TF32
 
-__device__ __forceinline__ unsigned tf32_rna(float v) {
-  unsigned r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// v = hi + lo, both TF32 values (the low 13 mantissa bits zero).
-__device__ __forceinline__ void split(float v, unsigned& hi, unsigned& lo) {
-  hi = tf32_rna(v);
-  lo = tf32_rna(v - __uint_as_float(hi));
-}
-
-// c += a (16x8, row) * b (8x8, col), TF32 operands, f32 accumulators.
-__device__ __forceinline__ void mma_tf32(float c[4], const unsigned a[4], unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d = a * b, the accumulator starting at zero.
-__device__ __forceinline__ void mma_tf32_fresh(float d[4], const unsigned a[4], unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.0f));
-}
+// tf32_rna, split, mma_tf32 and mma_tf32_fresh are common.cuh's.
 
 // t (+)= a * b in split TF32 on the tensor cores: the three products, the
 // small terms first; the middle one only where b has a lo (kBLo); kFresh:

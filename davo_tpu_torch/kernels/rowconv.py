@@ -22,12 +22,13 @@ rounds the conv output first and adds a bf16 bias, which is another
 function in bf16: the fused modules follow the kernels, not `ConvBlock`.
 
 Weights are the port's OIHW float32 parameters (`Conv_0.weight`, as
-`convert.py` loads them). Each layer kernel takes them in its own layout:
-the tensor-core kernel of the bf16 modes as bf16 in its K order
-(`_pack_mma`), the float32 FMA kernel as (k, k, Cin, Cout) float32
-(`_pack`). `_packed` keeps each parameter's packing until the parameter
-changes in place (its `_version`) or its storage changes, so an Adam step
-is seen by the next forward and an unchanged parameter is packed once.
+`convert.py` loads them). Both layer kernels are implicit GEMMs on the
+tensor cores with one K order (`mma_order`) and take the weights in it:
+the bf16 modes' as bf16 (`_pack_mma`), the float32 mode's split into
+TF32 hi and lo planes of float32 (`_pack_tf32`). `_packed` keeps each
+parameter's packing until the parameter changes in place (its
+`_version`) or its storage changes, so an Adam step is seen by the next
+forward and an unchanged parameter is packed once.
 
 Serving only, as the TPU kernels (which have no VJP): every wrapper
 raises when autograd would have to differentiate it (the training
@@ -65,11 +66,16 @@ DTYPE_MODES = {
 _NAMES = ("flow_level_fused", "conv_chain_strided", "conv_chain_nhwc")
 launches = dict.fromkeys(_NAMES, 0)
 device_launches = dict.fromkeys(_NAMES, 0)
+# Launches of the flow level's input kernel, from the serving level and
+# the training one (`rowconv_ad`) alike.
+level_input_launches = 0
 
 
 def reset_counts() -> None:
+    global level_input_launches
     for name in _NAMES:
         launches[name] = device_launches[name] = 0
+    level_input_launches = 0
 
 
 def fusable_even_prefix(h: int, w: int, strides: Sequence[int]) -> int:
@@ -171,17 +177,21 @@ def flow_level_fused_plain(f1, f2, feat, flow_up, weights, biases, search, relus
 # --------------------------------------------------------------------- kernels
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The C entry points of `csrc/rowconv.cu` (each returns a cudaError_t).
+SIGNATURES = {
+    "davo_conv_layer_mma": [_P, _I, _P, _P, _P, _I] + [_I] * 13 + [_P],
+    "davo_conv_layer_tf32": [_P, _I, _P, _P, _P, _I] + [_I] * 13 + [_P],
+    "davo_flow_level_input": [_P, _P, _P, _I, _P, _P, _I, _P] + [_I] * 8 + [_P],
+}
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """`lib` (a build of `csrc/rowconv.cu`) with its entry points' ctypes
-    signatures set."""
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.davo_conv_layer.argtypes = [P, I, P, P, P, I] + [I] * 14 + [P]
-    lib.davo_conv_layer.restype = I
-    lib.davo_conv_layer_mma.argtypes = [P, I, P, P, P, I] + [I] * 13 + [P]
-    lib.davo_conv_layer_mma.restype = I
-    lib.davo_flow_level_input.argtypes = [P, P, P, I, P, P, I, P] + [I] * 8 + [P]
-    lib.davo_flow_level_input.restype = I
-    lib.davo_cuda_error_string.argtypes = [I]
+    """`lib` (a build of `csrc/rowconv.cu`) with `SIGNATURES` set."""
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, _I
+    lib.davo_cuda_error_string.argtypes = [_I]
     lib.davo_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
@@ -205,29 +215,22 @@ def _bf16_flag(t: torch.Tensor, what: str) -> int:
     return int(t.dtype == torch.bfloat16)
 
 
-def _pack(w: torch.Tensor, dot: torch.dtype, cin: int | None = None) -> torch.Tensor:
-    """OIHW float32 -> (k, k, Cin, Cout) float32 holding dot-dtype values;
-    input channels zero-padded to `cin`."""
-    if cin is not None and cin > w.shape[1]:
-        w = F.pad(w, (0, 0, 0, 0, 0, cin - w.shape[1]))
-    return w.detach().to(dot).float().permute(2, 3, 1, 0).contiguous()
-
-
 def mma_chunked(cin: int) -> bool:
-    """Whether the tensor-core kernel runs K in chunks of 16 input
-    channels (Cin >= 16), or flattens (tap, channel) into K."""
+    """Whether the tensor-core kernels run K in chunks of 16 input
+    channels (Cin >= 16), or flatten (tap, channel) into K."""
     return cin >= 16
 
 
-def _pack_mma(w: torch.Tensor, cin: int | None = None) -> torch.Tensor:
-    """OIHW float32 -> the tensor-core kernel's weights (`csrc/rowconv.cu`),
-    bf16, (Np, K): input channels zero-padded to `cin`; for cin >= 16 also
-    to a multiple of 16, K ordered (chunk of 16 channels, ky, kx, channel);
-    for cin < 16, K ordered (ky, kx, channel) and zero-padded to a multiple
-    of 16; Np = Cout padded to a multiple of 8 with zero rows."""
+def mma_order(w: torch.Tensor, cin: int | None = None) -> torch.Tensor:
+    """OIHW -> (Np, K) in the tensor-core kernels' K order (`csrc/
+    conv_mma.cuh`), w's dtype: input channels zero-padded to `cin`; for cin
+    >= 16 also to a multiple of 16, K ordered (chunk of 16 channels, ky,
+    kx, channel); for cin < 16, K ordered (ky, kx, channel) and
+    zero-padded to a multiple of 16; Np = Cout padded to a multiple of 8
+    with zero rows."""
     cout, cin_w, k, _ = w.shape
     cin = cin_w if cin is None else cin
-    w = w.detach().to(torch.bfloat16)
+    w = w.detach()
     if mma_chunked(cin):
         cp = -(-cin // 16) * 16
         w = F.pad(w, (0, 0, 0, 0, 0, cp - cin_w))
@@ -238,6 +241,29 @@ def _pack_mma(w: torch.Tensor, cin: int | None = None) -> torch.Tensor:
     return F.pad(w, (0, 0, 0, -(-cout // 8) * 8 - cout)).contiguous()
 
 
+def _pack_mma(w: torch.Tensor, cin: int | None = None) -> torch.Tensor:
+    """OIHW float32 -> the bf16 tensor-core kernel's weights: bf16 (Np, K)
+    in `mma_order`."""
+    return mma_order(w.to(torch.bfloat16), cin)
+
+
+def tf32_rna(t: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits; to nearest, ties away
+    from zero), as cvt.rna.tf32.f32: on the integer view, (bits + 0x1000)
+    with the low 13 bits cleared."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _pack_tf32(w: torch.Tensor, cin: int | None = None) -> torch.Tensor:
+    """OIHW float32 -> the float32 mode's weights: (2, Np, K) float32 in
+    `mma_order`, [0] hi = tf32_rna(w), [1] lo = tf32_rna(w - hi), both
+    exact TF32 values (split TF32: the kernel's products hi*hi + hi*lo +
+    lo*hi keep ~2^-22 of each)."""
+    w = mma_order(w.float(), cin)
+    hi = tf32_rna(w)
+    return torch.stack([hi, tf32_rna(w - hi)]).contiguous()
+
+
 # Packed weights by parameter: id -> (weak reference to it, {(layout, cin):
 # ((storage pointer, offset, _version), packed)}).
 _PACKED: dict[int, tuple] = {}
@@ -245,12 +271,12 @@ _PACKED: dict[int, tuple] = {}
 
 def _packed(w: torch.Tensor, dot: torch.dtype, cin: int) -> torch.Tensor:
     """The layer kernel's weights for OIHW `w` (input channels padded to
-    `cin`): `_pack_mma` for bf16 products, else `_pack`. Kept per parameter
-    and reused while its storage and `_version` stay the same."""
-    layout = "mma" if dot == torch.bfloat16 else "fma"
+    `cin`): `_pack_mma` for bf16 products, else `_pack_tf32`. Kept per
+    parameter and reused while its storage and `_version` stay the same."""
+    layout = "mma" if dot == torch.bfloat16 else "tf32"
 
     def pack():
-        return _pack_mma(w, cin) if layout == "mma" else _pack(w, dot, cin)
+        return _pack_mma(w, cin) if layout == "mma" else _pack_tf32(w, cin)
 
     if w.is_inference():  # no version counter to watch
         return pack()
@@ -270,8 +296,8 @@ def _packed(w: torch.Tensor, dot: torch.dtype, cin: int) -> torch.Tensor:
 def _launch_layer(x, w, b, out, stride, relu, act, dot):
     """One layer kernel: x (B, H, W, Cin) -> out (B, Ho, Wo, Cout), OIHW
     weights w (Cin may exceed w's input channels: zero channels). bf16
-    products (the bfloat16 and bf16_dot modes) run on the tensor-core
-    kernel, float32 ones on the FMA kernel."""
+    products (the bfloat16 and bf16_dot modes) run on the bf16
+    tensor-core kernel, float32 ones on the split-TF32 one."""
     B, H, W, cin = x.shape
     _, Ho, Wo, cout = out.shape
     k = w.shape[-1]
@@ -287,10 +313,8 @@ def _launch_layer(x, w, b, out, stride, relu, act, dot):
             pad_t, pad_l)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if dot == torch.bfloat16:
-            err = lib.davo_conv_layer_mma(*args, int(act == torch.bfloat16), int(bool(relu)), stream)
-        else:
-            err = lib.davo_conv_layer(*args, 0, int(act == torch.bfloat16), int(bool(relu)), stream)
+        entry = lib.davo_conv_layer_mma if dot == torch.bfloat16 else lib.davo_conv_layer_tf32
+        err = entry(*args, int(act == torch.bfloat16), int(bool(relu)), stream)
     _raise_if(err, "fused conv layer")
 
 
@@ -298,6 +322,7 @@ def _launch_level_input(f1, f2, feat, flow_up, x, search, a0=None):
     """The flow level's input kernel: x (B, H, W, cpad) <- relu(cost
     volume) ++ feat ++ flow_up ++ zero channels, in x's dtype; and, when
     given, the same unrounded into a0 (float32, x's shape)."""
+    global level_input_launches
     B, H, W, C = f1.shape
     in_bf16 = _bf16_flag(f1, "f1")
     for t, what in ((f2, "f2"), (feat, "feat"), (flow_up, "flow_up")):
@@ -310,6 +335,7 @@ def _launch_level_input(f1, f2, feat, flow_up, x, search, a0=None):
             torch.cuda.current_stream(f1.device).cuda_stream,
         )
     _raise_if(err, "flow level input")
+    level_input_launches += 1
 
 
 def _chain_cuda(name, x, weights, biases, strides, relus, act, dot, keep, last_f32, counts=None):

@@ -325,8 +325,11 @@ def test_kernel_side_plumbing_with_the_launches_emulated(monkeypatch):
         assert wp is rowconv._packed(w, dot, cin)  # packed once per parameter
         if dot == torch.bfloat16:
             w = _unpack_mma(wp, w.shape[0], cin, w.shape[-1]).float()
-        else:
-            w = wp.permute(3, 2, 0, 1)
+        else:  # TF32 hi and lo planes that restore the weights to ~2^-22
+            assert wp.shape[0] == 2 and all(torch.equal(t, rowconv.tf32_rna(t)) for t in wp)
+            restored = _unpack_mma(wp[0] + wp[1], w.shape[0], cin, w.shape[-1])
+            assert float((restored[:, : w.shape[1]] - w).abs().max()) <= 2.0**-21 * float(w.abs().max())
+            w = torch.nn.functional.pad(w, (0, 0, 0, 0, 0, cin - w.shape[1]))
         assert torch.equal(w, w.to(dot).float())
         out.copy_(rowconv._layer_plain(x, w, b, stride, relu, act, dot).to(out.dtype))
 
@@ -372,9 +375,9 @@ def test_layer_launch_passes_the_kernel_its_packing_and_flags(monkeypatch, mode)
     """`_launch_layer`'s own glue, with the library replaced by one whose
     entry points record their arguments: bf16 products go to the
     tensor-core entry with `_packed`'s bf16 weights, float32 ones to the
-    FMA entry with its float32 packing and round_in 0; sizes, Flax's low
-    pads, the input and output dtype flags, round_out and ReLU in the
-    C interface's order; one call per launch; the packing reused."""
+    split-TF32 entry with its hi and lo planes; sizes, Flax's low pads,
+    the input and output dtype flags, round_out and ReLU in the C
+    interface's order; one call per launch; the packing reused."""
     calls = []
 
     class Library:
@@ -382,8 +385,8 @@ def test_layer_launch_passes_the_kernel_its_packing_and_flags(monkeypatch, mode)
             calls.append(("davo_conv_layer_mma", args))
             return 0
 
-        def davo_conv_layer(self, *args):
-            calls.append(("davo_conv_layer", args))
+        def davo_conv_layer_tf32(self, *args):
+            calls.append(("davo_conv_layer_tf32", args))
             return 0
 
     monkeypatch.setattr(rowconv, "_library", lambda: Library())
@@ -406,9 +409,9 @@ def test_layer_launch_passes_the_kernel_its_packing_and_flags(monkeypatch, mode)
             assert torch.equal(packed, rowconv._pack_mma(w, cin))
             flags = (int(act == torch.bfloat16), int(relu))  # round_out, relu
         else:
-            assert name == "davo_conv_layer" and len(args) == 21
-            assert torch.equal(packed, rowconv._pack(w, dot, cin))
-            flags = (0, 0, int(relu))  # round_in, round_out, relu
+            assert name == "davo_conv_layer_tf32" and len(args) == 20
+            assert torch.equal(packed, rowconv._pack_tf32(w, cin))
+            flags = (0, int(relu))  # round_out, relu
         assert args[:6] == (x.data_ptr(), int(act == torch.bfloat16), packed.data_ptr(), b.data_ptr(),
                             out.data_ptr(), int(out_dtype == torch.bfloat16))
         pads = (rowconv.same_pads(H, k, stride)[0], rowconv.same_pads(W, k, stride)[0])
@@ -455,13 +458,13 @@ def _im2col_mma(x, k, stride, cin):
 @pytest.mark.parametrize("cin", [3, 9, 83])
 @pytest.mark.parametrize("k, stride", [(3, 1), (3, 2), (5, 1), (5, 2), (7, 1), (7, 2)])
 def test_kernel_weight_layouts_give_the_plain_layer(k, stride, cin):
-    """Each layer kernel's packed weights (the tensor-core kernel's bf16
-    (Np, K) for the bf16 modes, (k, k, Cin, Cout) float32 for float32),
-    multiplied with the input in the kernel's K order and zero padding
-    (Cin to 16 or K flattened to a multiple of 16, Cout to 8), plus the
-    bias, rounded once and ReLU'd, give `_layer_plain`: float32 within
-    1e-5 of the largest output, bf16 by the one-ulp criterion (the same
-    products summed in another order)."""
+    """Each layer kernel's packed weights (the tensor-core kernels' (Np,
+    K): bf16 for the bf16 modes, float32 hi and lo TF32 planes for
+    float32), multiplied with the input in the kernels' K order and zero
+    padding (Cin to 16 or K flattened to a multiple of 16, Cout to 8),
+    plus the bias, rounded once and ReLU'd, give `_layer_plain`: float32
+    within 1e-5 of the largest output, bf16 by the one-ulp criterion (the
+    same products summed in another order)."""
     rng = np.random.default_rng(11 + k + cin)
     cout = 10
     x = torch.from_numpy(rng.normal(size=(2, 9, 11, cin)).astype(np.float32))
@@ -478,13 +481,12 @@ def test_kernel_weight_layouts_give_the_plain_layer(k, stride, cin):
             y = _im2col_mma(xa.to(dot).float(), k, stride, cin) @ wp.float().t()
             y = y[..., :cout]
         else:
-            wp = rowconv._pack(w, dot)  # (k, k, Cin, Cout): K ordered (ky, kx, channel)
-            Ho, Wo = want.shape[1:3]
-            (top, bottom), (left, right) = (rowconv.same_pads(n, k, stride) for n in (9, 11))
-            xp = torch.nn.functional.pad(xa, (0, 0, left, right, top, bottom))
-            cols = torch.stack([xp[:, ky: ky + stride * (Ho - 1) + 1: stride, kx: kx + stride * (Wo - 1) + 1: stride]
-                                for ky in range(k) for kx in range(k)], 3).reshape(2, Ho, Wo, -1)
-            y = cols @ wp.reshape(-1, cout)
+            wp = rowconv._pack_tf32(w)  # (2, Np, K): hi and lo in the same K order
+            assert wp.dtype == torch.float32 and wp.shape == (2, 16, rowconv._pack_mma(w).shape[1])
+            assert not wp[:, cout:].any()
+            assert torch.equal(_unpack_mma(wp[0], cout, cin, k), rowconv.tf32_rna(w))
+            y = _im2col_mma(xa, k, stride, cin) @ (wp[0] + wp[1]).t()
+            y = y[..., :cout]
         y = torch.relu((y + b).to(act))
         assert y.dtype == want.dtype and y.shape == want.shape
         (_assert_f32 if act == torch.float32 else _assert_one_ulp)(y, want)
