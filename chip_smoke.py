@@ -10,14 +10,16 @@
         # flow_level_input per serving request and per fused train step),
         # the training backward (rowconv_bwd.cu: per fused unit, and
         # flow_level_input_bwd at the B=4 and B=64 steps' levels) and the
-        # conv stack (conv_stack.cu, the pose prefix at B=64 and 256)
+        # conv stack (conv_stack.cu, the pose prefix at B=64 and 256, bf16
+        # and float32, each mode's weights as that source reads them)
 
 Phases, in order; any failure exits non-zero:
   1. environment: card name and power limit, torch/CUDA versions, TF32 flags
   2. build: compile the CUDA kernels from davo_tpu_torch/csrc (one nvcc
      per source, all started together); SASS HMMA/FFMA counts per kernel
      of rowconv.cu, rowconv_bwd.cu and conv_stack.cu (HMMA and no FFMA
-     asserted in the split-TF32 layer kernels and the stack's bf16 one)
+     asserted in the split-TF32 layer kernels and in both of the stack's
+     kernels, whose registers and spills are printed)
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it, with times, the card's bound and, for
      the banded warp, F.grid_sample as the library yardstick: the cost
@@ -39,21 +41,27 @@ Phases, in order; any failure exits non-zero:
      Cout not a multiple of 8); then the flow level's
      input kernel alone at the serving levels and the davo train levels
      (S*B = 8 and 128, with and without a0) beside its bytes bound and
-     the unfused route (cost volume, ReLU, concatenation, cast);
+     the unfused route (cost volume, ReLU, concatenation, cast), and at
+     searches 1, 2, 5, 7, 12, 43 (the tile kernel's run-time-search
+     instance), 44 and 64 (the element kernel), each naming the kernel
+     that ran;
      (3e) the
      training chains' backward kernels against their plain backwards at
      one fused davo train step's shapes, bf16 and f32, with the port's
-     unfused route backward as the yardstick, then layer by layer (gate,
+     unfused route backward in the same dtype as the yardstick (device
+     time, and host-included time beside it), then layer by layer (gate,
      wgrad, dgrad against float64 sums, two runs bitwise equal, beside one
      cuDNN float32 and bf16 call each) and the flow levels' input
      backward, one layer each on 21 other shapes, and the input backward
      at searches 1, 9, 20 and 64 (shift rows in passes); (3f) the conv stack (one
-     launch per stack; bf16 on the tensor cores, phase 2 asserts HMMA and
-     no FFMA in its kernel) on the davo-fast pose prefix at B=64 and B=256
+     launch per stack on the tensor cores: bf16, and float32 in split
+     TF32, a kernel each) on the davo-fast pose prefix at B=64 and B=256
      through the bench package's speed-of-light run, then against its
      plain version and the strided chain, bf16 and f32 (each beside the
-     unfused route in its dtype), and on the JAX tests' shapes and odd
-     dims, with each launch's grid
+     unfused route in its dtype; float32 beside its bound at 3 TF32
+     passes), and on the JAX tests' shapes and odd dims, with each
+     launch's grid and per-layer plan, and each pose layer alone as a
+     one-layer stack at B=64 beside #7's layer
   4. the serving path: davo-fast at 128x416 streams a 257-frame synthetic
      world through predict_sequence in 4 requests of 64 pairs, then
      assemble_trajectory and evaluate_sequence; plus one davo forward;
@@ -329,6 +337,31 @@ def _sass_counts(library):
     return counts
 
 
+def _ptxas_resources(log, fragment):
+    """[{"kernel", "registers", "spill_stores", "spill_loads"}] of each
+    entry function whose mangled name holds `fragment`, from a build's
+    `ptxas -v` report (cuda_build.BUILD_LOG)."""
+    import re
+
+    found, entry = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = {"kernel": m.group(1)} if fragment in m.group(1) else None
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            entry["spill_stores"], entry["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+            found.append(entry)
+            entry = None
+    return found
+
+
 def _turns(fns, reps=20):
     """Device ms of each callable in `fns` ({"other": f, "this": g}),
     timed in turns: other, this, this, other."""
@@ -358,10 +391,12 @@ def _with_library(module, lib, fn, **attrs):
 
 def _bind_other_rowconv(torch, lib):
     """(`lib`, another checkout's rowconv.cu build, bound; the attributes
-    of `kernels.rowconv` its layers need). A build with this checkout's
-    entry points binds alike; an earlier one, whose float32 layers run
-    the FMA kernel `davo_conv_layer` on (k, k, Cin, Cout) float32
-    weights, gets that entry and a `_launch_layer` that packs for it."""
+    of `kernels.rowconv` its layers need). This checkout's entry points
+    that the build has are bound alike (before PR 12 it lacks
+    `davo_flow_level_input_last`, which `--against` does not call); a
+    build before PR 11, whose float32 layers run the FMA kernel
+    `davo_conv_layer` on (k, k, Cin, Cout) float32 weights, also gets that
+    entry and a `_launch_layer` that packs for it."""
     import ctypes
 
     import torch.nn.functional as F
@@ -369,15 +404,17 @@ def _bind_other_rowconv(torch, lib):
     from davo_tpu_torch.kernels import rowconv
     from davo_tpu_torch.models.common import same_pads
 
-    if hasattr(lib, "davo_conv_layer_tf32"):
-        return rowconv.bind(lib), {}
     P, I = ctypes.c_void_p, ctypes.c_int
-    signatures = {k: v for k, v in rowconv.SIGNATURES.items() if k != "davo_conv_layer_tf32"}
-    signatures["davo_conv_layer"] = [P, I, P, P, P, I] + [I] * 14 + [P]
+    signatures = {k: v for k, v in rowconv.SIGNATURES.items() if hasattr(lib, k)}
+    tf32 = "davo_conv_layer_tf32" in signatures
+    if not tf32:
+        signatures["davo_conv_layer"] = [P, I, P, P, P, I] + [I] * 14 + [P]
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, I
     lib.davo_cuda_error_string.argtypes, lib.davo_cuda_error_string.restype = [I], ctypes.c_char_p
+    if tf32:
+        return lib, {}
     launch, packed = rowconv._launch_layer, {}
 
     def layer(x, w, b, out, stride, relu, act, dot):
@@ -415,10 +452,12 @@ def compare_against(torch, other_csrc):
     3d's units, bf16, float32 and bf16_dot; the training backward
     (rowconv_bwd.cu, likewise) per unit of phase 3e and
     `flow_level_input_bwd` alone at the fused B=4 and B=64 steps' levels;
-    the conv stack (conv_stack.cu: the other's earlier entry, 13 ints a
-    layer and OIHW float32 weights) on the pose prefix at B=64 and 256.
+    the conv stack (conv_stack.cu: 13 ints a layer, each mode's weights
+    as that source reads them, `_stack_weight_layouts`) on the pose
+    prefix at B=64 and 256, bf16 and float32.
     rowconv.cu and rowconv_bwd.cu must have this checkout's C entry points
-    (the parent's do)."""
+    (the parent's do, but rowconv.cu's `davo_flow_level_input_last`,
+    which no comparison calls)."""
     import ctypes
 
     from davo_tpu_torch.kernels import bandwarp, costvol, rowconv
@@ -716,20 +755,38 @@ def _level_input_bwd_against(torch, builds, other_csrc):
           flush=True)
 
 
-def _parent_stack_launch(torch, lib, x, ws, bs, strides, relus, mode):
-    """One launch of an earlier conv_stack.cu (before its tensor-core
-    kernel): `davo_conv_stack` with 13 ints a layer (no tensor-core plan)
-    and OIHW float32 weights in both modes. Returns the float32 output."""
+def _stack_weight_layouts(src):
+    """The weights each mode of a conv_stack.cu source reads, by the
+    kernels it holds: "oihw" (OIHW float32: the FMA kernels of PRs 5-11,
+    both modes before PR 10, float32 before PR 12), "mma" (bf16,
+    `rowconv._pack_mma`: `conv_stack_mma_kernel`, PR 10 on) or "tf32"
+    (`rowconv._pack_tf32`'s hi and lo planes: `conv_stack_tf32_kernel`,
+    PR 12 on)."""
+    text = Path(src).read_text()
+    return {"bfloat16": "mma" if "conv_stack_mma_kernel" in text else "oihw",
+            "float32": "tf32" if "conv_stack_tf32_kernel" in text else "oihw"}
+
+
+def _parent_stack_launch(torch, lib, x, ws, bs, strides, relus, mode, layouts):
+    """One launch of another checkout's conv_stack.cu (its
+    `davo_conv_stack`: 13 ints a layer, the entry of every version so
+    far), each weight as that source reads it in `mode` (`layouts`, from
+    `_stack_weight_layouts`: OIHW float32, `_pack_mma`'s bf16 or
+    `_pack_tf32`'s planes). Returns the float32 output."""
     import ctypes
 
-    from davo_tpu_torch.kernels import conv_stack
+    from davo_tpu_torch.kernels import conv_stack, rowconv
 
     B, h, w, cin = x.shape
     n, act_bf16 = len(ws), int(mode == "bfloat16")
-    wf = [t.detach().float().contiguous() for t in ws]
+    layout = layouts[mode]
+    if layout == "oihw":
+        wf = [t.detach().float().contiguous() for t in ws]
+    else:
+        wf = [rowconv._packed(t, torch.bfloat16 if layout == "mma" else torch.float32, t.shape[1]) for t in ws]
     bf = [t.detach().float().contiguous() for t in bs]
     params, offsets, nbytes = [], [], 0
-    for i, (wt, s, r) in enumerate(zip(wf, strides, relus)):
+    for i, (wt, s, r) in enumerate(zip(ws, strides, relus)):
         k, cout = wt.shape[-1], wt.shape[0]
         ho, pad_t, _ = conv_stack.same_pads(h, k, s)
         wo, pad_l, _ = conv_stack.same_pads(w, k, s)
@@ -757,42 +814,52 @@ def _parent_stack_launch(torch, lib, x, ws, bs, strides, relus, mode):
 
 
 def _compare_conv_stack_against(torch, lib, other_csrc):
-    """`--against`: another checkout's conv_stack.cu (`_parent_stack_launch`)
-    against this checkout's `fused_conv_stack` on the davo-fast pose prefix
-    at B=64 and 256, bf16 and float32: both held to the plain version
-    (float32 within 1e-5 of the largest; bf16 a mean gap at most half the
-    plain version's bf16-to-f32 gap), timed in turns, beside #7 on the
-    same prefix and, in bf16, the port's unfused route."""
+    """`--against`: another checkout's conv_stack.cu (`_parent_stack_launch`
+    with the weights its source reads) against this checkout's
+    `fused_conv_stack` on the davo-fast pose prefix at B=64 and 256, bf16
+    and float32: both held to the plain version (float32 within 1e-5 of
+    the largest; bf16 a mean gap at most half the plain version's
+    bf16-to-f32 gap), whether the two outputs are bitwise equal, timed in
+    turns, beside #7 on the same prefix and the port's unfused route in
+    the mode's dtype (cuDNN bf16, or float32 with TF32 off), with this
+    checkout's grid and the float32 bound at 3 TF32 passes."""
     import ctypes
 
+    from davo_tpu_torch.bench.sol import conv_stack_sol
     from davo_tpu_torch.kernels import conv_stack, rowconv
 
+    layouts = _stack_weight_layouts(Path(other_csrc) / "conv_stack.cu")
     lib.davo_conv_stack.argtypes = conv_stack.SIGNATURES["davo_conv_stack"]
     lib.davo_conv_stack.restype = ctypes.c_int
-    ws, bs, strides, relus, mods, prefix_input, *_ = _pose_prefix(torch)
+    ws, bs, strides, relus, mods, prefix_input, shapes, _ = _pose_prefix(torch)
     with torch.inference_mode():
         for B in (64, 256):
             for mode in ("bfloat16", "float32"):
                 x = prefix_input(B, mode)
-                fns = {"other": lambda: _parent_stack_launch(torch, lib, x, ws, bs, strides, relus, mode),
+                fns = {"other": lambda: _parent_stack_launch(torch, lib, x, ws, bs, strides, relus, mode, layouts),
                        "this": lambda: conv_stack.fused_conv_stack(x, ws, bs, strides, relus, 8, mode)}
                 want = conv_stack.fused_conv_stack_plain(x, ws, bs, strides, relus, 8, mode)
                 errs = {name: float((fn() - want).abs().max() / want.abs().max()) for name, fn in fns.items()}
-                row = {"phase": "conv_stack_against", "other": str(other_csrc), "batch": B, "mode": mode,
-                       "max_rel_err": errs}
+                row = {"phase": "conv_stack_against", "other": str(other_csrc), "other_weights": layouts[mode],
+                       "batch": B, "mode": mode, "max_rel_err": errs,
+                       "bitwise_equal": bool(torch.equal(fns["other"](), fns["this"]()))}
+                seq = torch.nn.Sequential(*mods)
                 if mode == "bfloat16":
                     want32 = conv_stack.fused_conv_stack_plain(x, ws, bs, strides, relus, 8, "float32")
                     ref_gap = _mean_gap(want, want32)
                     row["gap_ratio"] = {name: _mean_gap(fn(), want) / ref_gap for name, fn in fns.items()}
                     ok = max(row["gap_ratio"].values()) <= ROWCONV_GAP_RATIO
-                    seq = torch.nn.Sequential(*mods)
-                    row["library_ms"] = _graph_ms(lambda: seq(x), reps=5)
                 else:
+                    seq = _in_float32(seq)
                     ok = max(errs.values()) <= CONV_STACK_TOL
+                    flops = conv_stack_sol(shapes(B)[0], 1.0).flops
+                    nbytes = x.numel() * 4 + sum(t.numel() * 4 for t in ws + bs) + 4 * shapes(B)[1]
+                    row["tf32_bound_ms"] = _bound_ms(nbytes, 3 * flops, TF32_FLOPS)[0]
                 times = _turns(fns, reps=5)
                 row.update(other_ms=times["other"], this_ms=times["this"], grid=conv_stack.last_launch(),
                            conv_chain_strided_ms=_graph_ms(
-                               lambda: rowconv.conv_chain_strided(x, ws, bs, strides, relus, None, mode), reps=5))
+                               lambda: rowconv.conv_chain_strided(x, ws, bs, strides, relus, None, mode), reps=5),
+                           library_ms=_graph_ms(lambda: seq(x), reps=5))
                 print(json.dumps(row), flush=True)
                 if not ok:
                     raise AssertionError(f"conv stack against B={B} {mode}: {row}")
@@ -932,15 +999,15 @@ def throughput(torch, card, model):
     return (x, y, s), B * iters / min(times)
 
 
-def _kernel_profile(torch, run, iters):
-    """torch.profiler over `iters` calls of `run` under inference mode:
-    ([(kernel, device ms per call, launches per call)] by time, device ms
-    and wall ms per call)."""
+def _kernel_profile(torch, run, iters, inference=True):
+    """torch.profiler over `iters` calls of `run`, under inference mode
+    unless `inference` is false (a backward): ([(kernel, device ms per
+    call, launches per call)] by time, device ms and wall ms per call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    with torch.inference_mode():
+    with torch.inference_mode(inference):
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(iters):
@@ -1795,7 +1862,8 @@ def check_level_input(torch, rowconv):
             kernel, plain, unfused, nbytes, flops = _level_input_case(
                 torch, rowconv, gen, B, H, W, C, Cf, search, mode, with_a0)
             row = {"group": group, "unit": label, "C": C, "Cf": Cf, "search": search, "mode": mode,
-                   "a0": with_a0, **_level_input_errors(torch, kernel(), plain(), mode)}
+                   "a0": with_a0, **_level_input_errors(torch, kernel(), plain(), mode),
+                   "kernel": rowconv.last_level_input_kernel()}
             bound_ms, bound_by = _bound_ms(nbytes, flops)
             row.update(ms=_graph_ms(kernel, reps=10), plain_ms=_event_ms(plain, 3),
                        library_ms=_graph_ms(unfused, reps=10), bound_ms=bound_ms, bound_by=bound_by,
@@ -1810,6 +1878,44 @@ def check_level_input(torch, rowconv):
     print(json.dumps({"phase": "level_input_sums", "ms": sums}), flush=True)
     torch.cuda.empty_cache()
     return rows, sums
+
+
+# The searches at which phase 3d also holds `flow_level_input` (a small
+# `davo`-like level: B=2, 8x26, C = Cf = 32, Cu = 2; float32 and bf16
+# maps, with and without a0): the tile kernel's run-time-search instance
+# (`flow_level_input_kernel<T, -1>`, every search but 3 and 4 that the
+# tile plan takes: 1 to 43) and the element kernel the wrapper runs where
+# the plan refuses (44 to 64, the largest the kernel takes).
+LEVEL_INPUT_SEARCHES = (1, 2, 5, 7, 12, 43, 44, 64)
+
+
+def check_level_input_searches(torch, rowconv):
+    """Phase 3d, `flow_level_input` at `LEVEL_INPUT_SEARCHES` against its
+    plain version with `check_level_input`'s criteria (float32 output and
+    a0 within 1e-5 absolute; bf16 at most 1e-3 of the elements off, by at
+    most one ulp at the output's scale). Each row names the kernel that
+    ran, as the C launcher records it (`rowconv.last_level_input_kernel`:
+    the tile kernel's instance, or the element kernel), which must be the
+    tile kernel's run-time-search instance up to 43 and the element
+    kernel from 44. Prints one line; raises on a miss."""
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    cases = []
+    with torch.inference_mode():
+        for search in LEVEL_INPUT_SEARCHES:
+            for mode in ("float32", "bfloat16"):
+                for with_a0 in (False, True):
+                    kernel, plain, *_ = _level_input_case(torch, rowconv, gen, 2, 8, 26, 32, 32, search, mode,
+                                                          with_a0)
+                    row = {"search": search, "mode": mode, "a0": with_a0,
+                           **_level_input_errors(torch, kernel(), plain(), mode),
+                           "kernel": rowconv.last_level_input_kernel()}
+                    want = "flow_level_input_element_kernel" if search >= 44 else "flow_level_input_kernel<-1>"
+                    cases.append(row)
+                    if not (_level_input_ok(row) and row["kernel"] == want):
+                        raise AssertionError(f"flow_level_input at search {search}: {row}")
+    print(json.dumps({"phase": "level_input_searches", "level": [2, 8, 26, 32], "cases": cases}), flush=True)
+    torch.cuda.empty_cache()
+    return cases
 
 
 # ---------------------------------------------------------------- fused training kernels
@@ -2046,8 +2152,8 @@ def _train_unit_case(torch, rowconv, rowconv_ad, unit, mode):
     from the forward kernels and random float32 output cotangents.
     Returns (kernels' backward, plain backward, the plain backward summed
     in float64, the indices of the outputs rounded to a bf16 input's
-    dtype, bytes moved, FLOPs, the port's unfused route backward or
-    None, the conv FLOPs counted as the kernels' TF32 passes, the
+    dtype, bytes moved, FLOPs, the port's unfused route backward in the
+    mode's dtype, the conv FLOPs counted as the kernels' TF32 passes, the
     sweep's operands for `_bwd_layer_rows`), each backward a function
     returning a flat list of gradients in the kernels' dtypes."""
     from collections import Counter
@@ -2101,12 +2207,13 @@ def _train_unit_case(torch, rowconv, rowconv_ad, unit, mode):
         sweep = dict(x=a0, acts=acts, ws=ws, strides=(1,) * n, relus=relus, taps=(n - 1,), gs=(g,), need_dx=True,
                      dx_dtype=torch.float32, level=(f1, f2, a0, dt, cf))
 
-        def library_fn():  # the unfused route: cost-volume kernel, ReLU, concat, ConvBlocks
+        def library_fn(f32):  # the unfused route: cost-volume kernel, ReLU, concat, ConvBlocks
+            est = _in_float32(unit["est"]) if f32 else unit["est"]
             leaves = [f1.detach().clone().requires_grad_(), f2.detach().clone().requires_grad_(),
                       flow_up.detach().clone().requires_grad_()]
             cv = torch.relu(costvol.cost_volume(leaves[0].float().contiguous(), leaves[1].float().contiguous(), 4))
-            out = unit["est"](cv, leaves[0], leaves[2])
-            return out, leaves + list(unit["est"].parameters()), [g]
+            out = est(cv, leaves[0], leaves[2])
+            return out, leaves + list(est.parameters()), [g]
     else:
         x, strides, taps = unit["x"].to(dt), unit["strides"], unit["taps"]
         acts = rowconv._chain_cuda("residuals", x, ws, bs, strides, relus, act, dot, tuple(range(n)),
@@ -2132,23 +2239,24 @@ def _train_unit_case(torch, rowconv, rowconv_ad, unit, mode):
         sweep = dict(x=x, acts=acts, ws=ws, strides=strides, relus=relus, taps=taps, gs=gs, need_dx=need_dx,
                      dx_dtype=x.dtype, level=None)
 
-        def library_fn():  # the unfused route: the ConvBlocks (the flow head a bare Conv)
+        def library_fn(f32):  # the unfused route: the ConvBlocks (the flow head a bare Conv)
+            mods = [_in_float32(m) for m in unit["mods"]] if f32 else unit["mods"]
             leaf = x.detach().clone().requires_grad_(need_dx)
             y, outs = leaf, []
-            for m in unit["mods"]:
+            for m in mods:
                 y = m(y)
                 outs.append(y)
-            params = [p for m in unit["mods"] for p in m.parameters()]
+            params = [p for m in mods for p in m.parameters()]
             return [outs[t] for t in taps], ([leaf] if need_dx else []) + params, gs
 
-    library = None
-    if mode == "bfloat16":  # the model's compute dtype
-        outs, leaves, cots = library_fn()
-        outs = outs if isinstance(outs, list) else [outs]
-        cots = [c.to(o.dtype) for c, o in zip(cots, outs)]
+    # The unfused route in the mode's dtype: the model's bf16 ConvBlocks,
+    # or float32 copies of them (cuDNN float32, TF32 off).
+    outs, leaves, cots = library_fn(mode == "float32")
+    outs = outs if isinstance(outs, list) else [outs]
+    cots = [c.to(o.dtype) for c, o in zip(cots, outs)]
 
-        def library():
-            return torch.autograd.grad(outs, leaves, cots, retain_graph=True)
+    def library():
+        return torch.autograd.grad(outs, leaves, cots, retain_graph=True)
 
     return kernels, plain, reference, rounded, moved, flops, library, design_flops, sweep
 
@@ -2184,9 +2292,11 @@ def check_rowconv_backward(torch, rowconv, rowconv_ad):
     differs from the exact sum). Device
     ms of the backward by CUDA-graph replay; the plain backward's ms by
     CUDA events; as the library figure, the port's unfused route backward
-    for the same unit (autograd through the cuDNN bf16 ConvBlocks, and
-    for a flow level the cost-volume backward kernel) by CUDA events
-    around torch.autograd.grad, host time included."""
+    for the same unit in the mode's dtype (autograd through the cuDNN
+    ConvBlocks, bf16 or float32 with TF32 off, and for a flow level the
+    cost-volume backward kernel): its device time, the profiler's sum of
+    its kernels ("library_ms"), and CUDA events around
+    torch.autograd.grad, host time included ("library_call_ms")."""
     from davo_tpu_torch.models import presets
     from davo_tpu_torch.models.davo import DavoModel
 
@@ -2219,8 +2329,12 @@ def check_rowconv_backward(torch, rowconv, rowconv_ad):
                        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                        "fma_bound_ms": _bound_ms(moved_all, flops)[0],
                        "bytes": moved_all, "flops": flops, "tf32_pass_flops": design_flops}
-            if library is not None:
-                row["library_ms"] = _event_ms(library, 5)
+            # The unfused route's backward: device time (the profiler's sum
+            # of its kernels; autograd's backward is not captured in a CUDA
+            # graph) and, beside it, CUDA events around the call, host
+            # time included.
+            row["library_call_ms"] = _event_ms(library, 5)
+            row["library_ms"] = _kernel_profile(torch, library, 3, inference=False)[1]
             print(json.dumps({"phase": "rowconv_bwd", **row}), flush=True)
             ok = rel <= ROWCONV_BWD_TOL and share <= ROWCONV_BWD_BF16_SHARE and ulps <= 1.0 and bitwise
             if not ok:
@@ -2458,8 +2572,9 @@ def _pose_prefix(torch):
 
 
 def check_conv_stack(torch, card):
-    """Phase 3f: the conv stack (#11). Its path is the bench package's
-    speed-of-light measurement: `utils.profiling.timed` of
+    """Phase 3f: the conv stack (#11; bf16 and float32 on the tensor
+    cores, a kernel each). Its path is the bench package's speed-of-light
+    measurement: `utils.profiling.timed` of
     `fused_conv_stack` on the davo-fast pose prefix at 128x416 (B=64 and
     B=256, bf16 and f32; `_pose_prefix`), then `bench.sol.conv_stack_sol`
     of the time; launch counts are read around that run, one device
@@ -2467,10 +2582,13 @@ def check_conv_stack(torch, card):
     on the same inputs (the criteria above), against #7
     (`rowconv.conv_chain_strided`, the same function) in f32, and on the
     JAX tests' shapes and odd dims, with each launch's grid (blocks per
-    SM from the occupancy query). Device ms by CUDA-graph replay (the
-    cooperative launch is captured); the plain version's by CUDA events;
-    #7 and the port's unfused route (cuDNN bf16 ConvBlocks, the library
-    yardstick) by graph replay."""
+    SM from the occupancy query, shared memory, each layer's plan); each
+    pose layer alone as a one-layer stack at B=64, beside #7's layer.
+    Device ms by CUDA-graph replay (the cooperative launch is captured);
+    the plain version's by CUDA events; #7 and the port's unfused route
+    (cuDNN ConvBlocks in the mode's dtype, float32 with TF32 off: the
+    library yardstick) by graph replay; the float32 bound at 3 TF32
+    passes beside the f32 FMA bound."""
     from davo_tpu_torch.bench.sol import conv_stack_sol
     from davo_tpu_torch.kernels import conv_stack, rowconv
     from davo_tpu_torch.utils.profiling import timed
@@ -2524,6 +2642,21 @@ def check_conv_stack(torch, card):
             rows.append(row)
         del units
         torch.cuda.empty_cache()
+        # Where the stack's time goes: each layer alone, a one-layer stack
+        # on a random input of its shape at B=64 in the mode's dtype, beside
+        # #7's layer kernel on the same input.
+        for mode in ("bfloat16", "float32"):
+            h, w, cin, layers = H, W, 9, []
+            for i, wt in enumerate(ws):
+                x = torch.rand(64, h, w, cin, device="cuda", generator=gen)
+                args = (x.to(torch.bfloat16) if mode == "bfloat16" else x, [wt], [bs[i]], (strides[i],), (relus[i],))
+                ms = _graph_ms(lambda: conv_stack.fused_conv_stack(*args, 8, mode), reps=5)
+                layers.append({"layer": i, "shape": [64, h, w, cin, wt.shape[0], wt.shape[-1], strides[i]], "ms": ms,
+                               "plan": conv_stack.last_launch()["plans"][0],
+                               "conv_chain_strided_ms": _graph_ms(
+                                   lambda: rowconv.conv_chain_strided(*args, None, mode), reps=5)})
+                h, w, cin = -(-h // strides[i]), -(-w // strides[i]), wt.shape[0]
+            print(json.dumps({"phase": "conv_stack_layers", "batch": 64, "mode": mode, "layers": layers}), flush=True)
         for label, shape, ks, chans, st in CONV_STACK_CASES:
             sws = [torch.randn(c, ci, k, k, device="cuda", generator=gen) / (k * k * ci) ** 0.5
                    for k, c, ci in zip(ks, chans, (shape[-1],) + chans[:-1])]
@@ -3151,9 +3284,17 @@ def main() -> int:
     sass = {source: _sass_counts(cuda_build.load(source)._name) for source in ("rowconv", "rowconv_bwd", "conv_stack")}
     for source, per_kernel in sass.items():
         print(json.dumps({"phase": "sass", "source": source, "per_kernel": per_kernel}), flush=True)
-    mma_sass = next(v for k, v in sass["conv_stack"].items() if "conv_stack_mma_kernel" in k)
-    if not (mma_sass["HMMA"] > 0 and mma_sass["FFMA"] == 0):
-        raise AssertionError(f"conv_stack_mma_kernel SASS: {mma_sass}, want HMMA and no FFMA")
+    # The stack's two kernels: tensor cores only, no float32 FMA; their
+    # registers and spills (the float32 one is not held to 128 registers).
+    stack_sass = {name: next(v for k, v in sass["conv_stack"].items() if name in k)
+                  for name in ("conv_stack_mma_kernel", "conv_stack_tf32_kernel")}
+    stack_resources = {name: _ptxas_resources(cuda_build.BUILD_LOG.get("conv_stack", ""), name)
+                       for name in stack_sass}
+    print(json.dumps({"phase": "conv_stack_kernels", "sass": stack_sass, "ptxas": stack_resources}), flush=True)
+    for name, counts in stack_sass.items():
+        if not (counts["HMMA"] > 0 and counts["FFMA"] == 0):
+            raise AssertionError(f"{name} SASS: {counts}, want HMMA and no FFMA")
+    mma_sass, tf32_stack_sass = stack_sass["conv_stack_mma_kernel"], stack_sass["conv_stack_tf32_kernel"]
     # The float32 layer kernels: split TF32 on the tensor cores, no float32 FMA anywhere in them.
     tf32_sass = {k: v for k, v in sass["rowconv"].items() if "conv_tf32_" in k}
     if not tf32_sass or any(v["HMMA"] == 0 or v["FFMA"] for v in tf32_sass.values()):
@@ -3167,6 +3308,7 @@ def main() -> int:
     rowconv_rows = check_rowconv(torch, rowconv)
     check_float32_layer_shapes(torch, rowconv)
     level_input_rows, level_input_sums = check_level_input(torch, rowconv)
+    level_search_rows = check_level_input_searches(torch, rowconv)
     bwd_kernel_rows, bwd_layer_rows = check_rowconv_backward(torch, rowconv, rowconv_ad)
     check_rowconv_backward_shapes(torch, rowconv_ad)
     check_level_input_bwd_searches(torch, rowconv, rowconv_ad)
@@ -3344,6 +3486,8 @@ def main() -> int:
         "b64_step_ms": level_input_sums["B=64 step"]["ms"],
         "b64_step_bound_ms": level_input_sums["B=64 step"]["bound_ms"],
         "b64_step_library_ms": level_input_sums["B=64 step"]["library_ms"],
+        "searches_held": sorted({r["search"] for r in level_input_rows} | {r["search"] for r in level_search_rows}),
+        "kernels_held": sorted({r["kernel"] for r in level_input_rows + level_search_rows}),
     })
     # The training chains: the work of one davo train step at B=4 (the
     # units of phase 3e) in bf16, the path's mode: "ms" is the backward
@@ -3375,8 +3519,12 @@ def main() -> int:
             "bound_ms": sum(r["bound_ms"] for r in unit_rows),
             "bound_by": bound_by(r["bound_by"] for r in unit_rows),
             "library_ms": sum(r["library_ms"] for r in unit_rows),
-            "library_is": "the port's unfused route backward for the same units, CUDA events",
+            "library_is": "the port's unfused route backward for the same units (cuDNN bf16), device time",
+            "library_call_ms": sum(r["library_call_ms"] for r in unit_rows),
             "float32_ms": sum(r["ms"] for r in f32_rows),
+            "float32_library_ms": sum(r["library_ms"] for r in f32_rows),
+            "float32_library_is": "the same in float32 (cuDNN float32, TF32 off), device time",
+            "float32_library_call_ms": sum(r["library_call_ms"] for r in f32_rows),
         })
     # The training chains' backward kernels one by one: the work of one
     # davo train step at B=4 on the fused training path (phase 3e's units
@@ -3434,12 +3582,14 @@ def main() -> int:
         "bound_ms": layer_sum(level_bf16, "bound_ms"), "bound_by": "bytes", "library_ms": None,
         "b64_step_ms": fused_step_kernels["flow_level_input_bwd"]["ms"],
     })
-    # The conv stack: the work of the davo-fast pose prefix at B=64 in bf16;
+    # The conv stack: the work of the davo-fast pose prefix at B=64 in bf16,
+    # beside the same in float32 (its own kernel) and both at B=256;
     # launches on its path (phase 3f's speed-of-light run through the bench
     # package). max_abs_err is the float32 error relative to the largest
     # output; the bf16 criteria are in the phase's lines.
     unit = next(r for r in stack_rows if r["batch"] == 64 and r["mode"] == "bfloat16")
     unit32 = next(r for r in stack_rows if r["batch"] == 64 and r["mode"] == "float32")
+    unit256 = {r["mode"]: r for r in stack_rows if r["batch"] == 256}
     kernels.append({
         "name": "fused_conv_stack", "route": "cuda", "source": "davo_tpu_torch/csrc/conv_stack.cu",
         "replaces": "davo_tpu/kernels/conv_stack.py:179",
@@ -3453,9 +3603,15 @@ def main() -> int:
         "bound_by": unit["bound_by"], "sol_roofline_ms": unit["sol_roofline_ms"],
         "library_ms": unit["library_ms"], "library_is": unit["library_is"],
         "conv_chain_strided_ms": unit["conv_chain_strided_ms"],
-        "float32_ms": unit32["ms"], "float32_bound_ms": unit32["bound_ms"],
-        "float32_tf32_bound_ms": unit32["tf32_bound_ms"], "float32_library_ms": unit32["library_ms"],
-        "grid": unit["grid"], "sass_bf16_kernel": mma_sass,
+        "float32_ms": unit32["ms"], "float32_plain_ms": unit32["plain_ms"],
+        "float32_bound_ms": unit32["bound_ms"], "float32_tf32_bound_ms": unit32["tf32_bound_ms"],
+        "float32_library_ms": unit32["library_ms"], "float32_library_is": unit32["library_is"],
+        "float32_conv_chain_strided_ms": unit32["conv_chain_strided_ms"],
+        "b256_ms": unit256["bfloat16"]["ms"], "b256_float32_ms": unit256["float32"]["ms"],
+        "b256_float32_bound_ms": unit256["float32"]["tf32_bound_ms"],
+        "grid": unit["grid"], "float32_grid": unit32["grid"],
+        "sass_bf16_kernel": mma_sass, "sass_float32_kernel": tf32_stack_sass,
+        "ptxas": stack_resources,
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

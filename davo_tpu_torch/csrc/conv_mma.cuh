@@ -10,7 +10,16 @@
 //     `conv_tf32_flat_tile`. Each operand is split once: the weights by
 //     the host (`_pack_tf32` in kernels/rowconv.py, hi and lo planes), the
 //     input as it is staged (hi and lo planes in shared memory; a bf16
-//     input is exact in TF32 and stages no lo, 2 products). The products
+//     input is exact in TF32 and stages no lo, 2 products) or, with
+//     kSplitOnRead (the conv stack), as each fragment is read from one
+//     staged plane of the float32 input: half the halo's bytes, the same
+//     hi and lo, more conversions per product; a halo kept as it is can
+//     be copied by cp.async (16-byte units of float32 in the chunked
+//     order; 4-byte elements of a read-only input in the flat one), so
+//     its loads are in flight together; and where the epilogue can stage
+//     in the halo's place (the flat order; a one-chunk K), the caller
+//     keeps a channel block's weights staged from one tile to the next
+//     (`stage_weights`). The products
 //     of every 16 K (a tap of a chunk; two k-steps of the flat order) go
 //     into a fresh accumulator that is added to the running sum on the
 //     FP32 units: a running mma sum drifts past 1e-5 of the largest
@@ -574,8 +583,7 @@ __device__ __forceinline__ float4 load_quad(const __nv_bfloat16* src, int avail,
                      __uint_as_float(hi & 0xffff0000u));
 }
 
-// v's hi into *hi and, with kLo, its lo into *lo (4 floats each).
-template <bool kLo>
+// v's hi into *hi and its lo into *lo (4 floats each).
 __device__ __forceinline__ void stage_split(uint4* hi, uint4* lo, float4 v) {
   unsigned h[4], l[4];
   split(v.x, h[0], l[0]);
@@ -583,17 +591,17 @@ __device__ __forceinline__ void stage_split(uint4* hi, uint4* lo, float4 v) {
   split(v.z, h[2], l[2]);
   split(v.w, h[3], l[3]);
   *hi = make_uint4(h[0], h[1], h[2], h[3]);
-  if (kLo) *lo = make_uint4(l[0], l[1], l[2], l[3]);
+  *lo = make_uint4(l[0], l[1], l[2], l[3]);
 }
-// Element i of a flat halo: (hi, lo) as one float2 (kLo), else hi.
+// Element i of a flat halo: (hi, lo) as one float2 (kLo), else v as it is.
 template <bool kLo>
 __device__ __forceinline__ void stage_split1(float* halo, int i, float v) {
-  unsigned h, l;
-  split(v, h, l);
   if (kLo) {
+    unsigned h, l;
+    split(v, h, l);
     reinterpret_cast<float2*>(halo)[i] = make_float2(__uint_as_float(h), __uint_as_float(l));
   } else {
-    halo[i] = __uint_as_float(h);
+    halo[i] = v;
   }
 }
 
@@ -627,10 +635,15 @@ __device__ __forceinline__ void mma_tf32_step(float t[4], const unsigned (&ahi)[
 // n*taps*4 + (u ^ bits 1-2 of n), hi and lo planes from the host's
 // packing [2][Np][chunks][taps][16]) into shared memory. Each swizzle puts
 // the 8 rows of every ldmatrix into 8 distinct 16-byte bank groups.
-template <bool kCoherent, bool kALo, typename TIn>
+// kLoPlane false: the halo's one plane holds the input as it is (a bf16
+// input, or a float32 one split as it is read); a float32 input in whole
+// 16-byte units (piece 4) is then copied by cp.async (through L2 only:
+// right for kCoherent too), zero-filled off the frame.
+// With `weights` false the weights already in place are kept.
+template <bool kCoherent, bool kLoPlane, typename TIn>
 __device__ __forceinline__ void stage_chunk_tf32(uint4* hhi, uint4* hlo, uint4* whi, uint4* wlo,
                                                  const TIn* __restrict__ x, const float* __restrict__ w,
-                                                 const MmaGeo& g, const Tile& t, int chunk) {
+                                                 const MmaGeo& g, const Tile& t, int chunk, bool weights = true) {
   const int iy0 = t.oy0 * g.stride - g.pad_t, ix0 = t.ox0 * g.stride - g.pad_l;
   const int units = g.HH * g.HW * 4;
   for (int i = threadIdx.x; i < units; i += blockDim.x) {
@@ -639,13 +652,26 @@ __device__ __forceinline__ void stage_chunk_tf32(uint4* hhi, uint4* hlo, uint4* 
     const int q = hy * g.HWs + halo_col(g, hx);
     const int u = 4 * q + (o ^ ((q >> 1) & 3));
     const int iy = iy0 + hy, ix = ix0 + hx, ch = chunk * 16 + o * 4;
+    if constexpr (!kLoPlane && sizeof(TIn) == 4) {
+      if (g.piece == 4) {
+        const bool inside = iy >= 0 && iy < g.H && ix >= 0 && ix < g.W && ch < g.cin;
+        copy_async16(hhi + u, inside ? x + ((static_cast<size_t>(t.b) * g.H + iy) * g.W + ix) * g.cin + ch : x,
+                     inside);
+        continue;
+      }
+    }
     float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // SAME zero padding, zero channels
     if (iy >= 0 && iy < g.H && ix >= 0 && ix < g.W && ch < g.cin) {
       v = load_quad<kCoherent>(x + ((static_cast<size_t>(t.b) * g.H + iy) * g.W + ix) * g.cin + ch, g.cin - ch,
                                g.piece);
     }
-    stage_split<kALo>(hhi + u, hlo + u, v);
+    if (kLoPlane) {
+      stage_split(hhi + u, hlo + u, v);
+    } else {
+      hhi[u] = make_uint4(__float_as_uint(v.x), __float_as_uint(v.y), __float_as_uint(v.z), __float_as_uint(v.w));
+    }
   }
+  if (!weights) return;
   const int row = g.taps * 4;
   const size_t plane = static_cast<size_t>(g.npad) * g.nchunks * g.taps * 16;  // floats of the hi plane
   for (int i = threadIdx.x; i < g.n_rows * row; i += blockDim.x) {
@@ -667,16 +693,25 @@ __device__ __forceinline__ void stage_chunk_tf32(uint4* hhi, uint4* hlo, uint4* 
 // warp loads its two 16-pixel A tiles' hi and lo for the tap's two
 // k-steps with ldmatrix, and per 8-channel n-tile the tap's B hi and lo,
 // then runs each (A tile, n-tile)'s split products into a fresh sum added
-// to the running one. The caller syncs the block before shared memory is
+// to the running one. kSplitOnRead: a float32 input is staged as it is,
+// one plane (half the halo's bytes), and split as each fragment is read
+// (the same hi and lo, so the same sums); where K is one chunk and the
+// epilogue's outputs fit in the halo's place, the weights stay staged and
+// a caller whose next tile has the same channel block passes
+// stage_weights false. The caller syncs the block before shared memory is
 // staged again.
-template <typename TIn, int NT, typename L, bool kCoherent>
+template <typename TIn, int NT, typename L, bool kCoherent, bool kSplitOnRead = false>
 __device__ __forceinline__ void conv_tf32_chunked_tile(const TIn* __restrict__ x, const float* __restrict__ w,
                                                        const float* __restrict__ bias, void* __restrict__ out,
-                                                       const MmaGeo& g, const Tile& t, uint4* smem4) {
+                                                       const MmaGeo& g, const Tile& t, uint4* smem4,
+                                                       bool stage_weights = true) {
   constexpr bool kALo = sizeof(TIn) == 4;  // a bf16 input is exact in TF32
+  constexpr bool kLoPlane = kALo && !kSplitOnRead;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int halo_units = g.HH * g.HWs * 4, w_units = g.n_rows * g.taps * 4;
-  const int stage_units = (kALo ? 2 : 1) * halo_units + 2 * w_units;
+  const int stage_units = (kLoPlane ? 2 : 1) * halo_units + 2 * w_units;
+  const bool stage_w = stage_weights || !kSplitOnRead || g.nchunks > 1 ||
+                       L::kThreads * (NT * 8 + 4) * sizeof(float) > halo_units * sizeof(uint4);
   // A: this lane's ldmatrix row is pixel (lane & 15) of each 16-pixel tile,
   // its k half (lane >> 4) of a k-step; B: row n = lane & 7 of an n-tile,
   // k quarter lane >> 3 of the tap's 16.
@@ -700,8 +735,8 @@ __device__ __forceinline__ void conv_tf32_chunked_tile(const TIn* __restrict__ x
 
   auto stage = [&](int c, uint4* base) {
     uint4* hlo = base + halo_units;
-    uint4* whi = hlo + (kALo ? halo_units : 0);
-    stage_chunk_tf32<kCoherent, kALo>(base, hlo, whi, whi + w_units, x, w, g, t, c);
+    uint4* whi = hlo + (kLoPlane ? halo_units : 0);
+    stage_chunk_tf32<kCoherent, kLoPlane>(base, hlo, whi, whi + w_units, x, w, g, t, c, stage_w);
   };
   stage(0, smem4);
   copy_async_commit();
@@ -717,7 +752,7 @@ __device__ __forceinline__ void conv_tf32_chunked_tile(const TIn* __restrict__ x
     __syncthreads();
     const uint4* hhi = smem4 + buf * stage_units;
     const uint4* hlo = hhi + halo_units;
-    const uint4* whi = hlo + (kALo ? halo_units : 0);
+    const uint4* whi = hlo + (kLoPlane ? halo_units : 0);
     const uint4* wlo = whi + w_units;
     for (int tap = 0; tap < g.taps; ++tap) {
       const int ky = tap / g.k, kx = tap - ky * g.k;
@@ -730,7 +765,12 @@ __device__ __forceinline__ void conv_tf32_chunked_tile(const TIn* __restrict__ x
         for (int ks = 0; ks < 2; ++ks) {
           const int u = 4 * q + ((2 * ks + khalf) ^ ((q >> 1) & 3));
           ldmatrix_x4(ahi[mt][ks], hhi + u);
-          if (kALo) ldmatrix_x4(alo[mt][ks], hlo + u);
+          if (kLoPlane) {
+            ldmatrix_x4(alo[mt][ks], hlo + u);
+          } else if (kALo) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) split(__uint_as_float(ahi[mt][ks][j]), ahi[mt][ks][j], alo[mt][ks][j]);
+          }
         }
       }
 #pragma unroll
@@ -769,12 +809,18 @@ __device__ __forceinline__ void conv_tf32_chunked_tile(const TIn* __restrict__ x
 // groups; hi and lo planes from the host's [2][Np][Kp]) staged once; each
 // k-step's A fragment is gathered from the halo through the table of the
 // K index's offset (tap, channel). Every 16 K's products go into a fresh
-// sum added to the running one.
-template <typename TIn, int NT, typename L, bool kCoherent>
+// sum added to the running one. kSplitOnRead (MmaPrec::kTf32SplitOnRead):
+// a float32 halo is staged as it is, one float an element, and split as
+// it is gathered; the epilogue stages its outputs in the halo's place, so
+// the weights and the K table stay in shared memory, and a caller whose
+// next tile has the same channel block passes stage_weights false.
+template <typename TIn, int NT, typename L, bool kCoherent, bool kSplitOnRead = false>
 __device__ __forceinline__ void conv_tf32_flat_tile(const TIn* __restrict__ x, const float* __restrict__ w,
                                                     const float* __restrict__ bias, void* __restrict__ out,
-                                                    const MmaGeo& g, const Tile& t, uint4* smem4) {
+                                                    const MmaGeo& g, const Tile& t, uint4* smem4,
+                                                    bool stage_weights = true) {
   constexpr bool kALo = sizeof(TIn) == 4;
+  constexpr bool kLoPlane = kALo && !kSplitOnRead;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wrow = g.kp / 4 + 1;
   uint4* whi = smem4;
@@ -783,32 +829,38 @@ __device__ __forceinline__ void conv_tf32_flat_tile(const TIn* __restrict__ x, c
   float* halo = reinterpret_cast<float*>(koff + g.kp);
   const int halo_elems = g.HH * g.HW * g.cin;
 
-  const int wunits = g.n_rows * (g.kp / 4);
-  const size_t plane = static_cast<size_t>(g.npad) * g.kp;
-  for (int i = threadIdx.x; i < wunits; i += L::kThreads) {
-    const int n = i / (g.kp / 4), u = i - n * (g.kp / 4);
-    const int co = t.co0 + n;
-    if (co < g.npad) {
-      const float* src = w + static_cast<size_t>(co) * g.kp + u * 4;
-      copy_async16(whi + n * wrow + u, src);
-      copy_async16(wlo + n * wrow + u, src + plane);
-    } else {
-      whi[n * wrow + u] = wlo[n * wrow + u] = make_uint4(0u, 0u, 0u, 0u);
+  if (stage_weights) {
+    const int wunits = g.n_rows * (g.kp / 4);
+    const size_t plane = static_cast<size_t>(g.npad) * g.kp;
+    for (int i = threadIdx.x; i < wunits; i += L::kThreads) {
+      const int n = i / (g.kp / 4), u = i - n * (g.kp / 4);
+      const int co = t.co0 + n;
+      if (co < g.npad) {
+        const float* src = w + static_cast<size_t>(co) * g.kp + u * 4;
+        copy_async16(whi + n * wrow + u, src);
+        copy_async16(wlo + n * wrow + u, src + plane);
+      } else {
+        whi[n * wrow + u] = wlo[n * wrow + u] = make_uint4(0u, 0u, 0u, 0u);
+      }
     }
-  }
-  copy_async_commit();
-  const int K = g.taps * g.cin;
-  for (int kk = threadIdx.x; kk < g.kp; kk += L::kThreads) {
-    int off = 0;  // K padding: any finite element, times a zero weight
-    if (kk < K) {
-      const int tap = kk / g.cin, c = kk - tap * g.cin;
-      const int ky = tap / g.k, kx = tap - ky * g.k;
-      off = (ky * g.HW + kx) * g.cin + c;
+    copy_async_commit();
+    const int K = g.taps * g.cin;
+    for (int kk = threadIdx.x; kk < g.kp; kk += L::kThreads) {
+      int off = 0;  // K padding: any finite element, times a zero weight
+      if (kk < K) {
+        const int tap = kk / g.cin, c = kk - tap * g.cin;
+        const int ky = tap / g.k, kx = tap - ky * g.k;
+        off = (ky * g.HW + kx) * g.cin + c;
+      }
+      koff[kk] = off;
     }
-    koff[kk] = off;
   }
   // The halo, as `conv_mma_flat_tile` walks it: rows of 128 elements or
   // more a row per warp, shorter ones lane-dense over the whole halo.
+  // Each element split into hi and lo as it is staged (kLoPlane), else
+  // kept as it is; a float32 input no block of the launch writes is then
+  // copied by cp.async (4 bytes, zero-filled off the frame).
+  constexpr bool kAsyncHalo = kALo && !kLoPlane && !kCoherent;
   const int iy0 = t.oy0 * g.stride - g.pad_t, ix0 = t.ox0 * g.stride - g.pad_l;
   const int row_elems = g.HW * g.cin;
   const int e_lo = max(-ix0, 0) * g.cin, e_hi = min(g.HW, g.W - ix0) * g.cin, e_off = ix0 * g.cin;
@@ -820,8 +872,13 @@ __device__ __forceinline__ void conv_tf32_flat_tile(const TIn* __restrict__ x, c
       const int lo = iy < 0 || iy >= g.H ? row_elems : e_lo;
 #pragma unroll 4
       for (int e = lane; e < row_elems; e += 32) {
-        const float v = e >= lo && e < e_hi ? to_float(load_in<kCoherent>(row + e_off + e)) : 0.0f;
-        stage_split1<kALo>(halo, hy * row_elems + e, v);
+        if constexpr (kAsyncHalo) {
+          const bool inside = e >= lo && e < e_hi;
+          copy_async4(halo + hy * row_elems + e, inside ? row + e_off + e : row, inside);
+        } else {
+          const float v = e >= lo && e < e_hi ? to_float(load_in<kCoherent>(row + e_off + e)) : 0.0f;
+          stage_split1<kLoPlane>(halo, hy * row_elems + e, v);
+        }
       }
     }
   } else {
@@ -829,10 +886,14 @@ __device__ __forceinline__ void conv_tf32_flat_tile(const TIn* __restrict__ x, c
     int hy = threadIdx.x / row_elems, e = threadIdx.x - hy * row_elems;
     for (int i = threadIdx.x; i < halo_elems; i += L::kThreads) {
       const int iy = iy0 + hy;
-      const float v = iy >= 0 && iy < g.H && e >= e_lo && e < e_hi
-                          ? to_float(load_in<kCoherent>(image + static_cast<size_t>(iy) * g.W * g.cin + e_off + e))
-                          : 0.0f;
-      stage_split1<kALo>(halo, i, v);
+      const bool inside = iy >= 0 && iy < g.H && e >= e_lo && e < e_hi;
+      if constexpr (kAsyncHalo) {
+        copy_async4(halo + i, inside ? image + static_cast<size_t>(iy) * g.W * g.cin + e_off + e : image, inside);
+      } else {
+        const float v =
+            inside ? to_float(load_in<kCoherent>(image + static_cast<size_t>(iy) * g.W * g.cin + e_off + e)) : 0.0f;
+        stage_split1<kLoPlane>(halo, i, v);
+      }
       hy += step_rows;
       e += step_elems;
       if (e >= row_elems) {
@@ -841,6 +902,7 @@ __device__ __forceinline__ void conv_tf32_flat_tile(const TIn* __restrict__ x, c
       }
     }
   }
+  if (kAsyncHalo) copy_async_commit();
   copy_async_wait_group<0>();
   __syncthreads();
 
@@ -875,10 +937,12 @@ __device__ __forceinline__ void conv_tf32_flat_tile(const TIn* __restrict__ x, c
         const int offs[4] = {base[mt][0] + o0, base[mt][1] + o0, base[mt][0] + o4, base[mt][1] + o4};
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          if (kALo) {
+          if (kLoPlane) {
             const float2 v = reinterpret_cast<const float2*>(halo)[offs[j]];
             ahi[mt][ks][j] = __float_as_uint(v.x);
             alo[mt][ks][j] = __float_as_uint(v.y);
+          } else if (kALo) {
+            split(halo[offs[j]], ahi[mt][ks][j], alo[mt][ks][j]);
           } else {
             ahi[mt][ks][j] = __float_as_uint(halo[offs[j]]);
             alo[mt][ks][j] = 0u;
@@ -901,7 +965,7 @@ __device__ __forceinline__ void conv_tf32_flat_tile(const TIn* __restrict__ x, c
       }
     }
   }
-  mma_epilogue<NT, L>(acc, smem4, bias, out, g, t);
+  mma_epilogue<NT, L>(acc, kSplitOnRead ? reinterpret_cast<uint4*>(halo) : smem4, bias, out, g, t);
 }
 
 // ------------------------------------------------------------------ host
@@ -950,8 +1014,11 @@ inline int mma_piece(const void* x, int x_bf16, int cin) {
 }
 
 // The operands' precision: bf16, or float32 in split TF32 with the input's
-// lo staged (a float32 input) or not (a bf16 one, exact in TF32).
-enum class MmaPrec { kBf16, kTf32, kTf32NoALo };
+// lo staged as a second plane (a float32 input) or not (a bf16 one, exact
+// in TF32), or with one plane of the input split as it is read (the
+// tiles' kSplitOnRead: the flat order's epilogue then stages in the
+// halo's place, past the weights and the K table).
+enum class MmaPrec { kBf16, kTf32, kTf32NoALo, kTf32SplitOnRead };
 
 // Shared memory of one tile: the larger of the operands and the epilogue's
 // staged outputs, bytes.
@@ -968,8 +1035,9 @@ inline size_t mma_smem(const MmaGeo& g, bool flat, MmaPrec prec = MmaPrec::kBf16
   } else {
     const size_t a_planes = prec == MmaPrec::kTf32 ? 2 : 1;  // halo hi (and lo); weights hi and lo
     if (flat) {
-      ops = 2 * static_cast<size_t>(g.n_rows) * (g.kp / 4 + 1) * 16 + g.kp * sizeof(int) +
-            a_planes * g.HH * g.HW * g.cin * sizeof(float);
+      size_t halo = a_planes * g.HH * g.HW * g.cin * sizeof(float);
+      if (prec == MmaPrec::kTf32SplitOnRead && epi > halo) halo = epi;  // the epilogue's place
+      ops = 2 * static_cast<size_t>(g.n_rows) * (g.kp / 4 + 1) * 16 + g.kp * sizeof(int) + halo;
     } else {
       ops = static_cast<size_t>(g.stages) *
             (a_planes * g.HH * g.HWs * 4 + 2 * static_cast<size_t>(g.n_rows) * g.taps * 4) * 16;

@@ -225,6 +225,11 @@ cudaError_t launch_level_input(const void* f1, const void* f2, const void* feat,
   return cudaGetLastError();
 }
 
+// The kernel the last flow-level input launch ran: the tile kernel's
+// search instance (3, 4, or -1 for the run-time search), -2 the element
+// kernel; 0 before any.
+int last_level_input = 0;
+
 template <typename T>
 cudaError_t level_input(const void* f1, const void* f2, const void* feat, const float* flow_up, void* out,
                         int out_bf16, float* a0, int B, int H, int W, int C, int Cf, int Cu, int search, int cpad,
@@ -237,6 +242,7 @@ cudaError_t level_input(const void* f1, const void* f2, const void* feat, const 
   if (!plan_forward(B, H, W, C, search, sizeof(T), smem_max, sms, &p)) {
     const long long elements = static_cast<long long>(B) * H * W * cpad;
     const int blocks = static_cast<int>((elements + 255) / 256 < 132 * 32 ? (elements + 255) / 256 : 132 * 32);
+    last_level_input = -2;
     flow_level_input_element_kernel<T><<<blocks, 256, 0, stream>>>(
         static_cast<const T*>(f1), static_cast<const T*>(f2), static_cast<const T*>(feat), flow_up, out, out_bf16,
         a0, H, W, C, Cf, Cu, search, cpad, elements);
@@ -244,6 +250,7 @@ cudaError_t level_input(const void* f1, const void* f2, const void* feat, const 
   }
   const auto aligned = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
   const bool vec = (C * sizeof(T)) % 16 == 0 && aligned(f1) && aligned(f2);
+  last_level_input = search == 3 || search == 4 ? search : -1;
   switch (search) {
     case 3:
       return launch_level_input<T, 3>(f1, f2, feat, flow_up, out, out_bf16, a0, B, H, W, C, Cf, Cu, search, cpad,
@@ -449,6 +456,15 @@ int davo_flow_level_input(const void* f1, const void* f2, const void* feat, int 
                                        cpad, s);
   }
   return level_input<float>(f1, f2, feat, flow_up, out, out_bf16, a0, B, H, W, C, Cf, Cu, search, cpad, s);
+}
+
+// The kernel the last davo_flow_level_input call launched, into out[0]:
+// 3 or 4, flow_level_input_kernel's instance for that search; -1 its
+// run-time-search instance; -2 flow_level_input_element_kernel; 0 none
+// yet.
+int davo_flow_level_input_last(int* out) {
+  out[0] = last_level_input;
+  return 0;
 }
 
 const char* davo_cuda_error_string(int err) {

@@ -13,15 +13,16 @@ layer comes out in float32, unrounded.
 
 The one difference from the reference's arguments: weights are the
 port's OIHW float32 parameters (`Conv_0.weight`), as in the port's other
-kernels, not HWIO. In bfloat16 mode the kernel runs every layer on the
-tensor cores, the fused layer kernel's device code (`csrc/conv_mma.cuh`),
-and takes each weight as `rowconv._packed` packs it for that code (bf16,
-in its K order), packed once per parameter and kept until the parameter
-changes; each layer's tile width, channel tile and staging depth are
-the layer kernel's plan (`mma_plan` in `csrc/conv_mma.cuh`), made in C
-at the launch. In float32 mode it reads the OIHW float32 parameters
-as they are, on the FMA units. Packing is not part of the launch: a call
-launches exactly one kernel.
+kernels, not HWIO. The kernel runs every layer on the tensor cores, the
+fused layer kernel's device code (`csrc/conv_mma.cuh`): bfloat16 mode in
+bf16 products, float32 mode in split TF32 (three TF32 products per term,
+float32 sums). It takes each weight as `rowconv._packed` packs it for
+that code (bf16 in its K order, or float32 TF32 hi and lo planes),
+packed once per parameter and kept until the parameter changes; each
+layer's tile width, channel tile and staging depth are the layer
+kernel's plan (`mma_plan` in `csrc/conv_mma.cuh`), made in C at the
+launch within the mode's shared memory a block. Packing is not part of
+the launch: a call launches exactly one kernel.
 
 Stride-2 layers read their input directly with Flax's low pad (total //
 2) and take any input size: the reference's "even dims" rule comes from
@@ -127,13 +128,12 @@ def _library() -> ctypes.CDLL:
 def last_launch() -> dict:
     """The last kernel launch: blocks, blocks per SM (the occupancy
     query's answer at the launch's largest layer), dynamic shared memory
-    in bytes and, in bf16 mode, each layer's plan (tile width, nt
-    8-channel n-tiles, staging buffers)."""
+    in bytes and each layer's plan (tile width, nt 8-channel n-tiles,
+    staging buffers)."""
     out = (ctypes.c_int * (4 + 3 * MAX_LAYERS))()
     _library().davo_conv_stack_last_launch(out)
     grid = dict(zip(("blocks", "blocks_per_sm", "smem"), out))
-    if out[4]:
-        grid["plans"] = [dict(zip(("tile_w", "nt", "stages"), out[4 + 3 * i: 7 + 3 * i])) for i in range(out[3])]
+    grid["plans"] = [dict(zip(("tile_w", "nt", "stages"), out[4 + 3 * i: 7 + 3 * i])) for i in range(out[3])]
     return grid
 
 
@@ -146,9 +146,8 @@ def _stack_cuda(x, weights, biases, strides, relus, compute):
     if n > MAX_LAYERS:
         raise ValueError(f"the kernel takes at most {MAX_LAYERS} layers, got {n}")
     act_bf16 = int(compute == torch.bfloat16)
-    # bf16: packed for the tensor cores, kept per parameter; else OIHW float32.
-    ws = ([rowconv._packed(w, torch.bfloat16, w.shape[1]) for w in weights] if act_bf16
-          else [w.detach().float().contiguous() for w in weights])
+    # Packed for the tensor cores in the mode's products, kept per parameter.
+    ws = [rowconv._packed(w, compute, w.shape[1]) for w in weights]
     bs = [t.detach().float().contiguous() for t in biases]
     # Layer geometry, and each intermediate's place in one workspace
     # (256-byte aligned; written once, read by the next layer only).

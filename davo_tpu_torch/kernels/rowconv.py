@@ -183,6 +183,7 @@ SIGNATURES = {
     "davo_conv_layer_mma": [_P, _I, _P, _P, _P, _I] + [_I] * 13 + [_P],
     "davo_conv_layer_tf32": [_P, _I, _P, _P, _P, _I] + [_I] * 13 + [_P],
     "davo_flow_level_input": [_P, _P, _P, _I, _P, _P, _I, _P] + [_I] * 8 + [_P],
+    "davo_flow_level_input_last": [_P],
 }
 
 
@@ -336,6 +337,20 @@ def _launch_level_input(f1, f2, feat, flow_up, x, search, a0=None):
         )
     _raise_if(err, "flow level input")
     level_input_launches += 1
+
+
+def last_level_input_kernel() -> str:
+    """The kernel the last `flow_level_input` launch of this process ran,
+    as the C launcher chose it: `flow_level_input_kernel<3>` or `<4>` (the
+    compile-time searches), `flow_level_input_kernel<-1>` (the run-time
+    search), or `flow_level_input_element_kernel` (searches the tile plan
+    refuses)."""
+    out = (ctypes.c_int * 1)()
+    _library().davo_flow_level_input_last(out)
+    code = out[0]
+    if code == 0:
+        raise RuntimeError("no flow_level_input launch yet")
+    return "flow_level_input_element_kernel" if code == -2 else f"flow_level_input_kernel<{code}>"
 
 
 def _chain_cuda(name, x, weights, biases, strides, relus, act, dot, keep, last_f32, counts=None):

@@ -8,6 +8,11 @@ the card by chip_smoke.py (phase 3f). Inputs and weights come from numpy
 with a fixed seed (weights as `tests/test_kernels.py::TestFusedConvStack._make`).
 The JAX kernel takes HWIO weights, the port OIHW.
 
+The kernel's own arithmetic runs here too, by CPU emulations: the bf16
+tile order, and the float32 mode's split TF32 (`_pack_tf32`'s hi and lo
+weight planes, the input split into hi and lo, three products a term, a
+fresh sum every 16 K) at the plan a CPU port of `mma_plan` gives.
+
 Criteria: float32 within 1e-5 of the largest output. bfloat16: the output
 is float32 (the last layer unrounded); one layer within 1e-5 of the
 largest, as both sum the same bf16 x bf16 products in float32, and,
@@ -224,10 +229,69 @@ def _unpack(wp, cout, cin, k):
     return wp[:cout, : k * k * cin].reshape(cout, k, k, cin).permute(0, 3, 1, 2)
 
 
+def _cols(x, k, s, pad_t, pad_l, ho, wo):
+    """x (B, H, W, cin) float32 -> (B, ho, wo, K): each output pixel's
+    inputs in the tensor-core kernels' K order (chunks of 16 channels,
+    then taps, then channels; taps then channels, flat, for cin < 16),
+    zero where the pads and the padding of K lie."""
+    B, H, W, cin = x.shape
+    chunked = rowconv.mma_chunked(cin)
+    cp = -(-cin // 16) * 16 if chunked else cin
+    pad_b, pad_r = max((ho - 1) * s + k - H - pad_t, 0), max((wo - 1) * s + k - W - pad_l, 0)
+    xp = F.pad(x, (0, cp - cin, pad_l, pad_r, pad_t, pad_b))
+    taps = torch.stack([xp[:, ky: ky + s * (ho - 1) + 1: s, kx: kx + s * (wo - 1) + 1: s]
+                        for ky in range(k) for kx in range(k)], 3)  # (B, ho, wo, k*k, cp)
+    if chunked:
+        taps = taps.reshape(B, ho, wo, k * k, cp // 16, 16).permute(0, 1, 2, 4, 3, 5)
+    cols = taps.reshape(B, ho, wo, -1)
+    return F.pad(cols, (0, -(-cols.shape[3] // 16) * 16 - cols.shape[3]))
+
+
+def _split_tf32_sum(cols, hi, lo):
+    """cols (..., K) float32 times the (N, K) TF32 weight planes hi + lo as
+    the split-TF32 tile sums them: the input split once into TF32 hi and lo
+    (lo zero for a bf16 input), per 16 K a fresh sum of each 8-K step's
+    lo*hi, hi*lo and hi*hi products, in that order, added to the running
+    float32 sum. (..., N) float32."""
+    a_hi = rowconv.tf32_rna(cols)
+    a_lo = rowconv.tf32_rna(cols - a_hi)
+    acc = torch.zeros(*cols.shape[:-1], hi.shape[0])
+    for k16 in range(0, cols.shape[-1], 16):
+        fresh = torch.zeros_like(acc)
+        for ks in (k16, k16 + 8):
+            s = slice(ks, ks + 8)
+            fresh = fresh + a_lo[..., s] @ hi[:, s].t()
+            fresh = fresh + a_hi[..., s] @ lo[:, s].t()
+            fresh = fresh + a_hi[..., s] @ hi[:, s].t()
+        acc = acc + fresh
+    return acc
+
+
+def _tf32_layer(x, planes, b, k, s, pad_t, pad_l, ho, wo, relu):
+    """One float32-mode layer of the stack from `_pack_tf32`'s (2, Np, K)
+    planes: split-TF32 sums, + bias, ReLU; float32, unrounded."""
+    cout = b.shape[0]
+    y = _split_tf32_sum(_cols(x.float(), k, s, pad_t, pad_l, ho, wo), planes[0], planes[1])[..., :cout] + b
+    return torch.relu(y) if relu else y
+
+
+def _tf32_stack(x, ws, bs, strides, relus):
+    """The float32 stack as `_tf32_layer`s on `rowconv._pack_tf32`'s
+    planes of the OIHW weights: what the kernel computes for each output."""
+    y = x
+    for w, b, s, r in zip(ws, bs, strides, relus):
+        H, W, k = y.shape[1], y.shape[2], w.shape[-1]
+        ho, pad_t, _ = conv_stack.same_pads(H, k, s)
+        wo, pad_l, _ = conv_stack.same_pads(W, k, s)
+        y = _tf32_layer(y, rowconv._pack_tf32(w, y.shape[3]), b, k, s, pad_t, pad_l, ho, wo, r)
+    return y
+
+
 def _emulated_launch(n, B, xs, outs, ws, bs, params, act_bf16, stream):
     """`davo_conv_stack` in PyTorch on the CPU: each layer from the
     pointers and the geometry of the table alone, as the kernel reads them
-    (bf16 mode: the packed weights; the intermediates in one workspace at
+    (the packed weights: bf16 `_pack_mma`, or float32 `_pack_tf32` hi and
+    lo planes summed in split TF32; the intermediates in one workspace at
     256-byte aligned offsets), after the checks the kernel makes."""
     assert len(params) == 13 * n
     for i in range(n):
@@ -237,17 +301,19 @@ def _emulated_launch(n, B, xs, outs, ws, bs, params, act_bf16, stream):
             assert (xs[i] - xs[1]) % 256 == 0 and xs[i] == outs[i - 1]
         x = _view(xs[i], torch.bfloat16 if x_bf16 else torch.float32, (B, H, W, cin)).float()
         b = _view(bs[i], torch.float32, (cout,))
-        if act_bf16:
-            w = _unpack(_view(ws[i], torch.bfloat16, _packed_shape(cout, cin, k)), cout, cin, k).float()
-            x = x.to(torch.bfloat16).float()
-        else:
-            w = _view(ws[i], torch.float32, (cout, cin, k, k))
+        out_dtype = torch.bfloat16 if act_bf16 and i < n - 1 else torch.float32
+        if not act_bf16:
+            planes = _view(ws[i], torch.float32, (2, *_packed_shape(cout, cin, k)))
+            y = _tf32_layer(x, planes, b, k, s, pad_t, pad_l, Ho, Wo, relu)
+            _view(outs[i], out_dtype, (B, Ho, Wo, cout)).copy_(y)
+            continue
+        w = _unpack(_view(ws[i], torch.bfloat16, _packed_shape(cout, cin, k)), cout, cin, k).float()
+        x = x.to(torch.bfloat16).float()
         pad_b = max((Ho - 1) * s + k - H - pad_t, 0)
         pad_r = max((Wo - 1) * s + k - W - pad_l, 0)
         y = F.conv2d(F.pad(x.permute(0, 3, 1, 2), (pad_l, pad_r, pad_t, pad_b)), w, stride=s)
         y = (y + b[:, None, None]).permute(0, 2, 3, 1)
         y = torch.relu(y) if relu else y
-        out_dtype = torch.bfloat16 if act_bf16 and i < n - 1 else torch.float32
         _view(outs[i], out_dtype, (B, Ho, Wo, cout)).copy_(y.to(out_dtype))
     return 0
 
@@ -255,9 +321,11 @@ def _emulated_launch(n, B, xs, outs, ws, bs, params, act_bf16, stream):
 @pytest.mark.parametrize("mode", ["float32", "bfloat16"])
 def test_kernel_side_plumbing_with_the_launch_emulated(monkeypatch, mode):
     """The CUDA branch's layer table and workspace (geometry, SAME pads,
-    dtypes, pointers to each intermediate, 256-byte aligned; in bf16 the
-    packed weights) run on the CPU, with the one launch emulated from the
-    table: the plain version's result."""
+    dtypes, pointers to each intermediate, 256-byte aligned; the packed
+    weights of the mode) run on the CPU, with the one launch emulated from
+    the table: in bf16 the plain version's result; in float32 the
+    split-TF32 stack's (`_tf32_stack` on the OIHW weights), bit for bit,
+    which is within 1e-5 of the plain version's largest output."""
     stub = types.SimpleNamespace(davo_conv_stack=_emulated_launch)
     monkeypatch.setattr(conv_stack, "_library", lambda: stub)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
@@ -273,6 +341,9 @@ def test_kernel_side_plumbing_with_the_launch_emulated(monkeypatch, mode):
             got = conv_stack._stack_cuda(x, ws, bs, strides, relus, conv_stack.COMPUTE_DTYPES[mode])
             want = conv_stack.fused_conv_stack_plain(x, ws, bs, strides, relus, 1, mode)
             assert got.dtype == torch.float32 and got.shape == want.shape
+            if mode == "float32":
+                _assert_close(got, want.numpy())
+                want = _tf32_stack(x.float(), ws, bs, strides, relus)
             assert torch.equal(got, want)
 
 
@@ -282,7 +353,8 @@ def test_ctypes_signatures_match_the_c_entry_points():
     per int (ctypes would pass a missing or extra argument unchecked); the
     table's 13 ints a layer and MAX_LAYERS are the kernel's; the bf16
     plan's shared-memory cap leaves four blocks an SM (228 KB, 1 KB
-    reserved per block)."""
+    reserved per block), the float32 plan's two; the float32 kernel is
+    bound to two blocks an SM, the bf16 one to four."""
     src = (cuda_build.CSRC_DIR / "conv_stack.cu").read_text()
     for name, argtypes in conv_stack.SIGNATURES.items():
         params = re.search(rf"int {name}\(([^)]*)\)", src).group(1).split(",")
@@ -292,6 +364,10 @@ def test_ctypes_signatures_match_the_c_entry_points():
     assert re.search(rf"constexpr int kMaxLayers = {conv_stack.MAX_LAYERS};", src)
     cap = int(re.search(r"constexpr size_t kStackSmem = (\d+) \* 1024;", src).group(1)) * 1024
     assert 4 * (cap + 1024) <= 228 * 1024
+    assert _tf32_cap() == int(re.search(r"constexpr size_t kStackSmemTf32 = (\d+) \* 1024;", src).group(1)) * 1024
+    assert 2 * (_tf32_cap() + 1024) <= 228 * 1024 < 3 * (_tf32_cap() + 1024)
+    assert re.search(r"__launch_bounds__\(kThreads, 4\) conv_stack_mma_kernel", src)
+    assert re.search(r"__launch_bounds__\(kThreads, 2\) conv_stack_tf32_kernel", src)
 
 
 def _emulate_mma_stack(x, ws, bs, strides, relus, tile_w=8, nt=8):
@@ -383,3 +459,147 @@ def test_emulated_tensor_core_stack_follows_plain_and_reference(tile_w, nt):
     want32 = _both(x, ws, bs, strides, relus, 1, "float32")[1]
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
     assert np.abs(got.numpy() - want).max() <= 0.5 * np.abs(want - want32).max()
+
+
+# ------------------------------------------------ the float32 (split-TF32) stack
+
+def _tf32_cap():
+    """kStackSmemTf32, the float32 plan's shared memory a block."""
+    src = (cuda_build.CSRC_DIR / "conv_stack.cu").read_text()
+    return int(re.search(r"constexpr size_t kStackSmemTf32 = (\d+) \* 1024;", src).group(1)) * 1024
+
+
+def _plan(H, W, cin, cout, k, stride, cap, prec):
+    """`mma_plan` (csrc/conv_mma.cuh) as the stack calls it (4-warp tiles,
+    NT up to 8) for operands of precision `prec`: "bf16"; "tf32", the
+    input's halo in hi and lo planes (the layer kernel's); or
+    "tf32_one_plane", one plane of it (the stack's float32 kernel, which
+    splits the input as it reads it, and whose flat order stages the
+    epilogue in the halo's place): the tile (16x8, or 8x16 where it
+    computes fewer pixels past the map's edge), the widest NT whose shared
+    memory fits `cap`, halving, and one staging buffer where two do not
+    fit. (tile_h, tile_w, nt, stages, bytes), or None."""
+    ho, wo = -(-H // stride), -(-W // stride)
+    shapes = ((16, 8), (8, 16))
+
+    def computed(th, tw):
+        return -(-ho // th) * th * -(-wo // tw) * tw
+
+    th, tw = shapes[1] if computed(*shapes[1]) < computed(*shapes[0]) else shapes[0]
+    flat, taps = not rowconv.mma_chunked(cin), k * k
+    hh, hw = (th - 1) * stride + k, (tw - 1) * stride + k
+    hws = 2 * ((hw + 1) // 2) if stride == 2 else hw
+    nchunks, kp, n8 = -(-cin // 16), -(-taps * cin // 16) * 16, -(-cout // 8)
+    nt = 1 if n8 <= 1 else 2 if n8 <= 2 else 4 if n8 <= 4 else 8
+
+    def smem(n_rows, stages):
+        epi = th * tw * (n_rows + 4) * 4
+        if prec == "bf16":
+            ops = (n_rows * (kp // 8 + 1) * 16 + kp * 4 + hh * hw * cin * 2 if flat
+                   else stages * (hh * hws * 2 + n_rows * taps * 2) * 16)
+        else:
+            a_planes = 2 if prec == "tf32" else 1
+            halo = a_planes * hh * hw * cin * 4
+            if prec == "tf32_one_plane":  # the flat order's epilogue stages in the halo's place
+                halo = max(halo, epi)
+            ops = (2 * n_rows * (kp // 4 + 1) * 16 + kp * 4 + halo if flat
+                   else stages * (a_planes * hh * hws * 4 + 2 * n_rows * taps * 4) * 16)
+        return max(ops, epi)
+
+    while True:
+        stages = 2 if not flat and nchunks > 1 else 1
+        if smem(nt * 8, stages) > cap and stages == 2:
+            stages = 1
+        if smem(nt * 8, stages) <= cap:
+            return th, tw, nt, stages, smem(nt * 8, stages)
+        if nt == 1:
+            return None
+        nt //= 2
+
+
+POSE_PREFIX = ((128, 416, 9, 16, 7), (64, 208, 16, 32, 5), (32, 104, 32, 64, 3), (16, 52, 64, 128, 3),
+               (8, 26, 128, 256, 3))  # davo-fast's five fused pose layers: H, W, Cin, Cout, k (stride 2)
+
+
+def test_float32_plan_of_the_pose_prefix_fits_two_blocks_an_sm():
+    """The plan at the float32 cap for the davo-fast pose prefix at
+    128x416, the input's halo in one plane: every layer has one (layer 0
+    flat at NT=2, its 16 channels in one block, in 87,620 bytes; NT 2, 2,
+    8, 8, 8), the largest within kStackSmemTf32, so two blocks stay
+    resident on an SM. With the layer kernel's two planes the same cap
+    leaves layer 1 at NT=1 and layers 2-4 at NT=4. The bf16 plan at
+    kStackSmem gives the launch the card reports (48,000 bytes; NT 2, 4,
+    8, 8, 8)."""
+    cap = _tf32_cap()
+    plans = [_plan(h, w, cin, cout, k, 2, cap, "tf32_one_plane") for h, w, cin, cout, k in POSE_PREFIX]
+    assert all(plans) and max(p[4] for p in plans) <= cap
+    assert plans[0] == (16, 8, 2, 1, 87_620) and [p[2] for p in plans] == [2, 2, 8, 8, 8]
+    two_planes = [_plan(h, w, cin, cout, k, 2, cap, "tf32") for h, w, cin, cout, k in POSE_PREFIX]
+    assert two_planes[0][4] == 115_592 and [p[2] for p in two_planes] == [2, 1, 4, 4, 4]
+    bf16 = [_plan(h, w, cin, cout, k, 2, 56 * 1024, "bf16") for h, w, cin, cout, k in POSE_PREFIX]
+    assert [p[2] for p in bf16] == [2, 4, 8, 8, 8] and max(p[4] for p in bf16) == 48_000
+
+
+def _emulate_tf32_stack_tiles(x, ws, bs, strides, relus, cap):
+    """The float32 stack as the kernel computes it, tile by tile on the
+    CPU: per layer the plan's tiles (`_plan` at `cap`) and channel blocks
+    of nt*8 rows of `_pack_tf32`'s planes; per tile and channel block the
+    split-TF32 sums over K in the packed order (`_split_tf32_sum`: the
+    input split into hi and lo, which the kernel does as it reads each
+    fragment of its one staged plane, a fresh sum every 16 K), + bias,
+    ReLU; float32
+    intermediates, unrounded; only pixels and channels inside the map are
+    written. Returns (output, the plans)."""
+    y, plans = x, []
+    for w, b, s, r in zip(ws, bs, strides, relus):
+        B, H, W, cin = y.shape
+        cout, k = w.shape[0], w.shape[-1]
+        plan = _plan(H, W, cin, cout, k, s, cap, "tf32_one_plane")
+        plans.append(plan)
+        th, tw, nt = plan[:3]
+        ho, pad_t, _ = conv_stack.same_pads(H, k, s)
+        wo, pad_l, _ = conv_stack.same_pads(W, k, s)
+        hi, lo = rowconv._pack_tf32(w, cin)
+        # Every pixel of every tile, those past the map's edge too.
+        hp, wp = -(-ho // th) * th, -(-wo // tw) * tw
+        cols = _cols(y.float(), k, s, pad_t, pad_l, hp, wp)
+        out = torch.empty(B, ho, wo, cout)
+        for oy0 in range(0, ho, th):
+            for ox0 in range(0, wo, tw):
+                tile = cols[:, oy0: oy0 + th, ox0: ox0 + tw]
+                for co0 in range(0, hi.shape[0], nt * 8):
+                    rows = slice(co0, co0 + nt * 8)
+                    acc = _split_tf32_sum(tile, hi[rows], lo[rows])
+                    n_out = min(nt * 8, cout - co0)
+                    v = acc[..., :n_out] + b[co0: co0 + n_out]
+                    v = torch.relu(v) if r else v
+                    out[:, oy0: oy0 + th, ox0: ox0 + tw, co0: co0 + n_out] = v[:, : ho - oy0, : wo - ox0]
+        y = out
+    return y, plans
+
+
+@pytest.mark.parametrize("case", ["stride1", "stride2_k5_k3", "mixed_2_1_2", "pose_like", "pose_like_bf16_input"])
+def test_emulated_tf32_stack_follows_plain_and_reference(case):
+    """The float32 kernel's order (`_emulate_tf32_stack_tiles` at the
+    float32 cap) on the JAX tests' shapes and a pose-like stack (Cin 9:
+    flat K for layer 0, 16-channel chunks behind it; Cout 20 padded to
+    24; odd dims at strides 2 and 1), also from a bf16 stack input (no
+    lo: two products a term): within 1e-5 of the largest output of the
+    plain version and of the JAX kernel in float32 (interpret mode)."""
+    if case.startswith("pose_like"):
+        shape, ks, chans, strides, relus = (2, 13, 30, 9), (7, 5, 3), (20, 32, 16), (2, 2, 1), (True,) * 3
+    else:
+        shape, ks, chans, strides, relus, _ = CASES[case]
+    rng = np.random.default_rng(70 + len(case))
+    x = rng.uniform(size=shape).astype(np.float32)
+    ws, bs = _make(rng, ks, chans, shape[-1], bias_scale=0.1)
+    if case.endswith("bf16_input"):
+        x = _bf16(x)  # the same values for the JAX kernel as a float32 input
+    xt = torch.from_numpy(x)
+    xt = xt.to(torch.bfloat16) if case.endswith("bf16_input") else xt
+    got, plans = _emulate_tf32_stack_tiles(xt, *_port(ws, bs), strides, relus, _tf32_cap())
+    assert all(plans)
+    plain = conv_stack.fused_conv_stack_plain(xt, *_port(ws, bs), strides, relus, 1, "float32")
+    _assert_close(got, plain.numpy())
+    _assert_close(got, _both(x, ws, bs, strides, relus, 1, "float32")[1])
+    assert torch.allclose(got, _tf32_stack(xt.float(), *_port(ws, bs), strides, relus), rtol=0, atol=1e-6)

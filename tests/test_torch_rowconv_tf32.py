@@ -23,6 +23,9 @@ ROWCONV_F32_TOL; absolute 1e-5 for the level input and a0); bf16 at most
 1e-3 of the elements one ulp apart at the output's scale.
 """
 
+import re
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,7 +35,7 @@ from test_torch_rowconv import (EST_RELUS, _assert_f32, _flow_level, _gap_ratio,
                                 _make, _port)
 
 from davo_tpu.kernels import rowconv as jrowconv
-from davo_tpu_torch.kernels import rowconv, rowconv_ad
+from davo_tpu_torch.kernels import cuda_build, rowconv, rowconv_ad
 
 
 @pytest.fixture(autouse=True)
@@ -282,3 +285,27 @@ def test_emulated_level_input_in_the_bf16_flow_level_keeps_the_gap_criterion(mon
     ratio = _gap_ratio(lambda seed, m: run(rowconv, seed, m), lambda seed, m: run(jrowconv, seed, m), range(3),
                        "bfloat16")
     assert ratio <= 0.5
+
+
+def test_last_level_input_kernel_names_what_the_launcher_recorded(monkeypatch):
+    """`rowconv.last_level_input_kernel` names the code that
+    `davo_flow_level_input_last` returns (the tile kernel's search
+    instance, or the element kernel; none before a launch), and the C
+    launcher records each code just before it launches that kernel."""
+    def stub(code):
+        def last(out):
+            out[0] = code
+            return 0
+        return types.SimpleNamespace(davo_flow_level_input_last=last)
+
+    for code, name in ((3, "flow_level_input_kernel<3>"), (4, "flow_level_input_kernel<4>"),
+                       (-1, "flow_level_input_kernel<-1>"), (-2, "flow_level_input_element_kernel")):
+        monkeypatch.setattr(rowconv, "_library", lambda code=code: stub(code))
+        assert rowconv.last_level_input_kernel() == name
+    monkeypatch.setattr(rowconv, "_library", lambda: stub(0))
+    with pytest.raises(RuntimeError, match="no flow_level_input launch"):
+        rowconv.last_level_input_kernel()
+    src = (cuda_build.CSRC_DIR / "rowconv.cu").read_text()
+    assert re.search(r"last_level_input = -2;\s*flow_level_input_element_kernel<T><<<", src)
+    assert re.search(r"last_level_input = search == 3 \|\| search == 4 \? search : -1;\s*switch \(search\)", src)
+    assert re.search(r"int davo_flow_level_input_last\(int\* out\) \{\s*out\[0\] = last_level_input;", src)
