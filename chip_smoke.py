@@ -89,6 +89,15 @@ Phases, in order; any failure exits non-zero:
  11. the bench entry point: `python -m davo_tpu_torch.bench` (bench.py's
      JSON line, davo-fast at B=256) beside phase 6, and one
      bench_train_step (davo, B=16)
+ 12. the trajectory backend through the CLI (davo 128x416, the CLI's
+     synthetic worlds, a temporary directory, no plain version run):
+     train 2 steps to a checkpoint, infer --ckpt (--tum), depth, eval
+     --devkit, eval-depth, ba --ckpt; cost-volume launches per command,
+     served poses against the checkpoint restored in memory, TUM round
+     trip; then ba on the world's exact flow from a perturbed GT
+     trajectory, card and --device cpu: each window's cost not raised,
+     the GT error reduced, the CPU within 1e-4; ba_refine ms per window,
+     the flow-net calls' ms, host syncs per window
 The line before the last names the card; the last line is the result.
 """
 
@@ -3239,6 +3248,243 @@ def bench_entry(torch, card, phase6_fps):
     return line, train
 
 
+# ---------------------------------------------------------------- the trajectory backend
+
+BACKEND_POSE_TOL = 1e-6  # infer --ckpt against the checkpoint restored in memory; TUM round trip
+BACKEND_BA_TOL = 1e-4    # the BA on the card against the BA on the CPU, of the largest translation
+
+
+def _host_syncs(torch, fn) -> int:
+    """Host syncs of `fn()`: the runtime calls that block the host until the
+    device is done (a copy to or from pageable host memory makes one), as
+    the profiler counts them, less those of profiling nothing."""
+    names = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def count(body):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities) as prof:
+            body()
+        return sum(e.count for e in prof.key_averages() if any(n in e.key for n in names))
+
+    return count(fn) - count(lambda: None)
+
+
+def backend_path(torch, card, costvol, bandwarp):
+    """Phase 12: the trajectory backend through `cli_main` on the card, in a
+    temporary directory, at the `davo` preset, 128x416, on the CLI's
+    synthetic worlds, every plain version refused: `train` (2 steps, a
+    checkpoint), `infer --ckpt --tum --gt-out`, `depth --ckpt`, `eval
+    --devkit`, `eval-depth` and `ba --ckpt --depth-dir` (flow tracks from
+    the checkpoint's flow net), then `ba` on the world's exact flow and
+    depth from a perturbed GT trajectory (tests/test_tracks.py's
+    oracle-free case at this size), on the card and with `--device cpu`.
+
+    Asserts each rc and each command's cost-volume launches (as reckoned
+    below), the served poses against the same checkpoint restored in
+    memory and the TUM file against them (1e-6 of the largest), the
+    devkit against the Python segment errors, both refined trajectories
+    finite and moved, and on the exact-flow `ba`: no window's Huber cost
+    raised by its refine, the error to GT reduced, the CPU run (TF32 off)
+    within 1e-4 of the largest translation. On the net-backed `ba` these
+    are recorded, not held: a random-weight pose net's trajectory can
+    put a window's two anchor poses (its gauge) a fraction of a
+    millimetre apart, where scale is unobservable, and the damped
+    Gauss-Newton of the reference, which the port keeps, has no step
+    acceptance to stop a step that raises the cost. Times ba_refine per
+    window of the net-backed run (CUDA events) and its device time and
+    kernel launches (profiler), the flow-net calls and the whole `ba`,
+    and counts host syncs per window."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from davo_tpu_torch.ba import gn, tracks
+    from davo_tpu_torch.ba.window import window_starts
+    from davo_tpu_torch.cli.main import main as cli_main
+    from davo_tpu_torch.config import BAConfig
+    from davo_tpu_torch.core import geometry as geo
+    from davo_tpu_torch.data.kitti import parse_poses, write_poses_kitti
+    from davo_tpu_torch.data.synthetic import SyntheticSequence
+    from davo_tpu_torch.eval import tum
+    from davo_tpu_torch.eval.runner import assemble_trajectory, make_pose_apply_fn, predict_sequence
+    from davo_tpu_torch.models import presets
+    from davo_tpu_torch.train import loop
+
+    cfg = presets.get("davo")
+    m = cfg.model
+    n_frames, batch, window, steps = 32, 32, 8, 2  # the CLI's world, its --batch-size and --window defaults
+    levels = m.flow_levels - 1  # cost volumes per flow-net call (/16, /8, /4)
+    starts = window_starts(n_frames, window, window // 2)
+    pairs = {(i, i + 1) for st in starts for i in range(st, min(st + window, n_frames) - 1)}
+    want_cv = {"infer": levels * -(-(n_frames - 1) // batch), "depth": levels * -(-n_frames // batch),
+               "eval": 0, "eval-depth": 0, "ba": levels * 2 * len(pairs), "ba exact flow": 0,
+               "ba exact flow, cpu": 0}
+    ba_cfg = BAConfig(window_size=window, max_iterations=8, damping=1e-3, huber_delta=3.0)
+
+    windows, flow_ms, flows = {}, [], {}
+    real_refine, real_flow_fn = tracks.ba_refine, tracks.make_flow_fn
+
+    def recording_refine(problem, c):
+        before = float(gn.ba_cost(problem, c.huber_delta))
+        out = real_refine(problem, c)
+        windows.setdefault(current, []).append(
+            {"problem": problem, "cost_before": before, "cost_after": float(gn.ba_cost(out, c.huber_delta))})
+        return out
+
+    def recording_flow_fn(model, frames):
+        fn = real_flow_fn(model, frames)
+
+        def timed(i, j):
+            t0 = time.perf_counter()
+            f = fn(i, j)  # ends in a copy to the host: the device has finished
+            if (i, j) not in flows:
+                flow_ms.append(1e3 * (time.perf_counter() - t0))
+                flows[(i, j)] = f
+            return f
+
+        return timed
+
+    world = SyntheticSequence(n_frames=n_frames, height=m.img_height, width=m.img_width, seed=1)
+    rng = np.random.default_rng(0)
+    noisy = world.poses.copy()
+    for i in range(2, n_frames):  # the first window's anchors stay at GT
+        noisy[i] = noisy[i] @ geo.se3_exp(torch.from_numpy(rng.normal(0, 0.01, 6))).numpy()
+
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        D, P, T, G, DEPTH, R, N, R2, R2C = (str(Path(tmp) / n) for n in (
+            "ckpt", "p.txt", "p.tum", "g.txt", "depth", "r.txt", "noisy.txt", "r2.txt", "r2cpu.txt"))
+        write_poses_kitti(N, noisy)
+        exact = ["ba", "--version", "davo", "--seq", "1", "--pred", N]
+        commands = [
+            ("train", ["train", "--version", "davo", "--steps", str(steps), "--worlds", "2", "--world-frames", "8",
+                       "--checkpoint-dir", D]),
+            ("infer", ["infer", "--version", "davo", "--ckpt", D, "--seq", "1", "--out", P, "--tum", T,
+                       "--gt-out", G]),
+            ("depth", ["depth", "--version", "davo", "--ckpt", D, "--seq", "1", "--out", DEPTH]),
+            ("eval", ["eval", "--gt", G, "--pred", P, "--devkit"]),
+            ("eval-depth", ["eval-depth", "--depth-dir", DEPTH, "--seq", "1"]),
+            ("ba", ["ba", "--version", "davo", "--ckpt", D, "--seq", "1", "--pred", P, "--depth-dir", DEPTH,
+                    "--out", R]),
+            ("ba exact flow", [*exact, "--out", R2]),
+            ("ba exact flow, cpu", [*exact, "--out", R2C, "--device", "cpu"]),
+        ]
+        undo = _refuse_plains(_train_plains(costvol, bandwarp))
+        tracks.ba_refine, tracks.make_flow_fn = recording_refine, recording_flow_fn
+        try:
+            for current, argv in commands:
+                out = io.StringIO()
+                _reset_counts()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    rc = cli_main(argv)
+                torch.cuda.synchronize()
+                results[current] = {"rc": rc, "seconds": time.perf_counter() - t0,
+                                    "launches": _train_counts(costvol, bandwarp), "stdout": out.getvalue()}
+        finally:
+            undo()
+            tracks.ba_refine, tracks.make_flow_fn = real_refine, real_flow_fn
+
+        bad = {k: r["rc"] for k, r in results.items() if r["rc"] != 0}
+        if bad:
+            raise AssertionError(f"backend path: non-zero rc {bad}")
+        train_want = _want_counts(results["train"]["launches"], {"cost_volume": 3, "cost_volume_backward": 3,
+                                                                  "banded_warp": 16, "banded_warp_backward": 16}, steps)
+        wrong = {k: r["launches"] for k, r in results.items()
+                 if r["launches"] != (train_want if k == "train" else _want_counts(r["launches"], {"cost_volume": want_cv[k]}, 1))}
+        if wrong:
+            raise AssertionError(f"backend path launches {wrong}, want cost volumes {want_cv} and the train path's")
+
+        # The served poses against the same checkpoint restored in memory.
+        served = parse_poses(open(P).read())
+        state = loop.restore_checkpoint(D, loop.create_state(cfg, "cuda"))
+        frames = np.stack([world.frame(i) for i in range(n_frames)])
+        seg = np.stack([world.seg(i) for i in range(n_frames)])
+        memory = assemble_trajectory(predict_sequence(make_pose_apply_fn(state.model), frames, seg=seg,
+                                                      batch_size=batch))
+        serve_err = float(np.abs(served - memory).max())
+        tum_err = float(np.abs(tum.parse_poses_tum(open(T).read())[1] - served).max())
+        largest = float(np.abs(memory).max())
+        report = json.loads(results["eval"]["stdout"])
+        devkit_pairs = {k: (report[k], report[f"{k}_cpp"]) for k in ("t_err_pct", "r_err_deg_per_100m")}
+        depth_report = json.loads(results["eval-depth"]["stdout"])
+        refined = parse_poses(open(R).read())
+        depths = np.stack([np.load(Path(DEPTH) / f"{i:06d}.npy") for i in range(n_frames)])
+        exact_card, exact_cpu = parse_poses(open(R2).read()), parse_poses(open(R2C).read())
+
+    # The net-backed BA again on the CPU, on the card run's flow fields.
+    net_cpu = tracks.refine_trajectory_tracked(ba_cfg, served, depths, world.K, lambda i, j: flows[(i, j)],
+                                               device="cpu")
+    exact_err = float(np.abs(exact_cpu - exact_card).max())
+    exact_largest_t = float(np.abs(exact_card[:, :3, 3]).max())
+    gt_err = {name: float(np.linalg.norm(poses[2:, :3, 3] - world.poses[2:, :3, 3], axis=-1).mean())
+              for name, poses in (("before", noisy), ("after", exact_card))}
+    tf32 = {"matmul": torch.backends.cuda.matmul.allow_tf32, "cudnn": torch.backends.cudnn.allow_tf32}
+
+    # ba_refine per window of the net-backed run on the card; host syncs.
+    net = windows["ba"]
+    per_window_ms = [_event_ms(lambda w=w: gn.ba_refine(w["problem"], ba_cfg), 5) for w in net]
+    refine_syncs = _host_syncs(torch, lambda: gn.ba_refine(net[0]["problem"], ba_cfg))
+    refine_kernels, refine_device_ms, refine_wall_ms = _kernel_profile(
+        torch, lambda: gn.ba_refine(net[0]["problem"], ba_cfg), 3, inference=False)
+    path_syncs = _host_syncs(torch, lambda: tracks.refine_trajectory_tracked(
+        ba_cfg, served, depths, world.K, lambda i, j: flows[(i, j)], device="cuda"))
+
+    def costs(name):
+        return {"before": [w["cost_before"] for w in windows[name]], "after": [w["cost_after"] for w in windows[name]]}
+
+    def anchor_baselines(name):  # metres between each window's two anchor poses
+        return [float(np.linalg.norm((np.linalg.inv(w["problem"].poses_cw[0].cpu().numpy())
+                                      - np.linalg.inv(w["problem"].poses_cw[1].cpu().numpy()))[:3, 3]))
+                for w in windows[name]]
+
+    row = {
+        "phase": "backend_path", "preset": "davo", "hw": [m.img_height, m.img_width], "frames": n_frames,
+        "seconds": {k: r["seconds"] for k, r in results.items()},
+        "cost_volume_launches": {k: r["launches"]["cost_volume"] for k, r in results.items()},
+        "train_launches": results["train"]["launches"],
+        "served_vs_memory_max_abs": serve_err, "tum_vs_served_max_abs": tum_err, "largest_pose_element": largest,
+        "devkit_python_vs_cpp": devkit_pairs, "ate_full": report["ate_full"], "depth_metrics": depth_report,
+        "net_ba": {"windows": len(net), "landmarks": [int(w["problem"].points_w.shape[0]) for w in net],
+                   "observations": [int(w["problem"].mask.sum()) for w in net], "cost": costs("ba"),
+                   "anchor_baseline_m": anchor_baselines("ba"),
+                   "refined_vs_served_max_abs": float(np.abs(refined - served).max()),
+                   "card_vs_cpu_max_abs": float(np.abs(net_cpu - refined).max()),
+                   "largest_translation": float(np.abs(refined[:, :3, 3]).max())},
+        "exact_flow_ba": {"windows": len(windows["ba exact flow"]), "cost": costs("ba exact flow"),
+                          "anchor_baseline_m": anchor_baselines("ba exact flow"),
+                          "card_vs_cpu_max_abs": exact_err, "largest_translation": exact_largest_t,
+                          "gt_error_m": gt_err},
+        "tf32": tf32,
+        "ba_refine_ms_per_window": per_window_ms, "ba_refine_ms_median": statistics.median(per_window_ms),
+        "ba_iterations": ba_cfg.max_iterations, "ba_command_s": results["ba"]["seconds"],
+        "ba_refine_device_ms": refine_device_ms, "ba_refine_profiled_wall_ms": refine_wall_ms,
+        "ba_refine_kernel_launches": sum(r[2] for r in refine_kernels),
+        "ba_refine_top_kernels": [[k[:60], ms, n] for k, ms, n in refine_kernels[:5]],
+        "flow_net_calls": len(flow_ms), "flow_net_ms_total": sum(flow_ms),
+        "flow_net_ms_median": statistics.median(flow_ms),
+        "host_syncs_ba_refine": refine_syncs, "host_syncs_per_window": path_syncs / len(net),
+        "card": card,
+    }
+    print(json.dumps(row), flush=True)
+    if serve_err > BACKEND_POSE_TOL * largest or tum_err > BACKEND_POSE_TOL * largest:
+        raise AssertionError(f"infer --ckpt: served poses {serve_err}, TUM {tum_err} off (largest {largest})")
+    for key, (py, cpp) in devkit_pairs.items():
+        if math.isfinite(py) and math.isfinite(cpp) and not math.isclose(py, cpp, rel_tol=1e-5):
+            raise AssertionError(f"eval --devkit: {key} python {py}, C++ {cpp}")
+    for name, poses, start in (("ba", refined, served), ("ba exact flow", exact_card, noisy)):
+        if not windows.get(name) or not np.isfinite(poses).all() or np.array_equal(poses, start):
+            raise AssertionError(f"{name}: no window refined, or the trajectory is not finite or did not move")
+    raised = [i for i, w in enumerate(windows["ba exact flow"]) if not w["cost_after"] <= w["cost_before"]]
+    if raised or not gt_err["after"] < gt_err["before"]:
+        raise AssertionError(f"ba exact flow: Huber cost raised in windows {raised}, GT error {gt_err}")
+    if exact_err > BACKEND_BA_TOL * exact_largest_t or any(tf32.values()):
+        raise AssertionError(f"ba: card against CPU {exact_err} (largest translation {exact_largest_t}), TF32 {tf32}")
+    return {k: r["launches"]["cost_volume"] for k, r in results.items()}
+
 
 def main() -> int:
     import torch
@@ -3336,6 +3582,7 @@ def main() -> int:
     train_step_time(torch, card, batch4)
     _, fused_step_kernels = train_step_time(torch, card, batch4, "fused_train_step_time", FUSED_TRAIN_FLAGS)
     bench_entry(torch, card, phase6_fps)
+    backend_counts = backend_path(torch, card, costvol, bandwarp)
 
     # The kernels' line. cost_volume: the work of one serving request (its
     # two flow levels at B=64) on bf16 maps, the presets' dtype, beside the
@@ -3370,8 +3617,9 @@ def main() -> int:
         {
             "name": "cost_volume", "route": "cuda", "source": "davo_tpu_torch/csrc/costvol.cu",
             "replaces": "davo_tpu/kernels/costvol.py:41",
-            "launches": launches + train_counts["cost_volume"],
-            "launches_by_path": {"serving": launches, "train": train_counts["cost_volume"]},
+            "launches": launches + train_counts["cost_volume"] + sum(backend_counts.values()),
+            "launches_by_path": {"serving": launches, "train": train_counts["cost_volume"],
+                                 **{f"backend {k}": v for k, v in backend_counts.items()}},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["device_ms"] for r in per_request),
             "call_ms": sum(r["ms"] for r in per_request),

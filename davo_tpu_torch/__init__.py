@@ -5,23 +5,31 @@ its layout and module names and is held against it by the tests in
 `tests/test_torch_*.py`. It never imports JAX, Flax or `davo_tpu`.
 
 Layer map (the slices ported so far — streaming pose inference, the
-photometric train step, their fused paths, and the bench path):
+photometric train step, their fused paths, the bench path, and the
+trajectory backend):
   config.py, models/presets.py   typed config tree and version presets
   convert.py                     Flax parameter tree -> state_dict
-  core/      geometry (pose vectors, projection, trajectories), pyramid,
-             SSIM, warps (bilinear_sample, projective, flow, separable)
+  core/      geometry (pose vectors, SO(3)/SE(3) exp/log, quaternions,
+             projection, trajectories), pyramid, SSIM, warps
+             (bilinear_sample, projective, flow, separable)
   kernels/   hand-written CUDA kernels (sources in csrc/, five of them):
              cost volume forward/backward, banded warp forward/backward,
              the fused conv chains (rowconv, rowconv_ad) and the one-launch
              conv stack (conv_stack); + plain versions
   models/    FlowNetLite, RegionAttention, PoseNet, DispNet, DavoModel
   train/     losses, train step (optax's Adam), fit loop, checkpoints
-  eval/      streaming runner and trajectory metrics
+             (and `restore_model`, a checkpoint's model for serving)
+  eval/      streaming runner, trajectory metrics, TUM IO, depth metrics,
+             the C++ KITTI devkit (ctypes, built with g++ at first use)
+  ba/        single-host sliding-window bundle adjustment: residuals and
+             Jacobians, Schur solve (batched windows too), PCG,
+             Gauss-Newton, pose graph, windows, flow tracks
   data/      synthetic sequences, snippet batches, device prefetch, KITTI poses
   bench/     throughput harnesses, speed-of-light counts (H100 peaks), and
              `python -m davo_tpu_torch.bench` (bench.py's JSON line)
   utils/     profiling: `timed`, `profile_trace` (torch.profiler)
-  cli/       `python -m davo_tpu_torch.cli.main {train,infer,bench} ...`
+  cli/       `python -m davo_tpu_torch.cli.main {train,infer,depth,eval,
+             eval-depth,ba,bench} ...`
 
 Tensors are NHWC at every public boundary, as in the JAX package.
 Entry points run on the GPU unless the caller passes device="cpu".

@@ -1,21 +1,31 @@
-"""davo_tpu_torch CLI (the ported subset): train, infer and bench.
+"""davo_tpu_torch CLI (the ported subset): train, infer, depth, eval,
+eval-depth, ba and bench.
 
   python -m davo_tpu_torch.cli.main train --version davo --data synthetic \
       --steps 1000 [--checkpoint-dir runs/davo] [--set train.k=v ...]
-  python -m davo_tpu_torch.cli.main infer --version davo-fast \
-      --data synthetic --seq 0 --out poses.txt [--set model.k=v ...]
+  python -m davo_tpu_torch.cli.main infer --version davo --seq 1 \
+      --ckpt runs/davo --out poses.txt [--tum poses.tum] [--gt-out gt.txt]
+  python -m davo_tpu_torch.cli.main depth --version davo --seq 1 \
+      --ckpt runs/davo --out depth/
+  python -m davo_tpu_torch.cli.main eval --gt gt.txt --pred poses.txt --devkit
+  python -m davo_tpu_torch.cli.main eval-depth --depth-dir depth/ --seq 1
+  python -m davo_tpu_torch.cli.main ba --version davo --seq 1 --ckpt runs/davo \
+      --pred poses.txt --depth-dir depth/ --out refined.txt
   python -m davo_tpu_torch.cli.main bench     # python -m davo_tpu_torch.bench
 
-Runs on the GPU unless `--device cpu`. `--version` selects a preset;
-dotted `--set key=value` overrides reach any config field. Prepared or
-KITTI training data, `--log-dir`, image summaries, inference from
-checkpoints, KITTI input and scan-chunked serving are not ported yet and
-are refused.
+train, infer, depth and ba run on the GPU unless `--device cpu`; eval
+and eval-depth are host numpy (and the C++ devkit). `--version` selects
+a preset; dotted `--set key=value` overrides reach any config field.
+`--ckpt` serves the newest checkpoint that `train --checkpoint-dir`
+wrote. Prepared or KITTI data, `--log-dir`, image summaries and
+scan-chunked serving are not ported yet and are refused.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import sys
 
 
@@ -29,17 +39,34 @@ def _apply_sets(cfg, sets: list[str] | None):
     return apply_overrides(cfg, overrides)
 
 
-def _load_sequence(seq: str, cfg, with_seg: bool):
-    """Synthetic world: (frames (N,H,W,3) float32, seg or None, gt poses)."""
-    import numpy as np
-
+def _world(seq: str, cfg):
+    """The CLI's synthetic world for `--seq`: 32 frames at the preset's size."""
     from davo_tpu_torch.data.synthetic import SyntheticSequence
 
-    H, W = cfg.model.img_height, cfg.model.img_width
-    s = SyntheticSequence(n_frames=32, height=H, width=W, seed=int(seq or 0))
+    return SyntheticSequence(
+        n_frames=32, height=cfg.model.img_height, width=cfg.model.img_width, seed=int(seq or 0)
+    )
+
+
+def _load_sequence(seq: str, cfg, with_seg: bool):
+    """Synthetic world: (frames (N,H,W,3) float32, seg or None, gt poses, K)."""
+    import numpy as np
+
+    s = _world(seq, cfg)
     frames = np.stack([s.frame(i) for i in range(len(s))])
     seg = np.stack([s.seg(i) for i in range(len(s))]) if with_seg else None
-    return frames, seg, s.poses
+    return frames, seg, s.poses, s.K
+
+
+def _restore_model(cfg, ckpt_dir: str, device):
+    """The model of the newest checkpoint in `ckpt_dir`, or None (the
+    reference's `_restore_model`)."""
+    from davo_tpu_torch.train.loop import restore_model
+
+    model = restore_model(cfg, ckpt_dir, device)
+    if model is None:
+        print(f"no checkpoint found in {ckpt_dir}", file=sys.stderr)
+    return model
 
 
 def _refuse(cmd: str, refused: list[str]) -> int:
@@ -118,8 +145,6 @@ def cmd_train(args) -> int:
 
 def cmd_infer(args) -> int:
     refused = []
-    if args.ckpt:
-        refused.append("--ckpt (checkpoints)")
     if args.data != "synthetic":
         refused.append(f"--data {args.data} (only 'synthetic' is ported)")
     if args.scan_chunks != 1:
@@ -139,8 +164,13 @@ def cmd_infer(args) -> int:
     from davo_tpu_torch.models.davo import DavoModel
 
     cfg = _apply_sets(presets.get(args.version), args.set)
-    model = DavoModel(cfg.model, device=args.device)
-    frames, seg, gt_poses = _load_sequence(
+    if args.ckpt:
+        model = _restore_model(cfg, args.ckpt, args.device)
+        if model is None:
+            return 1
+    else:
+        model = DavoModel(cfg.model, device=args.device)
+    frames, seg, gt_poses, _ = _load_sequence(
         args.seq, cfg, cfg.model.attention == "flow_seg"
     )
     rels = predict_sequence(
@@ -148,9 +178,167 @@ def cmd_infer(args) -> int:
     )
     traj = assemble_trajectory(rels, device=args.device)
     write_poses_kitti(args.out, traj)
+    if args.tum:
+        from davo_tpu_torch.eval.tum import write_poses_tum
+
+        write_poses_tum(args.tum, traj)
     if args.gt_out:
         write_poses_kitti(args.gt_out, np.asarray(gt_poses))
     print(f"wrote {len(traj)} poses to {args.out}")
+    return 0
+
+
+def cmd_depth(args) -> int:
+    """Depth-map inference (reference parity: `test_kitti_depth.py`,
+    SURVEY.md R3): the training forward's finest disparity as depth, one
+    .npy per frame. Every frame is a target once, the next frame its
+    source (the last frame's, the one before it): DispNet sees only the
+    target. The reference writes frames 0..N-2 only, which its own `ba
+    --depth-dir` (reading N maps) cannot take."""
+    if args.data != "synthetic":
+        return _refuse("depth", [f"--data {args.data} (only 'synthetic' is ported)"])
+    import numpy as np
+    import torch
+
+    from davo_tpu_torch import resolve_device
+    from davo_tpu_torch.models import presets
+    from davo_tpu_torch.models.davo import DavoModel
+    from davo_tpu_torch.models.dispnet import disp_to_depth
+
+    device = resolve_device(args.device)
+    cfg = _apply_sets(presets.get(args.version), args.set)
+    if args.ckpt:
+        model = _restore_model(cfg, args.ckpt, device)
+        if model is None:
+            return 1
+    else:
+        model = DavoModel(cfg.model, device=device, seed=cfg.train.seed, dispnet=True)
+    frames, _, _, _ = _load_sequence(args.seq, cfg, False)
+    os.makedirs(args.out, exist_ok=True)
+    bs = args.batch_size
+    n = len(frames)
+    sources = np.concatenate([frames[1:], frames[-2:-1]])
+    for start in range(0, n, bs):
+        end = min(start + bs, n)
+        pad = bs - (end - start)
+        tgt = frames[start:end]
+        src = sources[start:end]
+        if pad:
+            tgt = np.concatenate([tgt, np.repeat(tgt[-1:], pad, 0)])
+            src = np.concatenate([src, np.repeat(src[-1:], pad, 0)])
+        with torch.inference_mode():
+            out = model(torch.from_numpy(tgt).to(device), torch.from_numpy(src).to(device)[:, None], train=True)
+            d = disp_to_depth(out["disp"][0][..., 0]).cpu().numpy()
+        for i in range(end - start):
+            np.save(os.path.join(args.out, f"{start + i:06d}.npy"), d[i])
+    print(f"wrote {n} depth maps to {args.out}")
+    return 0
+
+
+def cmd_eval(args) -> int:
+    from davo_tpu_torch.data.kitti import parse_poses
+    from davo_tpu_torch.eval.runner import evaluate_sequence
+
+    with open(args.gt) as f:
+        gt = parse_poses(f.read())
+    with open(args.pred) as f:
+        pred = parse_poses(f.read())
+    n = min(len(gt), len(pred))
+    report = evaluate_sequence(pred[:n], gt[:n], snippet_len=args.snippet_len)
+    if args.devkit:
+        from davo_tpu_torch.eval.devkit import kitti_seg_errors_cpp
+
+        cpp = kitti_seg_errors_cpp(gt[:n], pred[:n])
+        report["t_err_pct_cpp"] = cpp["t_err_pct"]
+        report["r_err_deg_per_100m_cpp"] = cpp["r_err_deg_per_100m"]
+    print(json.dumps(report, indent=2, default=float))
+    return 0
+
+
+def cmd_eval_depth(args) -> int:
+    """Eigen-style depth evaluation (reference parity: `eval_depth.py`,
+    SURVEY.md R3/R12): per-frame median scaling, [min, max]-depth mask,
+    abs_rel / sq_rel / RMSE / RMSE_log / delta accuracies. Predictions
+    from --depth-dir (`depth`'s .npy files); GT from the synthetic world
+    or a --gt-dir of matching .npy files."""
+    import numpy as np
+
+    from davo_tpu_torch.eval.depth_metrics import depth_errors
+
+    files = sorted(f for f in os.listdir(args.depth_dir) if f.endswith(".npy"))
+    if not files:
+        print(f"no .npy depth maps in {args.depth_dir}", file=sys.stderr)
+        return 1
+    pred = np.stack([np.load(os.path.join(args.depth_dir, f)) for f in files])
+    if args.gt_dir:
+        gt = np.stack([np.load(os.path.join(args.gt_dir, f)) for f in files])
+    elif args.data == "synthetic":
+        from davo_tpu_torch.data.synthetic import SyntheticSequence
+
+        s = SyntheticSequence(
+            n_frames=len(files) + 1, height=pred.shape[1], width=pred.shape[2], seed=int(args.seq or 0)
+        )
+        gt = np.stack([s.depth(i) for i in range(len(files))])
+    else:
+        print("need --gt-dir for non-synthetic data", file=sys.stderr)
+        return 1
+    report = depth_errors(
+        gt, pred, min_depth=args.min_depth, max_depth=args.max_depth,
+        median_scale=not args.no_median_scale,
+    )
+    print(json.dumps(report, indent=2, default=float))
+    return 0
+
+
+def cmd_ba(args) -> int:
+    """Sliding-window BA refinement of a predicted trajectory (BASELINE
+    config #4). Observations are flow-tracked correspondences
+    (ba/tracks.py): from the checkpoint's flow net with --ckpt, else from
+    the synthetic world's exact flow field; no GT pose anywhere. Depth
+    from --depth-dir (`depth`'s .npy files) or the synthetic world."""
+    if args.data != "synthetic":
+        return _refuse("ba", [f"--data {args.data} (only 'synthetic' is ported)"])
+    import numpy as np
+
+    from davo_tpu_torch import resolve_device
+    from davo_tpu_torch.ba.tracks import make_flow_fn, refine_trajectory_tracked
+    from davo_tpu_torch.config import BAConfig
+    from davo_tpu_torch.data.kitti import parse_poses, write_poses_kitti
+    from davo_tpu_torch.data.synthetic import DYNAMIC_LABEL_START
+    from davo_tpu_torch.models import presets
+
+    device = resolve_device(args.device)
+    cfg = _apply_sets(presets.get(args.version), args.set)
+    model = None
+    if args.ckpt:
+        model = _restore_model(cfg, args.ckpt, device)
+        if model is None:
+            return 1
+    with open(args.pred) as f:
+        pred = parse_poses(f.read())
+    frames, segs, _, K = _load_sequence(args.seq, cfg, args.exclude_dynamic)
+    n = len(pred)
+    # The world's exact depth and flow stand in for what is not given.
+    world = None if args.depth_dir and model is not None else _world(args.seq, cfg)
+    if args.depth_dir:
+        depths = np.stack([np.load(os.path.join(args.depth_dir, f"{i:06d}.npy")) for i in range(n)])
+    else:
+        depths = np.stack([world.depth(i) for i in range(n)])
+    flow_fn = make_flow_fn(model, frames[:n]) if model is not None else world.gt_flow
+    ba_cfg = BAConfig(
+        window_size=args.window, max_iterations=args.iterations, damping=1e-3, huber_delta=3.0
+    )
+    refined = refine_trajectory_tracked(
+        ba_cfg, pred, depths, np.asarray(K, np.float64), flow_fn,
+        grid_step=args.grid_step, fb_px=args.fb_px,
+        segs=segs if args.exclude_dynamic else None,
+        exclude_labels=(
+            tuple(range(DYNAMIC_LABEL_START, cfg.model.num_seg_classes)) if args.exclude_dynamic else ()
+        ),
+        device=device,
+    )
+    write_poses_kitti(args.out, refined)
+    print(f"refined {n} poses -> {args.out}")
     return 0
 
 
@@ -184,8 +372,9 @@ def build_parser() -> argparse.ArgumentParser:
     i.add_argument("--version", default="davo")
     i.add_argument("--data", default="synthetic")
     i.add_argument("--seq", default="09")
-    i.add_argument("--ckpt", default=None, help="not ported yet (refused)")
+    i.add_argument("--ckpt", default=None, help="serve the newest checkpoint in this directory")
     i.add_argument("--out", required=True)
+    i.add_argument("--tum", default=None, help="also write TUM-format file")
     i.add_argument(
         "--gt-out", default=None,
         help="also write the sequence's GT trajectory (KITTI format)",
@@ -197,6 +386,47 @@ def build_parser() -> argparse.ArgumentParser:
     i.add_argument("--set", action="append", help="dotted override k=v")
     i.add_argument("--device", default=None, help=device_help)
     i.set_defaults(fn=cmd_infer)
+    d = sub.add_parser("depth", help="depth-map inference")
+    d.add_argument("--version", default="davo")
+    d.add_argument("--data", default="synthetic", help="only 'synthetic' is ported")
+    d.add_argument("--seq", default="09")
+    d.add_argument("--ckpt", default=None)
+    d.add_argument("--out", required=True)
+    d.add_argument("--batch-size", type=int, default=32)
+    d.add_argument("--set", action="append", help="dotted override k=v")
+    d.add_argument("--device", default=None, help=device_help)
+    d.set_defaults(fn=cmd_depth)
+    e = sub.add_parser("eval", help="evaluate a trajectory vs GT")
+    e.add_argument("--gt", required=True)
+    e.add_argument("--pred", required=True)
+    e.add_argument("--snippet-len", type=int, default=5)
+    e.add_argument("--devkit", action="store_true", help="also run C++ devkit")
+    e.set_defaults(fn=cmd_eval)
+    ed = sub.add_parser("eval-depth", help="evaluate depth maps vs GT")
+    ed.add_argument("--depth-dir", required=True)
+    ed.add_argument("--gt-dir", default=None)
+    ed.add_argument("--data", default="synthetic")
+    ed.add_argument("--seq", default="0")
+    ed.add_argument("--min-depth", type=float, default=1e-3)
+    ed.add_argument("--max-depth", type=float, default=80.0)
+    ed.add_argument("--no-median-scale", action="store_true")
+    ed.set_defaults(fn=cmd_eval_depth)
+    a = sub.add_parser("ba", help="sliding-window BA refinement")
+    a.add_argument("--version", default="davo")
+    a.add_argument("--data", default="synthetic", help="only 'synthetic' is ported")
+    a.add_argument("--seq", default="09")
+    a.add_argument("--pred", required=True, help="predicted trajectory (KITTI fmt)")
+    a.add_argument("--depth-dir", default=None)
+    a.add_argument("--ckpt", default=None, help="model ckpt for flow tracks")
+    a.add_argument("--out", required=True)
+    a.add_argument("--window", type=int, default=8)
+    a.add_argument("--iterations", type=int, default=8)
+    a.add_argument("--grid-step", type=int, default=8)
+    a.add_argument("--fb-px", type=float, default=1.0, help="forward-backward track gate (pixels)")
+    a.add_argument("--exclude-dynamic", action="store_true", help="drop anchors on dynamic seg classes (11-18)")
+    a.add_argument("--set", action="append", help="dotted override k=v")
+    a.add_argument("--device", default=None, help=device_help)
+    a.set_defaults(fn=cmd_ba)
     b = sub.add_parser("bench", help="throughput benchmark")
     b.add_argument("--version", default="davo", help="ignored, as in the reference")
     b.add_argument("--device", default=None, help=device_help)

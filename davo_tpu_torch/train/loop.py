@@ -250,18 +250,39 @@ def save_checkpoint(directory: str, state: TrainState, max_to_keep: int = 3) -> 
     return path
 
 
-def restore_checkpoint(directory: str, state: TrainState) -> TrainState | None:
-    """Load the newest checkpoint in `directory` into `state` (None if
-    there is none)."""
+def _load_newest(directory: str, device: torch.device) -> dict | None:
     found = _checkpoints(directory)
     if not found:
         return None
-    device = next(state.model.parameters()).device
-    saved = torch.load(found[-1][1], map_location=device, weights_only=True)
+    return torch.load(found[-1][1], map_location=device, weights_only=True)
+
+
+def restore_checkpoint(directory: str, state: TrainState) -> TrainState | None:
+    """Load the newest checkpoint in `directory` into `state` (None if
+    there is none)."""
+    saved = _load_newest(directory, next(state.model.parameters()).device)
+    if saved is None:
+        return None
     state.model.load_state_dict(saved["model"])
     state.tx.load_state_dict(saved["optimizer"])
     state.step = int(saved["step"])
     return state
+
+
+def restore_model(cfg: Config, directory: str, device: str | torch.device | None = None) -> DavoModel | None:
+    """The newest checkpoint's model in `directory`, for serving: built as
+    `create_state` builds it (DispNet included), but with the serving
+    flags allowed (they route the forward; the parameters are the same),
+    on `device` (the GPU unless device="cpu"), without the optimizer.
+    None if there is no checkpoint; a checkpoint whose parameters do not
+    match `cfg` raises (a strict load)."""
+    device = resolve_device(device)
+    saved = _load_newest(directory, device)
+    if saved is None:
+        return None
+    model = DavoModel(cfg.model, device=device, seed=cfg.train.seed, dispnet=True)
+    model.load_state_dict(saved["model"])
+    return model.eval()
 
 
 # ---------------------------------------------------------------------------
