@@ -98,6 +98,17 @@ Phases, in order; any failure exits non-zero:
      trajectory, card and --device cpu: each window's cost not raised,
      the GT error reduced, the CPU within 1e-4; ba_refine ms per window,
      the flow-net calls' ms, host syncs per window
+ 13. the options the earlier slices refused (`options_path`): davo-res
+     through `cli train` and `cli depth`, its train step against the CPU
+     and its B=4 step time against davo's; davo with the geometric pose
+     head (pose_head=geo_hybrid) through `cli train` and `cli infer
+     --ckpt` (with and without the serving flags), card against CPU
+     (forward and train step), frames/s and host syncs against the conv
+     head; davo-fast with s2d_first_conv against the plain first conv,
+     and that conv alone; `cli infer --scan-chunks 4` and the 257-frame
+     world through one scan call against 4 per-call requests; a
+     resumable evaluation crashed and resumed; davo at 120x400 (the
+     non-integer resize) card against CPU
 The line before the last names the card; the last line is the result.
 """
 
@@ -3031,20 +3042,22 @@ def _loss_and_grads(torch, model, batch, cfg, device, step):
     loop._apply_warp_config(cfg, torch.device(device))
     tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
     model.zero_grad(set_to_none=True)
-    out = model(tb["target"], tb["sources"], seg=tb["seg"], train=True, source_disp=True)
+    K = tb["K"] if cfg.model.pose_head == "geo_hybrid" else None
+    out = model(tb["target"], tb["sources"], seg=tb["seg"], train=True, source_disp=True, K=K)
     loss, metrics = total_loss(out, tb, cfg.model, cfg.train, step=step)
     loss.backward()
     return ({k: float(v.detach()) for k, v in metrics.items()},
             {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
 
 
-def train_gpu_against_cpu(torch, phase="train_gpu_vs_cpu", flags=None):
+def train_gpu_against_cpu(torch, phase="train_gpu_vs_cpu", flags=None, chain_backward=None):
     """Phase 9: one train step's loss terms and gradients on the card
     against the port on the CPU: `davo` widths at 64x128 in float32,
     TF32 off, the same seeded parameters and batch, banded warp (4, 16)
     on both (kernels on the card, plain versions on the CPU), with the
     model `flags` set (9b: the fused training path, whose step on the
-    card must launch the training chains' backward kernels).
+    card must launch the training chains' backward kernels; whether it
+    must is `chain_backward`, by default whether flags are set).
 
     Gated on a batch of independent noise images. On a synthetic-world
     batch, whose frames are nearly alike, SSIM's (1 - s)/2 cancels: on
@@ -3096,7 +3109,7 @@ def train_gpu_against_cpu(torch, phase="train_gpu_vs_cpu", flags=None):
         }), flush=True)
         if gated and (max(loss_err.values()) > TRAIN_LOSS_TOL or worst[0][1] > TRAIN_GRAD_TOL):
             raise AssertionError(f"{phase}: loss {loss_err}, worst grads {worst}")
-        if bool(flags) != (backward_launches > 0):
+        if (bool(flags) if chain_backward is None else chain_backward) != (backward_launches > 0):
             raise AssertionError(f"{phase}: {backward_launches} training-chain backward launches on the card")
 
 
@@ -3486,6 +3499,349 @@ def backend_path(torch, card, costvol, bandwarp):
     return {k: r["launches"]["cost_volume"] for k, r in results.items()}
 
 
+# ------------------------------------------------------------- phase 13: options
+
+OPTIONS_SCAN_TOL = 1e-6  # scan against per call, resumed against uninterrupted: of the largest element
+GEO_SETS = ["--set", "model.pose_head=geo_hybrid"]
+
+
+def _resize_fallbacks():
+    """Count calls of the non-integer resize (`kernels.resize.resize_bilinear`,
+    which `resize_bilinear_aligned` falls back to); returns (calls, undo)."""
+    from davo_tpu_torch.kernels import resize
+
+    real, calls = resize.resize_bilinear, []
+
+    def counted(x, height, width):
+        calls.append([list(x.shape[1:3]), [height, width], x.device.type])
+        return real(x, height, width)
+
+    resize.resize_bilinear = counted
+
+    def undo():
+        resize.resize_bilinear = real
+
+    return calls, undo
+
+
+def _card_and_cpu(torch, cfg, B, seed, with_k=False):
+    """Poses (and pose_geo) of the same seeded model on the card
+    and on the CPU, on one batch of the synthetic world's frames at cfg's
+    size (with its camera K when `with_k`)."""
+    import numpy as np
+
+    from davo_tpu_torch.data.synthetic import SyntheticSequence
+    from davo_tpu_torch.models.davo import DavoModel
+
+    world = SyntheticSequence(n_frames=B + 1, height=cfg.img_height, width=cfg.img_width, seed=seed)
+    x = torch.from_numpy(np.stack([world.frame(i + 1) for i in range(B)]))
+    y = torch.from_numpy(np.stack([world.frame(i) for i in range(B)]))[:, None]
+    s = torch.from_numpy(np.stack([world.seg(i + 1) for i in range(B)]).astype(np.int64))
+    kw = {"K": torch.from_numpy(np.asarray(world.K, np.float32))} if with_k else {}
+    cpu = DavoModel(cfg, device="cpu", seed=seed).eval()
+    gpu = DavoModel(cfg, device="cuda", seed=seed).eval()
+    with torch.inference_mode():
+        want = cpu(x, y, seg=s, **kw)
+        got = gpu(x.cuda(), y.cuda(), seg=s.cuda(), **{k: v.cuda() for k, v in kw.items()})
+    errs = {}
+    for key in ("poses", "pose_geo"):
+        if key in want:
+            scale = float(want[key].abs().max())
+            errs[key] = {"max_rel_err": float((got[key].cpu() - want[key]).abs().max()) / scale, "largest": scale}
+    return errs
+
+
+def _geo_fps(torch, model, B, K, iters=5):
+    """(best, median) forward frames/s at batch B, as `_forward_fps`, with
+    the camera K passed (the geometric head needs it; the conv head
+    ignores it)."""
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.rand(B, cfg.img_height, cfg.img_width, 3, device="cuda", generator=gen)
+    y = torch.rand(B, 1, cfg.img_height, cfg.img_width, 3, device="cuda", generator=gen)
+    s = torch.randint(0, 19, (B, cfg.img_height, cfg.img_width), device="cuda", generator=gen)
+    times = []
+    with torch.inference_mode():
+        for _ in range(2):
+            model(x, y, seg=s, K=K)
+        torch.cuda.synchronize()
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                model(x, y, seg=s, K=K)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        syncs = _host_syncs(torch, lambda: model(x, y, seg=s, K=K))
+    return B * iters / min(times), B * iters / statistics.median(times), syncs
+
+
+def options_path(torch, card, costvol, bandwarp, frames, seg, batch4):
+    """Phase 13: the options the earlier slices refused, on the card, no
+    plain version run where the card alone computes:
+    - `davo-res` (the resnet DispNet encoder) at 128x416: `cli train` 2
+      steps and `cli depth --ckpt` (launches asserted); one train step
+      card against CPU (phase 9's criteria); its B=4 step time against
+      `davo`'s on phase 8's batch (phase 10's protocol, in turns);
+    - `davo` with pose_head=geo_hybrid: `cli train` 1 step, `cli infer
+      --ckpt` on the CLI's 32-frame world (the sequence's K reaches the
+      model) against the checkpoint restored in memory (1e-6 of the
+      largest), and with the four serving flags; the forward card against
+      CPU (64x128, float32: poses and pose_geo within 1e-4 of the
+      largest); one train step card against CPU; forward frames/s and
+      host syncs per forward against the conv head at B=64;
+    - `davo-fast` with s2d_first_conv at B=64: poses against the plain
+      first conv (float32, TF32 off, 1e-4 of the largest); the first pose
+      conv alone, s2d against plain cuDNN, bf16 and float32;
+    - scan-chunked serving: `cli infer --scan-chunks 4` against 1 on the
+      CLI's world, and the main path's 257-frame world in 4 requests of
+      64 through one scan call against 4 per-call requests (1e-6 of the
+      largest increment), streaming frames/s in turns;
+    - `resumable_predict_sequence`: a crash after 2 of 4 batches, then a
+      resume, equal to an uninterrupted run and within 1e-6 of
+      `predict_sequence`;
+    - `davo` at 120x400, whose /16 -> /8 flow upsample (8x25 -> 15x50)
+      takes the non-integer resize once a forward: card against CPU
+      (float32, 1e-4 of the largest), the fallback's calls asserted.
+    Returns the launch counts by command."""
+    import contextlib
+    import dataclasses
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from davo_tpu_torch.cli.main import main as cli_main
+    from davo_tpu_torch.data.kitti import parse_poses
+    from davo_tpu_torch.data.synthetic import SyntheticSequence
+    from davo_tpu_torch.models.common import ConvBlock, lecun_init_
+    from davo_tpu_torch.eval.resumable import EvalCursor, params_fingerprint, resumable_predict_sequence
+    from davo_tpu_torch.eval.runner import (
+        assemble_trajectory,
+        make_pose_apply_fn,
+        make_pose_apply_scan_fn,
+        predict_sequence,
+    )
+    from davo_tpu_torch.models import presets
+    from davo_tpu_torch.models.davo import DavoModel
+    from davo_tpu_torch.train import loop
+
+    t_phase = time.perf_counter()
+    train_step = {"cost_volume": 3, "cost_volume_backward": 3, "banded_warp": 16, "banded_warp_backward": 16}
+    results, timings = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        R, DEPTH, G, P, PF, S1, S4 = (str(Path(tmp) / n) for n in (
+            "res_ckpt", "depth", "geo_ckpt", "p.txt", "pf.txt", "s1.txt", "s4.txt"))
+        world_args = ["--worlds", "2", "--world-frames", "8"]
+        commands = [
+            ("davo-res train", ["train", "--version", "davo-res", "--steps", "2", *world_args, "--checkpoint-dir", R],
+             {k: 2 * v for k, v in train_step.items()}),
+            ("davo-res depth", ["depth", "--version", "davo-res", "--ckpt", R, "--seq", "1", "--out", DEPTH],
+             {"cost_volume": 3}),
+            ("geo_hybrid train", ["train", "--version", "davo", *GEO_SETS, "--steps", "1", *world_args,
+                                  "--checkpoint-dir", G], train_step),
+            ("geo_hybrid infer", ["infer", "--version", "davo", *GEO_SETS, "--ckpt", G, "--seq", "1", "--out", P],
+             {"cost_volume": 3}),
+            # davo's three flow levels fused, and the pyramid, attention and
+            # pose prefixes as strided chains; DispNet (the geometric head's
+            # depth) unfused.
+            ("geo_hybrid infer, serving flags", ["infer", "--version", "davo", *GEO_SETS, *FUSED_SETS, "--ckpt", G,
+                                                 "--seq", "1", "--out", PF],
+             {"serving_flow_level_fused": 3, "serving_conv_chain_strided": 3, "flow_level_input": 3}),
+            # 31 pairs in batches of 8: 4 forwards of davo-fast's 2 flow levels.
+            ("scan infer, 1 a call", ["infer", "--version", "davo-fast", "--seq", "1", "--out", S1,
+                                      "--batch-size", "8", "--scan-chunks", "1"], {"cost_volume": 8}),
+            ("scan infer, 4 a call", ["infer", "--version", "davo-fast", "--seq", "1", "--out", S4,
+                                      "--batch-size", "8", "--scan-chunks", "4"], {"cost_volume": 8}),
+        ]
+        undo = _refuse_plains(_train_plains(costvol, bandwarp))
+        try:
+            for name, argv, _ in commands:
+                _reset_counts()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    rc = cli_main(argv)
+                torch.cuda.synchronize()
+                results[name] = {"rc": rc, "seconds": time.perf_counter() - t0,
+                                 "launches": _train_counts(costvol, bandwarp)}
+        finally:
+            undo()
+        bad = {k: r["rc"] for k, r in results.items() if r["rc"] != 0}
+        if bad:
+            raise AssertionError(f"options path: non-zero rc {bad}")
+        wrong = {name: results[name]["launches"] for name, _, per in commands
+                 if results[name]["launches"] != _want_counts(results[name]["launches"], per, 1)}
+        served, fused_served = parse_poses(open(P).read()), parse_poses(open(PF).read())
+        scan1, scan4 = parse_poses(open(S1).read()), parse_poses(open(S4).read())
+        depth_files = sorted(Path(DEPTH).iterdir())
+        # The served geo_hybrid poses against the checkpoint restored in memory, with K.
+        gcfg = presets.with_overrides("davo", pose_head="geo_hybrid")
+        state = loop.restore_checkpoint(G, loop.create_state(gcfg, "cuda"))
+        world = SyntheticSequence(n_frames=32, height=gcfg.model.img_height, width=gcfg.model.img_width, seed=1)
+        wframes = np.stack([world.frame(i) for i in range(32)])
+        wseg = np.stack([world.seg(i) for i in range(32)])
+        memory = assemble_trajectory(predict_sequence(make_pose_apply_fn(state.model, K=world.K), wframes,
+                                                      seg=wseg, batch_size=32))
+    print(json.dumps({"phase": "options_cli", "commands": {
+        k: {"rc": r["rc"], "seconds": r["seconds"], "launches": {a: b for a, b in r["launches"].items()
+                                                                  if b and a != "device_launches"}}
+        for k, r in results.items()}, "card": card}), flush=True)
+    if wrong:
+        raise AssertionError(f"options path launches {wrong}")
+    largest = float(np.abs(memory).max())
+    checks = {
+        "geo_infer_vs_memory": float(np.abs(served - memory).max()) / largest,
+        "geo_infer_fused_vs_unfused_max_abs": float(np.abs(fused_served - served).max()),
+        "scan4_vs_scan1": float(np.abs(scan4 - scan1).max()) / float(np.abs(scan1).max()),
+        "depth_maps": len(depth_files),
+    }
+    if not (np.isfinite(served).all() and np.isfinite(fused_served).all() and served.shape == (32, 4, 4)):
+        raise AssertionError("geo_hybrid infer: poses not finite (32, 4, 4)")
+    if checks["geo_infer_vs_memory"] > BACKEND_POSE_TOL or checks["scan4_vs_scan1"] > OPTIONS_SCAN_TOL:
+        raise AssertionError(f"options CLI: {checks}")
+    if checks["depth_maps"] != 32:
+        raise AssertionError(f"davo-res depth wrote {checks['depth_maps']} maps, not 32")
+    del state
+    torch.cuda.empty_cache()
+
+    # Card against CPU: the geo_hybrid forward and both train steps.
+    geo_cfg = presets.with_overrides("davo", img_height=64, img_width=128, compute_dtype="float32",
+                                     pose_head="geo_hybrid").model
+    geo_errs = _card_and_cpu(torch, geo_cfg, 4, 21, with_k=True)
+    print(json.dumps({"phase": "options_geo_gpu_vs_cpu", "preset": "davo widths, 64x128, float32, geo_hybrid",
+                      "errors": geo_errs, "tf32": [torch.backends.cuda.matmul.allow_tf32,
+                                                   torch.backends.cudnn.allow_tf32]}), flush=True)
+    if any(not (e["largest"] > 0 and e["max_rel_err"] <= PORT_TOL) for e in geo_errs.values()):
+        raise AssertionError(f"geo_hybrid card vs CPU: {geo_errs}")
+    train_gpu_against_cpu(torch, "options_geo_train_gpu_vs_cpu", {"pose_head": "geo_hybrid"}, chain_backward=False)
+    train_gpu_against_cpu(torch, "options_res_train_gpu_vs_cpu", {"disp_encoder": "resnet"}, chain_backward=False)
+    step_ms = {"davo": [], "davo-res": []}
+    for name in ("davo", "davo-res", "davo-res", "davo"):
+        times = _time_steps(torch, presets.get(name), batch4, 4)[3]
+        step_ms[name].append(statistics.median(times))
+    print(json.dumps({"phase": "options_res_step_time", "batch": 4, "median_ms_in_turns": step_ms,
+                      "card": card}), flush=True)
+    torch.cuda.empty_cache()
+
+    # davo at 120x400: the /16 -> /8 flow upsample takes the non-integer resize.
+    odd_cfg = presets.with_overrides("davo", img_height=120, img_width=400, compute_dtype="float32").model
+    calls, undo = _resize_fallbacks()
+    try:
+        odd_errs = _card_and_cpu(torch, odd_cfg, 2, 22)
+    finally:
+        undo()
+    print(json.dumps({"phase": "options_odd_size_gpu_vs_cpu", "preset": "davo widths, 120x400, float32",
+                      "errors": odd_errs, "resize_fallbacks": calls}), flush=True)
+    # One call on the CPU's forward, then one on the card's.
+    if calls != [[[8, 25], [15, 50], "cpu"], [[8, 25], [15, 50], "cuda"]] or odd_errs["poses"]["max_rel_err"] > PORT_TOL:
+        raise AssertionError(f"davo 120x400: fallbacks {calls}, errors {odd_errs}")
+
+    # The geometric head against the conv head: forward frames/s, host syncs.
+    batch = 64
+    K = torch.from_numpy(np.asarray(world.K, np.float32)).cuda()
+    heads = {}
+    for name in ("conv", "geo_hybrid"):
+        heads[name] = DavoModel(presets.with_overrides("davo", pose_head=name).model, device="cuda", seed=0).eval()
+    fps = {"conv": [], "geo_hybrid": []}
+    for name in ("conv", "geo_hybrid", "geo_hybrid", "conv"):
+        best, median, syncs = _geo_fps(torch, heads[name], batch, K)
+        fps[name].append({"best": best, "median": median, "host_syncs_per_forward": syncs})
+    del heads
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "options_geo_throughput", "preset": "davo", "batch": batch,
+                      "frames_per_s": fps, "card": card}), flush=True)
+
+    # s2d_first_conv on davo-fast at B=64.
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    fast32 = presets.with_overrides("davo-fast", compute_dtype="float32").model
+    hw = (fast32.img_height, fast32.img_width)
+    x = torch.rand(batch, *hw, 3, device="cuda", generator=gen)
+    y = torch.rand(batch, 1, *hw, 3, device="cuda", generator=gen)
+    s = torch.randint(0, 19, (batch, *hw), device="cuda", generator=gen)
+    plain = DavoModel(fast32, device="cuda", seed=0).eval()
+    s2d = DavoModel(dataclasses.replace(fast32, s2d_first_conv=True), device="cuda", seed=0).eval()
+    undo = _refuse_plains(_train_plains(costvol, bandwarp))
+    try:
+        _reset_counts()
+        with torch.inference_mode():
+            want, got = plain(x, y, seg=s)["poses"], s2d(x, y, seg=s)["poses"]
+        torch.cuda.synchronize()
+        s2d_launches = costvol.launches
+    finally:
+        undo()
+    s2d_err = float((got - want).abs().max()) / float(want.abs().max())
+    del plain, s2d
+    conv_ms = {}
+    pair = torch.rand(batch, *hw, 9, device="cuda", generator=gen)
+    for dtype in (torch.bfloat16, torch.float32):
+        for flag in (False, True):
+            block = lecun_init_(ConvBlock(9, 16, 7, 2, dtype, s2d=flag), torch.Generator().manual_seed(0))
+            block = block.cuda()
+            with torch.inference_mode():
+                conv_ms[f"{str(dtype).split('.')[-1]} {'s2d' if flag else 'plain cuDNN'}"] = _graph_ms(
+                    lambda b=block: b(pair))
+    print(json.dumps({"phase": "options_s2d", "preset": f"davo-fast, float32, B={batch}",
+                      "max_rel_err_vs_plain": s2d_err, "costvol_launches": s2d_launches,
+                      "first_pose_conv_device_ms": conv_ms, "shape": list(pair.shape), "card": card}), flush=True)
+    if s2d_err > PORT_TOL or s2d_launches != 4:  # two forwards of two flow levels
+        raise AssertionError(f"s2d_first_conv: rel err {s2d_err}, {s2d_launches} cost-volume launches")
+    del x, y, s, pair
+    torch.cuda.empty_cache()
+
+    # Scan-chunked streaming and the resumable evaluation on the main path's world.
+    fast = DavoModel(presets.get("davo-fast").model, device="cuda", seed=0).eval()
+    per_call, scan = make_pose_apply_fn(fast), make_pose_apply_scan_fn(fast)
+    undo = _refuse_plains(_train_plains(costvol, bandwarp))
+    try:
+        _reset_counts()
+        rels1 = predict_sequence(per_call, frames, seg=seg, batch_size=64)
+        rels4 = predict_sequence(scan, frames, seg=seg, batch_size=64, scan_chunks=4)
+        torch.cuda.synchronize()
+        scan_launches = costvol.launches
+        stream_s = {"1": [], "4": []}
+        for chunks in (1, 4, 4, 1):
+            t0 = time.perf_counter()
+            predict_sequence(scan if chunks > 1 else per_call, frames, seg=seg, batch_size=64, scan_chunks=chunks)
+            torch.cuda.synchronize()
+            stream_s[str(chunks)].append(time.perf_counter() - t0)
+        sub = frames[:65]
+        stamp = params_fingerprint(fast)
+        with tempfile.TemporaryDirectory() as tmp:
+            cursor_path = str(Path(tmp) / "cursor.json")
+            try:
+                resumable_predict_sequence(per_call, sub, EvalCursor(cursor_path), "seq", seg=seg[:65], batch_size=16,
+                                           crash_after_batches=2, fingerprint=stamp)
+                raise AssertionError("resumable: the injected fault did not fire")
+            except RuntimeError as e:
+                if "injected fault" not in str(e):
+                    raise
+            crashed_at = EvalCursor(cursor_path).next_pair("seq")
+            resumed = resumable_predict_sequence(per_call, sub, EvalCursor(cursor_path), "seq", seg=seg[:65],
+                                                 batch_size=16, fingerprint=stamp)
+            whole = resumable_predict_sequence(per_call, sub, EvalCursor(str(Path(tmp) / "whole.json")), "seq",
+                                               seg=seg[:65], batch_size=16, fingerprint=stamp)
+        direct = predict_sequence(per_call, sub, seg=seg[:65], batch_size=16)
+    finally:
+        undo()
+    del fast
+    scan_err = float(np.abs(rels4 - rels1).max()) / float(np.abs(rels1).max())
+    resume_err = float(np.abs(resumed - direct).max()) / float(np.abs(direct).max())
+    print(json.dumps({
+        "phase": "options_scan_and_resume", "preset": "davo-fast", "frames": len(frames), "batch": 64,
+        "scan_chunks": 4, "costvol_launches": scan_launches, "scan_vs_per_call": scan_err,
+        "stream_s": stream_s, "frames_per_s_median": {k: (len(frames) - 1) / statistics.median(v)
+                                                       for k, v in stream_s.items()},
+        "resume": {"frames": len(sub), "batch": 16, "crashed_at_pair": crashed_at,
+                   "resumed_equals_uninterrupted": bool(np.array_equal(resumed, whole)),
+                   "resumed_vs_predict_sequence": resume_err},
+        "phase_s": time.perf_counter() - t_phase, "card": card,
+    }), flush=True)
+    if scan_err > OPTIONS_SCAN_TOL or scan_launches != 2 * 2 * 4:
+        raise AssertionError(f"scan serving: rel err {scan_err}, {scan_launches} cost-volume launches")
+    if crashed_at != 32 or not np.array_equal(resumed, whole) or resume_err > OPTIONS_SCAN_TOL:
+        raise AssertionError(f"resumable: crashed at {crashed_at}, resumed vs predict_sequence {resume_err}")
+    return {k: r["launches"] for k, r in results.items()}
+
+
 def main() -> int:
     import torch
 
@@ -3568,6 +3924,7 @@ def main() -> int:
     profile(torch, card, stream, inputs)
     del inputs
     fused_throughput(torch, card, stream[0], fused_model)
+    world_frames, world_seg = stream[2], stream[3]  # the main path's 257-frame world, for phase 13
     del stream, fused_model
     torch.cuda.empty_cache()
     train_counts, batch4 = train_path(torch, costvol, bandwarp)
@@ -3583,6 +3940,11 @@ def main() -> int:
     _, fused_step_kernels = train_step_time(torch, card, batch4, "fused_train_step_time", FUSED_TRAIN_FLAGS)
     bench_entry(torch, card, phase6_fps)
     backend_counts = backend_path(torch, card, costvol, bandwarp)
+    options_counts = options_path(torch, card, costvol, bandwarp, world_frames, world_seg, batch4)
+    del world_frames, world_seg
+
+    def options_by_path(kernel):
+        return {f"options {k}": v[kernel] for k, v in options_counts.items() if v[kernel]}
 
     # The kernels' line. cost_volume: the work of one serving request (its
     # two flow levels at B=64) on bf16 maps, the presets' dtype, beside the
@@ -3617,9 +3979,11 @@ def main() -> int:
         {
             "name": "cost_volume", "route": "cuda", "source": "davo_tpu_torch/csrc/costvol.cu",
             "replaces": "davo_tpu/kernels/costvol.py:41",
-            "launches": launches + train_counts["cost_volume"] + sum(backend_counts.values()),
+            "launches": launches + train_counts["cost_volume"] + sum(backend_counts.values())
+            + sum(options_by_path("cost_volume").values()),
             "launches_by_path": {"serving": launches, "train": train_counts["cost_volume"],
-                                 **{f"backend {k}": v for k, v in backend_counts.items()}},
+                                 **{f"backend {k}": v for k, v in backend_counts.items()},
+                                 **options_by_path("cost_volume")},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["device_ms"] for r in per_request),
             "call_ms": sum(r["ms"] for r in per_request),
@@ -3638,7 +4002,9 @@ def main() -> int:
         {
             "name": "cost_volume_backward", "route": "cuda", "source": "davo_tpu_torch/csrc/costvol.cu",
             "replaces": "davo_tpu/models/flownet.py:30 (XLA form; no TPU kernel)",
-            "launches": train_counts["cost_volume_backward"],
+            "launches": train_counts["cost_volume_backward"] + sum(options_by_path("cost_volume_backward").values()),
+            "launches_by_path": {"train": train_counts["cost_volume_backward"],
+                                 **options_by_path("cost_volume_backward")},
             "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
             "ms": sum(r["device_ms"] for r in per_step_cv),
             "call_ms": sum(r["ms"] for r in per_step_cv),
@@ -3652,7 +4018,8 @@ def main() -> int:
         {
             "name": "banded_warp", "route": "cuda", "source": "davo_tpu_torch/csrc/bandwarp.cu",
             "replaces": "davo_tpu/kernels/bandwarp.py:161",
-            "launches": train_counts["banded_warp"],
+            "launches": train_counts["banded_warp"] + sum(options_by_path("banded_warp").values()),
+            "launches_by_path": {"train": train_counts["banded_warp"], **options_by_path("banded_warp")},
             "max_abs_err": max(r["fwd_max_abs_err"] for r in band_rows + extra_band_rows),
             "ms": step_sum("fwd_device_ms"), "call_ms": step_sum("fwd_ms"),
             "plain_ms": step_sum("fwd_plain_ms"), "bound_ms": step_sum("fwd_bound_ms"),
@@ -3668,7 +4035,10 @@ def main() -> int:
         {
             "name": "banded_warp_backward", "route": "cuda", "source": "davo_tpu_torch/csrc/bandwarp.cu",
             "replaces": "davo_tpu/kernels/bandwarp.py:188",
-            "launches": train_counts["banded_warp_backward"],
+            "launches": train_counts["banded_warp_backward"]
+            + sum(options_by_path("banded_warp_backward").values()),
+            "launches_by_path": {"train": train_counts["banded_warp_backward"],
+                                 **options_by_path("banded_warp_backward")},
             "max_abs_err": max(r["bwd_max_rel_err"] for r in band_rows + extra_band_rows),
             "max_err_is": "relative to the largest gradient",
             "ms": step_sum("bwd_device_ms"), "call_ms": step_sum("bwd_ms"),
@@ -3694,9 +4064,9 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": "davo_tpu_torch/csrc/rowconv.cu",
             "replaces": f"davo_tpu/kernels/rowconv.py:{line}",
-            "launches": path_counts[name],
+            "launches": path_counts[name] + sum(options_by_path(f"serving_{name}").values()),
             "launches_by_path": {"fused serving" if path_counts is fused_counts else "fused estimator":
-                                 path_counts[name]},
+                                 path_counts[name], **options_by_path(f"serving_{name}")},
             "device_launches": path_counts["device_launches"][name],
             "max_abs_err": max(r["max_rel_err"] for r in f32_rows),
             "max_err_is": "float32, relative to the largest output",
@@ -3721,9 +4091,11 @@ def main() -> int:
     kernels.append({
         "name": "flow_level_input", "route": "cuda", "source": "davo_tpu_torch/csrc/rowconv.cu",
         "replaces": "davo_tpu/kernels/rowconv.py:283 (flow_level_fused's pallas_call, its input part)",
-        "launches": fused_counts["flow_level_input"] + fused_train_counts["flow_level_input"],
+        "launches": fused_counts["flow_level_input"] + fused_train_counts["flow_level_input"]
+        + sum(options_by_path("flow_level_input").values()),
         "launches_by_path": {"fused serving": fused_counts["flow_level_input"],
-                             "fused training path": fused_train_counts["flow_level_input"]},
+                             "fused training path": fused_train_counts["flow_level_input"],
+                             **options_by_path("flow_level_input")},
         "max_abs_err": max(max(r.get("max_abs_err", 0.0), r.get("a0_max_abs_err", 0.0)) for r in level_input_rows),
         "max_err_is": "absolute: the float32 output and the float32 a0",
         "bf16_max_differ_share": max(r.get("differ_share", 0.0) for r in level_input_rows),

@@ -4,7 +4,8 @@ eval-depth, ba and bench.
   python -m davo_tpu_torch.cli.main train --version davo --data synthetic \
       --steps 1000 [--checkpoint-dir runs/davo] [--set train.k=v ...]
   python -m davo_tpu_torch.cli.main infer --version davo --seq 1 \
-      --ckpt runs/davo --out poses.txt [--tum poses.tum] [--gt-out gt.txt]
+      --ckpt runs/davo --out poses.txt [--tum poses.tum] [--gt-out gt.txt] \
+      [--scan-chunks 4]
   python -m davo_tpu_torch.cli.main depth --version davo --seq 1 \
       --ckpt runs/davo --out depth/
   python -m davo_tpu_torch.cli.main eval --gt gt.txt --pred poses.txt --devkit
@@ -17,8 +18,11 @@ train, infer, depth and ba run on the GPU unless `--device cpu`; eval
 and eval-depth are host numpy (and the C++ devkit). `--version` selects
 a preset; dotted `--set key=value` overrides reach any config field.
 `--ckpt` serves the newest checkpoint that `train --checkpoint-dir`
-wrote. Prepared or KITTI data, `--log-dir`, image summaries and
-scan-chunked serving are not ported yet and are refused.
+wrote; `--scan-chunks N` serves N pair batches per call. A
+`pose_head=geo_hybrid` model gets the sequence's intrinsics in `infer`
+and `depth`. Prepared or KITTI data, `--log-dir` and image summaries are
+not ported yet and are refused; so is `infer --serving-flags`, whose
+BENCH_FLAGS.json holds flags validated on a TPU for the JAX package.
 """
 
 from __future__ import annotations
@@ -143,12 +147,19 @@ def cmd_train(args) -> int:
     return 0
 
 
+SERVING_FLAGS_REASON = (
+    "--serving-flags (BENCH_FLAGS.json holds fused-serving flags validated "
+    "on a TPU against davo_tpu's code fingerprint, which says nothing of "
+    "this package's kernels; set the fused flags with --set model.fuse_*=true)"
+)
+
+
 def cmd_infer(args) -> int:
     refused = []
     if args.data != "synthetic":
         refused.append(f"--data {args.data} (only 'synthetic' is ported)")
-    if args.scan_chunks != 1:
-        refused.append("--scan-chunks")
+    if args.serving_flags:
+        refused.append(SERVING_FLAGS_REASON)
     if refused:
         return _refuse("infer", refused)
 
@@ -158,6 +169,7 @@ def cmd_infer(args) -> int:
     from davo_tpu_torch.eval.runner import (
         assemble_trajectory,
         make_pose_apply_fn,
+        make_pose_apply_scan_fn,
         predict_sequence,
     )
     from davo_tpu_torch.models import presets
@@ -170,11 +182,16 @@ def cmd_infer(args) -> int:
             return 1
     else:
         model = DavoModel(cfg.model, device=args.device)
-    frames, seg, gt_poses, _ = _load_sequence(
+    frames, seg, gt_poses, K = _load_sequence(
         args.seq, cfg, cfg.model.attention == "flow_seg"
     )
+    # The geometric head solves with the sequence's camera (the
+    # reference's `infer` drops it and cannot serve geo_hybrid).
+    K = K if cfg.model.pose_head == "geo_hybrid" else None
+    scan_chunks = max(1, args.scan_chunks)
+    make = make_pose_apply_scan_fn if scan_chunks > 1 else make_pose_apply_fn
     rels = predict_sequence(
-        make_pose_apply_fn(model), frames, seg=seg, batch_size=args.batch_size
+        make(model, K=K), frames, seg=seg, batch_size=args.batch_size, scan_chunks=scan_chunks
     )
     traj = assemble_trajectory(rels, device=args.device)
     write_poses_kitti(args.out, traj)
@@ -213,7 +230,10 @@ def cmd_depth(args) -> int:
             return 1
     else:
         model = DavoModel(cfg.model, device=device, seed=cfg.train.seed, dispnet=True)
-    frames, _, _, _ = _load_sequence(args.seq, cfg, False)
+    frames, _, _, K = _load_sequence(args.seq, cfg, False)
+    kw = {}
+    if cfg.model.pose_head == "geo_hybrid":  # the training forward runs the geometric head
+        kw["K"] = torch.as_tensor(np.asarray(K), dtype=torch.float32).to(device)
     os.makedirs(args.out, exist_ok=True)
     bs = args.batch_size
     n = len(frames)
@@ -227,7 +247,8 @@ def cmd_depth(args) -> int:
             tgt = np.concatenate([tgt, np.repeat(tgt[-1:], pad, 0)])
             src = np.concatenate([src, np.repeat(src[-1:], pad, 0)])
         with torch.inference_mode():
-            out = model(torch.from_numpy(tgt).to(device), torch.from_numpy(src).to(device)[:, None], train=True)
+            out = model(torch.from_numpy(tgt).to(device), torch.from_numpy(src).to(device)[:, None],
+                        train=True, **kw)
             d = disp_to_depth(out["disp"][0][..., 0]).cpu().numpy()
         for i in range(end - start):
             np.save(os.path.join(args.out, f"{start + i:06d}.npy"), d[i])
@@ -381,7 +402,12 @@ def build_parser() -> argparse.ArgumentParser:
     )
     i.add_argument("--batch-size", type=int, default=32)
     i.add_argument(
-        "--scan-chunks", type=int, default=1, help="not ported yet (only 1)"
+        "--scan-chunks", type=int, default=1,
+        help="pair batches per call (N > 1: one copy to the device per N batches)",
+    )
+    i.add_argument(
+        "--serving-flags", action="store_true",
+        help="refused: BENCH_FLAGS.json holds flags validated on a TPU for davo_tpu",
     )
     i.add_argument("--set", action="append", help="dotted override k=v")
     i.add_argument("--device", default=None, help=device_help)

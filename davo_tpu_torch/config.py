@@ -56,7 +56,7 @@ class ModelConfig:
     # space-to-depth rewrite (models/common.conv_same_stride2_s2d) —
     # same params, same math, 4x the contraction depth. The reference
     # found it slower than its native lowering on its TPU
-    # (results_r4_s2d.json); default off. Not ported.
+    # (results_r4_s2d.json); default off.
     s2d_first_conv: bool = False
     # Pose head: "conv" = the reference's learned regression head;
     # "geo_hybrid" = dense GN solve of pose from the finest pyramid

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from davo_tpu_torch.kernels.resize import resize_bilinear as _resize_bilinear
+
 
 def downsample2(x: torch.Tensor) -> torch.Tensor:
     """2x2/2 average pool over (B, H, W, C), VALID: an odd last row or
@@ -27,8 +29,6 @@ def image_pyramid(x: torch.Tensor, num_scales: int) -> list[torch.Tensor]:
 
 
 def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
-    """`jax.image.resize(..., "bilinear")` antialiases when it shrinks;
-    no path of the ported slices reaches it, so it is not ported yet."""
-    raise NotImplementedError(
-        f"resize_bilinear {tuple(x.shape[1:3])} -> ({height}, {width}) is not ported yet"
-    )
+    """Bilinear resize (B, H, W, C) -> (B, height, width, C), antialiased
+    when it shrinks, as `jax.image.resize(..., "bilinear")`."""
+    return _resize_bilinear(x, height, width)

@@ -15,6 +15,7 @@ import torch
 import torch.nn as nn
 
 from davo_tpu_torch.config import ModelConfig
+from davo_tpu_torch.kernels.resize import resize_bilinear
 from davo_tpu_torch.kernels.rowconv import conv_chain_strided, even_prefix_chain
 from davo_tpu_torch.kernels.rowconv_ad import conv_chain_strided_ad
 from davo_tpu_torch.models.common import ConvBlock, dtype_of
@@ -68,7 +69,10 @@ def region_weight_map(
     directly instead, so the (B, H, W, K) one-hot is never built (1 GB at
     B=256, 128x416). The counts are integers below 2^24, exact in f32.
     They are scattered into a buffer of known size, so nothing reads a
-    value back to the host (as `bincount` does on the GPU).
+    value back to the host (as `bincount` does on the GPU). Otherwise the
+    map is formed at full resolution (each pixel its label's weight,
+    which is what the one-hot contraction gives) and resized as the
+    reference resizes it (antialiased when it shrinks).
     """
     B, H, W = seg.shape
     h, w = hw
@@ -76,10 +80,10 @@ def region_weight_map(
     if (H, W) == (h, w):
         return torch.einsum("bhwk,bk->bhw", seg_to_onehot(seg, K), weights)[..., None]
     if H % h or W % w:
-        raise NotImplementedError(
-            f"region map {H}x{W} -> {h}x{w} needs the reference's "
-            "antialiased resize, which is not ported yet"
-        )
+        valid = (seg >= 0) & (seg < K)
+        label = torch.where(valid, seg.long(), 0).reshape(B, H * W)
+        wmap = torch.where(valid, weights.gather(1, label).reshape(B, H, W), 0.0)
+        return resize_bilinear(wmap[..., None], h, w)
     rows = torch.arange(H, device=seg.device) // (H // h)
     cols = torch.arange(W, device=seg.device) // (W // w)
     cell = (rows[:, None] * w + cols[None, :])[None]  # (1, H, W)

@@ -8,10 +8,11 @@
 The serving flags `fuse_pyramid`, `fuse_flow_level`, `fuse_attention`,
 `fuse_pose_encoder`, `fuse_estimator` and `fuse_disp_encoder` run the
 fused kernels of `kernels/rowconv.py` (forward only); their `_train`
-variants run the differentiable chains of `kernels/rowconv_ad.py`. Every
-option that selects something not ported (`geo_hybrid`,
-`s2d_first_conv`, the resnet DispNet encoder) raises NotImplementedError
-rather than running a different path.
+variants run the differentiable chains of `kernels/rowconv_ad.py`.
+`pose_head="geo_hybrid"` adds the dense Gauss-Newton pose of
+`models/geopose.py` (finest flow level, DispNet depth of the target,
+which serving then runs too) with the conv head as a residual on it; it
+needs the flow net and the camera K.
 """
 
 from __future__ import annotations
@@ -28,19 +29,18 @@ from davo_tpu_torch.kernels.resize import resize_bilinear_aligned
 from davo_tpu_torch.kernels.rowconv import DTYPE_MODES
 from davo_tpu_torch.models.attention import RegionAttention, region_weight_map
 from davo_tpu_torch.models.common import lecun_init_
-from davo_tpu_torch.models.dispnet import DispNet
+from davo_tpu_torch.models.dispnet import DispNet, disp_to_depth
 from davo_tpu_torch.models.flownet import FlowNetLite
+from davo_tpu_torch.models.geopose import pose_from_flow_pyramid
 from davo_tpu_torch.models.posenet import PoseNet
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for options outside the ported slices."""
+    """Raise ValueError for option values the model does not know."""
     if cfg.fuse_compute and cfg.fuse_compute not in DTYPE_MODES:
         raise ValueError(f"unknown fuse_compute {cfg.fuse_compute!r}")
-    if cfg.pose_head != "conv":
-        raise NotImplementedError(f"pose_head={cfg.pose_head!r} is not ported yet")
-    if cfg.s2d_first_conv:
-        raise NotImplementedError("s2d_first_conv is not ported yet")
+    if cfg.pose_head not in ("conv", "geo_hybrid"):
+        raise ValueError(f"unknown pose_head {cfg.pose_head!r}")
     if cfg.attention not in ("none", "flow", "flow_seg"):
         raise ValueError(f"unknown attention {cfg.attention!r}")
     if cfg.attention_cue not in ("flow", "flow_fb"):
@@ -52,7 +52,8 @@ class DavoModel(nn.Module):
     unless device="cpu"); `convert.load_flax_params` loads a reference
     parameter tree instead. `dispnet=True` adds the DispNet that the
     training forward runs: its parameters are in a reference tree made
-    by a training init, not in one made with train=False."""
+    by a training init, not in one made with train=False. The geo_hybrid
+    head always has it, as its serving forward runs it."""
 
     def __init__(self, cfg: ModelConfig, *, device: str | torch.device | None = None,
                  seed: int = 0, dispnet: bool = False):
@@ -67,7 +68,7 @@ class DavoModel(nn.Module):
             self.flownet = FlowNetLite(cfg)
         if cfg.attention == "flow_seg":
             self.attn = RegionAttention(cfg, 3 if cfg.attention_cue == "flow_fb" else 2)
-        if dispnet:
+        if dispnet or cfg.pose_head == "geo_hybrid":
             self.dispnet = DispNet(cfg)
         lecun_init_(self, torch.Generator().manual_seed(seed))
         self.to(device)
@@ -79,15 +80,19 @@ class DavoModel(nn.Module):
         seg: torch.Tensor | None = None,
         train: bool = False,
         source_disp: bool = False,
+        K: torch.Tensor | None = None,
     ) -> dict[str, Any]:
         """target: (B, H, W, 3); sources: (B, S, H, W, 3); seg: (B, H, W)
-        int labels (used with attention="flow_seg").
+        int labels (used with attention="flow_seg"); K: (3, 3) or
+        (B, 3, 3) intrinsics, which pose_head="geo_hybrid" needs.
 
         Returns poses (B, S, 6), flows (per-source flow pyramids, when
         attention != "none"), attn ((B, S, K), attention="flow_seg") and,
         with train=True, disp (num_scales x (B, H/2^s, W/2^s, 1)); with
         source_disp also disp_src (S*B rows, source s at [s*B, (s+1)*B)),
-        from one DispNet pass over target and sources.
+        from one DispNet pass over target and sources; with geo_hybrid
+        pose_geo (B, S, 6), the geometric estimate that poses adds the
+        conv head's output to.
         """
         if train and not hasattr(self, "dispnet"):
             raise ValueError("train=True needs a DavoModel built with dispnet=True")
@@ -129,6 +134,8 @@ class DavoModel(nn.Module):
                         weights, seg_rep, cfg.num_seg_classes, hw
                     )
 
+        need_geo = cfg.pose_head == "geo_hybrid"
+        disps_t = None
         if train:
             if source_disp:
                 disps_all = self.dispnet(torch.cat([target, flat_src], 0))
@@ -136,8 +143,27 @@ class DavoModel(nn.Module):
                 out["disp_src"] = [d[B:] for d in disps_all]
             else:
                 out["disp"] = self.dispnet(target)
+            disps_t = out["disp"]
+        elif need_geo:
+            disps_t = self.dispnet(target)
 
         pose_flat = self.posenet(rep_tgt, flat_src, extra=extra, region_weight_fn=region_weight_fn)
+        if need_geo:
+            # The dense GN pose on the finest flow level and the target's
+            # DispNet depth; the conv head becomes a residual on it.
+            if cfg.attention == "none":
+                raise ValueError("pose_head='geo_hybrid' needs the flow net (attention != 'none')")
+            if K is None:
+                raise ValueError("pose_head='geo_hybrid' requires K")
+            depth_rep = disp_to_depth(disps_t[0][..., 0].float()).repeat(S, 1, 1)
+            Kr = K.repeat(S, 1, 1) if K.dim() == 3 else K
+            geo_vec = pose_from_flow_pyramid(
+                pyr[0].float(), depth_rep, Kr, (H, W), iters=cfg.geo_pose_iters,
+                damping=cfg.geo_pose_damping, robust_delta=cfg.geo_pose_robust,
+                step_clip=cfg.geo_pose_step_clip,
+            )
+            out["pose_geo"] = geo_vec.reshape(S, B, 6).movedim(0, 1)
+            pose_flat = pose_flat + geo_vec.to(pose_flat.dtype)
         out["poses"] = pose_flat.reshape(S, B, 6).movedim(0, 1)
         return out
 

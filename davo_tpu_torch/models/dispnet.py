@@ -9,7 +9,10 @@ longest prefix of (s2, s1) pairs whose stride-2 layers see even dims
 runs as one `conv_chain_strided`, each pair's output a tap (the skips);
 `fuse_disp_encoder_train` runs it as the differentiable
 `conv_chain_strided_ad`; the rest stays `ConvBlock`s, as in the
-reference. The resnet encoder is not ported yet.
+reference. `disp_encoder="resnet"` (the reference's `disp_net_res`
+variant) swaps the encoder for a 7x7 stem and residual basic blocks of
+the same widths and levels, so the decoder is shared; it is never fused
+(both fuse flags are ignored with it, as in the reference).
 """
 
 from __future__ import annotations
@@ -42,17 +45,37 @@ def depth_to_disp(
     return torch.log(depth / min_depth) / math.log(max_depth / min_depth)
 
 
+class ResBlock(nn.Module):
+    """Pre-ReLU residual basic block: two 3x3 convs, a 1x1 projection
+    shortcut on a stride or width change, no norm layers; the residual
+    sum in the compute dtype (the reference's `ResBlock`)."""
+
+    def __init__(self, cin: int, cout: int, stride: int = 1, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.conv1 = Conv(cin, cout, 3, stride, dtype)
+        self.conv2 = Conv(cout, cout, 3, 1, dtype)
+        if stride != 1 or cin != cout:
+            self.proj = Conv(cin, cout, 1, stride, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv2(torch.relu(self.conv1(x)))
+        if hasattr(self, "proj"):
+            x = self.proj(x)
+        return torch.relu(x + h)
+
+
 class DispNet(nn.Module):
     """(B, H, W, 3) -> `num_scales` disparity maps (B, H/2^s, W/2^s, 1)
     in f32, full resolution first."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.disp_encoder != "conv":
-            raise NotImplementedError(f"disp_encoder={cfg.disp_encoder!r} is not ported yet")
+        if cfg.disp_encoder not in ("conv", "resnet"):
+            raise ValueError(f"unknown disp_encoder {cfg.disp_encoder!r}")
         dt = dtype_of(cfg.compute_dtype)
         self.dtype = dt
-        self.fuse = cfg.fuse_disp_encoder or cfg.fuse_disp_encoder_train
+        resnet = cfg.disp_encoder == "resnet"
+        self.fuse = (cfg.fuse_disp_encoder or cfg.fuse_disp_encoder_train) and not resnet
         self.chain = conv_chain_strided_ad if cfg.fuse_disp_encoder_train else conv_chain_strided
         self.mode = cfg.fuse_compute or cfg.compute_dtype
         self.num_scales = cfg.num_scales
@@ -60,9 +83,14 @@ class DispNet(nn.Module):
         self.depth = len(chans)
         cin = 3
         for i, ch in enumerate(chans):
-            k = 7 if i == 0 else (5 if i == 1 else 3)
-            self.add_module(f"enc{i}", ConvBlock(cin, ch, k, 2, dt))
-            self.add_module(f"enc{i}b", ConvBlock(ch, ch, 3, 1, dt))
+            if resnet:  # the stem keeps the 7x7's receptive field
+                first = ConvBlock(cin, ch, 7, 2, dt) if i == 0 else ResBlock(cin, ch, 2, dt)
+                self.add_module(f"enc{i}", first)
+                self.add_module(f"enc{i}b", ResBlock(ch, ch, 1, dt))
+            else:
+                k = 7 if i == 0 else (5 if i == 1 else 3)
+                self.add_module(f"enc{i}", ConvBlock(cin, ch, k, 2, dt))
+                self.add_module(f"enc{i}b", ConvBlock(ch, ch, 3, 1, dt))
             cin = ch
         self.up_channels = list(chans[::-1][1:]) + [16]
         for i, ch in enumerate(self.up_channels):

@@ -15,6 +15,8 @@ the same function through its differentiable variant
 level's and the estimator's take `compute_dtype`, the pyramid's
 `fuse_compute or compute_dtype`, as in the reference. The fused layers
 round as the kernels do (`kernels/rowconv.py`), not as `ConvBlock`.
+`s2d_first_conv` evaluates the unfused pyramid's first layer through
+space-to-depth.
 """
 
 from __future__ import annotations
@@ -58,7 +60,8 @@ class FeaturePyramid(nn.Module):
         cin = 3
         self.levels = len(_LEVEL_CHANNELS[: cfg.flow_levels])
         for i, ch in enumerate(_LEVEL_CHANNELS[: cfg.flow_levels]):
-            self.add_module(f"feat{i}a", ConvBlock(cin, ch, 3, 2, dt))
+            s2d = i == 0 and cfg.s2d_first_conv
+            self.add_module(f"feat{i}a", ConvBlock(cin, ch, 3, 2, dt, s2d))
             self.add_module(f"feat{i}b", ConvBlock(ch, ch, 3, 1, dt))
             cin = ch
         self.dtype = dt

@@ -8,7 +8,8 @@ target-cam points to source-cam points. With `fuse_pose_encoder` the
 even-dim prefix of the stride-2 stack runs as one `conv_chain_strided`
 and the tail as `ConvBlock`s, as in the reference; with
 `fuse_pose_encoder_train` the prefix runs as the differentiable
-`conv_chain_strided_ad`.
+`conv_chain_strided_ad`. `s2d_first_conv` evaluates the first layer
+through space-to-depth where it is not inside the fused prefix.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ class PoseEncoder(nn.Module):
         self.mode = cfg.fuse_compute or cfg.compute_dtype
         for i, ch in enumerate(cfg.pose_channels):
             k = 7 if i == 0 else (5 if i == 1 else 3)
-            self.add_module(f"enc{i}", ConvBlock(cin, ch, k, 2, self.dtype))
+            s2d = i == 0 and cfg.s2d_first_conv
+            self.add_module(f"enc{i}", ConvBlock(cin, ch, k, 2, self.dtype, s2d))
             cin = ch
 
     def forward(self, pair: torch.Tensor) -> torch.Tensor:

@@ -182,19 +182,21 @@ def make_train_step(cfg: Config, device: str | torch.device | None = None) -> Ca
     _apply_warp_config(cfg, device)
     source_disp = cfg.train.geo_consistency_weight > 0.0
     use_seg = cfg.model.attention == "flow_seg"
+    use_k = cfg.model.pose_head == "geo_hybrid"  # the geometric head reads the camera
 
     def step(state: TrainState, batch: dict):
         batch = _to_device(batch, device)
         seg = batch.get("seg") if use_seg else None
+        K = batch.get("K") if use_k else None
 
-        def forward(target, sources, seg):
-            return state.model(target, sources, seg=seg, train=True, source_disp=source_disp)
+        def forward(target, sources, seg, K):
+            return state.model(target, sources, seg=seg, train=True, source_disp=source_disp, K=K)
 
         if cfg.train.remat:
             # Keep no forward activations; recompute them in the backward.
-            outputs = checkpoint(forward, batch["target"], batch["sources"], seg, use_reentrant=False)
+            outputs = checkpoint(forward, batch["target"], batch["sources"], seg, K, use_reentrant=False)
         else:
-            outputs = forward(batch["target"], batch["sources"], seg)
+            outputs = forward(batch["target"], batch["sources"], seg, K)
         loss, metrics = total_loss(outputs, batch, cfg.model, cfg.train, step=state.step)
         state.tx.zero_grad()
         loss.backward()

@@ -103,7 +103,7 @@ def test_cli_infer_writes_trajectory(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "flags", [["--ckpt", "/nowhere", "--data", "/kitti"], ["--data", "/kitti"], ["--scan-chunks", "4"]]
+    "flags", [["--ckpt", "/nowhere", "--data", "/kitti"], ["--data", "/kitti"], ["--serving-flags"]]
 )
 def test_cli_refuses_unported_inputs(tmp_path, flags, capsys):
     rc = cli_main(["infer", "--version", "tiny", "--out", str(tmp_path / "p.txt"),

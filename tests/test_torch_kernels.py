@@ -276,8 +276,12 @@ def test_upsample_matches_reference(factor):
 
 
 def test_resize_refuses_non_integer_factor():
-    with pytest.raises(NotImplementedError):
-        resize_bilinear_aligned(torch.zeros(1, 4, 4, 2), 6, 6)
+    """A non-integer factor was refused before the fallback was ported;
+    now it takes `resize_bilinear`, `jax.image.resize`'s computation."""
+    x = np.random.default_rng(5).uniform(size=(1, 4, 4, 2)).astype(np.float32)
+    got = resize_bilinear_aligned(torch.from_numpy(x), 6, 6).numpy()
+    want = np.asarray(jax.image.resize(jnp.asarray(x), (1, 6, 6, 2), "bilinear"))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
 def test_flow_warp_separable_matches_reference():

@@ -120,14 +120,14 @@ def test_region_attention_and_weight_map_match_reference():
     seg[0, :3, :5] = -1  # out-of-range labels: an all-zero one-hot row
     seg[1, -2:, -4:] = 19
     onehot = j_seg_to_onehot(jnp.asarray(seg), 19)
-    for hw in [(6, 8), (12, 16), (1, 4), (H, W)]:
+    # (5, 7) divides nothing: the full-resolution map, then the
+    # antialiased resize, as the reference.
+    for hw in [(6, 8), (12, 16), (1, 4), (H, W), (5, 7)]:
         _close(
             region_weight_map(got, _t(seg), 19, hw),
             j_region_weight_map(want, onehot, hw),
             1e-4,
         )
-    with pytest.raises(NotImplementedError):
-        region_weight_map(got, _t(seg), 19, (5, 7))
 
 
 def test_posenet_matches_reference():
@@ -411,10 +411,19 @@ def test_init_mirrors_flax_defaults():
     assert all(torch.equal(a, b) for a, b in zip(model.parameters(), again.parameters()))
 
 
-@pytest.mark.parametrize("override", [{"pose_head": "geo_hybrid"}, {"s2d_first_conv": True}])
+@pytest.mark.parametrize(
+    "override", [{"pose_head": "geo_hybrid"}, {"pose_head": "geo_hybrid", "attention": "none"}]
+)
 def test_unported_options_are_refused(override):
-    with pytest.raises(NotImplementedError):
-        DavoModel(dataclasses.replace(TINY, **override), device="cpu")
+    """geo_hybrid and s2d_first_conv were refused until they were ported
+    (tests/test_torch_geopose.py, tests/test_torch_options.py); what the
+    reference refuses the port still refuses: the geometric head without
+    the camera K, or without the flow net."""
+    model = DavoModel(dataclasses.replace(TINY, **override), device="cpu")
+    x = torch.zeros(1, H, W, 3)
+    with pytest.raises(ValueError, match="requires K" if "attention" not in override else "flow net"):
+        with torch.no_grad():
+            model(x, x[:, None])
 
 
 def _train_forward_loss(model, seed):
@@ -465,13 +474,14 @@ def test_strided_train_flag_refuses_bf16_dot():
 
 def test_train_forward_is_refused():
     """The training forward needs DispNet: a model built without it
-    refuses train=True, and the unported resnet encoder is refused."""
+    refuses train=True, and an unknown DispNet encoder is refused (the
+    resnet one is ported: tests/test_torch_options.py)."""
     model = DavoModel(TINY, device="cpu")
     x = torch.zeros(1, H, W, 3)
     with pytest.raises(ValueError, match="train"):
         model(x, x[:, None], train=True)
-    with pytest.raises(NotImplementedError, match="resnet"):
-        DavoModel(dataclasses.replace(TINY, disp_encoder="resnet"), device="cpu", dispnet=True)
+    with pytest.raises(ValueError, match="disp_encoder"):
+        DavoModel(dataclasses.replace(TINY, disp_encoder="vgg"), device="cpu", dispnet=True)
 
 
 # ------------------------------------------------------ fused serving path
