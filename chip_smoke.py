@@ -109,11 +109,24 @@ Phases, in order; any failure exits non-zero:
      world through one scan call against 4 per-call requests; a
      resumable evaluation crashed and resumed; davo at 120x400 (the
      non-integer resize) card against CPU
+ 14. real data (`data_path`): a KITTI odometry root of two DriveSequence
+     worlds at KITTI's 376x1241 (8 frames each, label maps, calib, times,
+     poses), `prep --dataset kitti_odom` in its own process (4 host-only
+     workers), `train-seg` and `prep --write-seg` on the card; the Python
+     reader and the native loader equal item for item, batches/s of each
+     at B=4 and B=64; `train --version davo --data <prepared> --loader
+     native --log-dir --set train.image_every=2`, 5 steps (launches per
+     step and per image summary, metrics.jsonl, panels, median step ms,
+     the prefetch host share beside phase 8's); one train step card
+     against CPU on a prepared batch; `train` from the KITTI root and
+     `infer --data <root> --ckpt`; SegNet's labels card against CPU, its
+     step ms and labels/s
 The line before the last names the card; the last line is the result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -2975,7 +2988,7 @@ def train_path(torch, costvol, bandwarp, phase="train_path", flags=None, steps=5
         raise AssertionError(f"{phase}: non-finite loss terms {bad}")
     if unchanged:
         raise AssertionError(f"{phase}: parameters unchanged after {steps} steps: {unchanged}")
-    return {**counts, "variant_launches": variants}, next(ds.batches(steps=1))
+    return {**counts, "variant_launches": variants, "prefetch": stats.summary()}, next(ds.batches(steps=1))
 
 
 def _want_counts(counts, per_step, steps):
@@ -3842,6 +3855,390 @@ def options_path(torch, card, costvol, bandwarp, frames, seg, batch4):
     return {k: r["launches"] for k, r in results.items()}
 
 
+# ------------------------------------------------------------- phase 14: real data
+
+DATA_SEQS = ("00", "01")
+DATA_FRAMES = 8                # frames per sequence: cut from KITTI's thousands, not the size
+DATA_HW = (376, 1241)          # KITTI odometry's image_2
+SEG_F32_AGREE = 0.999          # SegNet labels, card against CPU in float32 (TF32 off): share of equal pixels
+SEG_BF16_AGREE = 0.95          # the same in bf16, the checkpoint's mode: near-tied logits flip with rounding
+# Launches of one image summary (train/summaries.py): a training forward
+# (3 cost volumes) and one projective warp of source 0 (the banded gather).
+SUMMARY_LAUNCHES = {"cost_volume": 3, "banded_warp": 1}
+
+
+@contextlib.contextmanager
+def _float64_program(torch):
+    """Run the port's float32 training program in float64 on the CPU: a
+    reference for how far float32 lands from exact arithmetic. The
+    model's compute dtype "float64", and the forward's and the losses'
+    explicit float32 (`.float()`, `.to(torch.float32)`, float32 zeros and
+    ones, einsum operands, the default dtype) go to float64 while it is
+    open."""
+    from davo_tpu_torch.models import common
+
+    real = (torch.Tensor.float, torch.Tensor.to, torch.einsum, torch.zeros, torch.ones)
+
+    def to(self, *a, **k):
+        if a and a[0] is torch.float32:
+            a = (torch.float64,) + a[1:]
+        if k.get("dtype") is torch.float32:
+            k = {**k, "dtype": torch.float64}
+        return real[1](self, *a, **k)
+
+    def dtype64(fn):
+        def make(*a, **k):
+            return fn(*a, **({**k, "dtype": torch.float64} if k.get("dtype") is torch.float32 else k))
+        return make
+
+    common._DTYPES["float64"] = torch.float64
+    torch.Tensor.float, torch.Tensor.to = (lambda self, *a, **k: self.double()), to
+    torch.einsum = lambda eq, *ops: real[2](eq, *[o.double() if o.is_floating_point() else o for o in ops])
+    torch.zeros, torch.ones = dtype64(real[3]), dtype64(real[4])
+    torch.set_default_dtype(torch.float64)
+    try:
+        yield
+    finally:
+        torch.Tensor.float, torch.Tensor.to, torch.einsum, torch.zeros, torch.ones = real
+        torch.set_default_dtype(torch.float32)
+        del common._DTYPES["float64"]
+
+
+def _nonzero(counts):
+    """A launch-count dict without its zeros."""
+    return {k: v for k, v in counts.items() if v and k != "device_launches"}
+
+
+def _render_kitti_frame(job):
+    """Frame i of sequence `seq`'s DriveSequence as image_2 and seg PNGs
+    (a host-only worker: spawned, it never touches the card)."""
+    import numpy as np
+
+    from davo_tpu_torch.data import imageio
+    from davo_tpu_torch.data.synthetic import DriveSequence
+
+    root, seq, seed, i = job
+    world = DriveSequence(n_frames=DATA_FRAMES, height=DATA_HW[0], width=DATA_HW[1], seed=seed)
+    d = Path(root) / "sequences" / seq
+    imageio.imwrite_png(str(d / "image_2" / f"{i:06d}.png"), np.round(world.frame(i) * 255).astype(np.uint8))
+    imageio.imwrite_png(str(d / "seg" / f"{i:06d}.png"), world.seg(i).astype(np.uint8))
+
+
+def _write_kitti_root(root):
+    """A KITTI odometry root: image_2 and seg/ PNGs rendered in spawned
+    worker processes, calib.txt (P2 = [K | 0]), times.txt, poses/NN.txt."""
+    import multiprocessing
+    import os
+
+    import numpy as np
+
+    from davo_tpu_torch.data.kitti import write_poses_kitti
+    from davo_tpu_torch.data.synthetic import DriveSequence
+
+    jobs = []
+    for k, seq in enumerate(DATA_SEQS):
+        world = DriveSequence(n_frames=DATA_FRAMES, height=DATA_HW[0], width=DATA_HW[1], seed=20 + k)
+        d = Path(root) / "sequences" / seq
+        (d / "image_2").mkdir(parents=True)
+        (d / "seg").mkdir()
+        P = np.concatenate([np.asarray(world.K, np.float64), np.zeros((3, 1))], axis=1)
+        (d / "calib.txt").write_text("".join(f"P{c}: " + " ".join(f"{v:.12e}" for v in P.ravel()) + "\n"
+                                             for c in range(4)))
+        np.savetxt(d / "times.txt", np.arange(DATA_FRAMES) * 0.1)
+        (Path(root) / "poses").mkdir(exist_ok=True)
+        write_poses_kitti(str(Path(root) / "poses" / f"{seq}.txt"), np.asarray(world.poses))
+        jobs += [(root, seq, 20 + k, i) for i in range(DATA_FRAMES)]
+    with multiprocessing.get_context("spawn").Pool(min(len(jobs), os.cpu_count() or 4)) as pool:
+        pool.map(_render_kitti_frame, jobs)
+
+
+def data_path(torch, card, costvol, bandwarp, synthetic_prefetch):
+    """Phase 14: training on real data, through the CLI at `davo`'s full
+    size (128x416, B=4, TrainConfig defaults, attention flow_seg fed by
+    the port's own SegNetLite labels), in a temporary directory, no plain
+    version run.
+
+    A KITTI odometry root of two DriveSequence worlds at 376x1241 (8
+    frames each) is prepared by `prep --dataset kitti_odom` as a process
+    of its own with 4 host-only workers; `train-seg` (20 steps at
+    128x416) and `prep --write-seg` label the prepared targets on the
+    card. The Python reader and the native loader must give equal arrays
+    item for item (one codec; the CPU tests hold it against OpenCV);
+    batches/s of each at B=4 and B=64 (a split of the train names six
+    times over). `train --data <prepared> --loader native --log-dir
+    --set train.image_every=2` for 5 steps: launches 3/3/16/16 per step
+    (#1/#1b/#3/#4) plus SUMMARY_LAUNCHES per image summary (2), 5 lines
+    of metrics.jsonl, 5 panels per summary, the median step ms and the
+    prefetch host share beside phase 8's. One train step card against
+    CPU on a prepared batch (B=2 of it, float32, TF32 off): loss terms
+    within TRAIN_LOSS_TOL; gradients no further from a float64 CPU run of
+    the same program than twice the CPU float32's distance, or
+    TRAIN_GRAD_TOL (see below). `train` 2 steps from the KITTI root and `infer --data
+    <root> --seq 01 --ckpt`: one pose per frame, 3 cost volumes per
+    forward. SegNet's labels of the prepared targets, card against CPU
+    (SEG_F32_AGREE, SEG_BF16_AGREE), its train step ms (B=8, CUDA
+    events) and labels/s (B=16 calls, host clock)."""
+    import contextlib
+    import dataclasses
+    import io
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from davo_tpu_torch.cli.main import main as cli_main
+    from davo_tpu_torch.config import Config, TrainConfig
+    from davo_tpu_torch.data.native_loader import NativeSnippetLoader
+    from davo_tpu_torch.data.prep import PreparedSnippets
+    from davo_tpu_torch.models import presets
+    from davo_tpu_torch.models.davo import DavoModel
+    from davo_tpu_torch.models.segnet import SegNetLite, load_segnet, make_seg_infer
+    from davo_tpu_torch.train import loop, summaries
+
+    t_phase = time.perf_counter()
+    report, counts = {"card": card}, {}
+
+    def cli(label, argv):
+        out = io.StringIO()
+        _reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli_main(argv)
+        torch.cuda.synchronize()
+        report[f"{label}_s"] = time.perf_counter() - t0
+        counts[label] = _train_counts(costvol, bandwarp)
+        if rc != 0:
+            raise AssertionError(f"data path: {label} returned {rc}")
+        return out.getvalue()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root, prepared, seg_dir, logs, ckpt = (str(Path(tmp) / n) for n in ("kitti", "prepared", "seg", "logs", "ck"))
+        t0 = time.perf_counter()
+        _write_kitti_root(root)
+        report["render_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "davo_tpu_torch.cli.main", "prep", "--dataset", "kitti_odom", "--root", root,
+             "--out", prepared, "--seqs", ",".join(DATA_SEQS), "--num-workers", "4"],
+            capture_output=True, text=True, timeout=600, cwd=str(Path(__file__).resolve().parent),
+        )
+        report["prep_s"] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"prep exited {proc.returncode}: {proc.stderr[-2000:]}")
+        names = [n for split in ("train", "val") for n in (Path(prepared) / f"{split}.txt").read_text().split()]
+        report.update(prep_stdout=proc.stdout.strip(), snippets=len(names),
+                      prep_s_per_snippet=report["prep_s"] / len(names))
+        if len(names) != len(DATA_SEQS) * (DATA_FRAMES - 2):
+            raise AssertionError(f"prep wrote {len(names)} snippets")
+
+        undo = _refuse_plains(_train_plains(costvol, bandwarp))
+        real_make_step, real_make_summary = loop.make_train_step, summaries.make_summary_fn
+        step_s, summary_counts = [], []
+        try:
+            seg_out = cli("train_seg", ["train-seg", "--checkpoint-dir", seg_dir, "--steps", "20"])
+            report["segnet_metrics"] = json.loads(seg_out.strip().splitlines()[-1])
+            out = cli("write_seg", ["prep", "--out", prepared, "--write-seg", "--seg-ckpt", seg_dir, "--overwrite-seg"])
+            if f"wrote {len(names)} seg maps" not in out:
+                raise AssertionError(f"write-seg: {out}")
+
+            # The two readers, item for item, then their rates.
+            py = PreparedSnippets(prepared)
+            native = NativeSnippetLoader(prepared, batch_size=4, shuffle=False, loop=False)
+            worst = {}
+            for bi, batch in enumerate(native.batches()):
+                for k in range(4):
+                    item = py.load(py.names[bi * 4 + k])
+                    for key, want in item.items():
+                        worst[key] = max(worst.get(key, 0.0), float(np.abs(batch[key][k] - want).max()))
+            native.close()
+            report["readers_max_abs_diff"] = worst
+            if set(worst) != {"target", "sources", "K", "seg", "gt_pose"} or any(worst.values()):
+                raise AssertionError(f"native loader against the Python reader: {worst}")
+            (Path(prepared) / "bench.txt").write_text("\n".join(py.names * 6) + "\n")
+            rates = {}
+            for B, n in ((4, 20), (64, 4)):
+                nl = NativeSnippetLoader(prepared, split="bench", batch_size=B, seed=1)
+                it = nl.batches()
+                next(it)
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    next(it)
+                rates[f"native_B{B}"] = n / (time.perf_counter() - t0)
+                nl.close()
+                it = PreparedSnippets(prepared, split="bench", seed=1).batches(B)
+                next(it)
+                t0 = time.perf_counter()
+                for _ in range(max(n // 4, 1)):
+                    next(it)
+                rates[f"python_B{B}"] = max(n // 4, 1) / (time.perf_counter() - t0)
+            report["batches_per_s"] = rates
+
+            # Training on the prepared tree: per-step host time and the
+            # summaries' launches, recorded around the loop's own calls.
+            def timed_make_step(cfg, device=None):
+                fn = real_make_step(cfg, device)
+
+                def step(state, batch):
+                    t0 = time.perf_counter()
+                    result = fn(state, batch)
+                    torch.cuda.synchronize()
+                    step_s.append(time.perf_counter() - t0)
+                    return result
+
+                return step
+
+            def counted_make_summary(model, cfg):
+                fn = real_make_summary(model, cfg)
+
+                def summarize(batch):
+                    before = _counts(costvol, bandwarp)
+                    panels = fn(batch)
+                    summary_counts.append({k: v - before[k] for k, v in _counts(costvol, bandwarp).items()})
+                    return panels
+
+                return summarize
+
+            loop.make_train_step, summaries.make_summary_fn = timed_make_step, counted_make_summary
+            out = cli("train_prepared", ["train", "--version", "davo", "--data", prepared, "--loader", "native",
+                                         "--steps", "5", "--log-dir", logs, "--set", "train.image_every=2",
+                                         "--set", "train.log_every=1"])
+            loop.make_train_step, summaries.make_summary_fn = real_make_step, real_make_summary
+            prefetch = json.loads(re.search(r"prefetch: (\{.*\})", out).group(1).replace("'", '"'))
+            jsonl = (Path(logs) / "metrics.jsonl").read_text().splitlines()
+            panels = sorted(p.name for p in (Path(logs) / "images").iterdir())
+            report["train_prepared"] = {
+                "input_pipeline_native": "input pipeline: native C++ loader" in out,
+                "launches": _nonzero(counts["train_prepared"]), "summary_launches": summary_counts,
+                "metrics_lines": len(jsonl), "panels": len(panels),
+                "tensorboard_events": any(p.name.startswith("events.") for p in Path(logs).iterdir()),
+                "step_ms": [1e3 * t for t in step_s], "median_step_ms": 1e3 * statistics.median(step_s),
+                "median_step_ms_after_first": 1e3 * statistics.median(step_s[1:]),
+                "prefetch": prefetch, "synthetic_prefetch_phase8": synthetic_prefetch,
+                "last_metrics": json.loads(jsonl[-1]) if jsonl else None,
+            }
+            want = _want_counts(counts["train_prepared"], {"cost_volume": 3, "cost_volume_backward": 3,
+                                                           "banded_warp": 16, "banded_warp_backward": 16}, 5)
+            for k, v in SUMMARY_LAUNCHES.items():
+                want[k] += 2 * v
+            want_summary = {k: SUMMARY_LAUNCHES.get(k, 0) for k in _counts(costvol, bandwarp)}
+            if (counts["train_prepared"] != want or summary_counts != [want_summary] * 2
+                    or not report["train_prepared"]["input_pipeline_native"]
+                    or len(jsonl) != 5 or len(panels) != 10 or len(step_s) != 5):
+                print(json.dumps({"phase": "data_path", **report}), flush=True)
+                raise AssertionError(f"data path train: launches {counts['train_prepared']} (want {want}), "
+                                     f"summaries {summary_counts}, {len(jsonl)} metrics lines, {len(panels)} panels")
+
+            # From the KITTI root: train 2 steps, then serve sequence 01.
+            cli("train_kitti_root", ["train", "--version", "davo", "--data", root, "--seq", "00", "--steps", "2",
+                                     "--checkpoint-dir", ckpt])
+            poses_path = str(Path(tmp) / "poses.txt")
+            cli("infer_kitti_root", ["infer", "--version", "davo", "--data", root, "--seq", "01", "--ckpt", ckpt,
+                                     "--out", poses_path])
+            poses = np.loadtxt(poses_path)
+        finally:
+            undo()
+            loop.make_train_step, summaries.make_summary_fn = real_make_step, real_make_summary
+        root_want = _want_counts(counts["train_kitti_root"], {"cost_volume": 3, "cost_volume_backward": 3,
+                                                              "banded_warp": 16, "banded_warp_backward": 16}, 2)
+        infer_want = _want_counts(counts["infer_kitti_root"], {"cost_volume": 3}, 1)
+        report["kitti_root"] = {"train_launches": _nonzero(counts["train_kitti_root"]),
+                                "infer_launches": _nonzero(counts["infer_kitti_root"]), "poses": list(poses.shape)}
+        if (counts["train_kitti_root"] != root_want or counts["infer_kitti_root"] != infer_want
+                or poses.shape != (DATA_FRAMES, 12) or not np.isfinite(poses).all()):
+            print(json.dumps({"phase": "data_path", **report}), flush=True)
+            raise AssertionError(f"KITTI root: {report['kitti_root']}")
+
+        # One train step on a prepared batch, card against CPU: the loss
+        # terms by phase 9's criterion (TRAIN_LOSS_TOL). The gradients: at
+        # 128x416 float32 lands ~2.6e-3 of a DispNet leaf's largest from
+        # exact arithmetic (the CPU's own float32 against its float64 run
+        # of the same program, on the H100 machine's host), so no float32
+        # program meets TRAIN_GRAD_TOL against another here. They are held against the
+        # float64 run instead: the card's worst leaf no further from it
+        # than twice the CPU float32's worst, or TRAIN_GRAD_TOL.
+        reader = NativeSnippetLoader(prepared, batch_size=4, shuffle=False, loop=False)
+        first = next(reader.batches())
+        reader.close()
+        batch2 = {k: v[:2] for k, v in first.items()}
+        cfg = presets.with_overrides("davo", compute_dtype="float32")
+        cfg = Config(model=cfg.model, train=TrainConfig(batch_size=2, warp_gather="banded", warp_band=BAND))
+        cpu = DavoModel(cfg.model, device="cpu", seed=0, dispnet=True)
+        gpu = DavoModel(cfg.model, device="cuda", seed=0, dispnet=True)
+        gpu.load_state_dict(cpu.state_dict())
+        t0 = time.perf_counter()
+        want_m, want_g = _loss_and_grads(torch, cpu, batch2, cfg, "cpu", 125)
+        got_m, got_g = _loss_and_grads(torch, gpu, batch2, cfg, "cuda", 125)
+        with _float64_program(torch):
+            cfg64 = Config(model=dataclasses.replace(cfg.model, compute_dtype="float64"), train=cfg.train)
+            cpu64 = DavoModel(cfg64.model, device="cpu", seed=0, dispnet=True).double()
+            cpu64.load_state_dict({k: v.double() for k, v in cpu.state_dict().items()})
+            batch64 = {k: v.astype(np.float64) if v.dtype == np.float32 else v for k, v in batch2.items()}
+            _, exact_g = _loss_and_grads(torch, cpu64, batch64, cfg64, "cpu", 125)
+
+        def rel(a, b):
+            return {n: float((a[n].double() - b[n]).abs().max()) / max(float(b[n].abs().max()), 1e-30) for n in b}
+
+        loss_err = {k: abs(got_m[k] - want_m[k]) / abs(want_m[k]) for k in want_m}
+        grad_err, card64, cpu64_err = rel(got_g, want_g), rel(got_g, exact_g), rel(want_g, exact_g)
+        worst = {name: max(e.items(), key=lambda kv: kv[1])
+                 for name, e in (("card_vs_cpu", grad_err), ("card_vs_float64", card64), ("cpu_vs_float64", cpu64_err))}
+        grad_limit = max(2 * worst["cpu_vs_float64"][1], TRAIN_GRAD_TOL)
+        report["gpu_vs_cpu"] = {"batch": "prepared, B=2 of the first native batch, 128x416, float32, TF32 off",
+                                "loss_rel_err": loss_err, "worst_grad_rel_err": worst,
+                                "card_vs_cpu_top5": sorted(grad_err.items(), key=lambda kv: -kv[1])[:5],
+                                "grad_limit_vs_float64": grad_limit, "seconds": time.perf_counter() - t0}
+        del cpu, gpu, cpu64
+
+        # SegNet: labels card against CPU, step ms, labels/s.
+        targets = first["target"]
+        agree = {}
+        for mode in ("float32", "bfloat16"):
+            labels = {}
+            for dev in ("cuda", "cpu"):
+                loaded = load_segnet(seg_dir, dev)
+                model = SegNetLite(num_classes=loaded.num_classes, channels=loaded.channels,
+                                   compute_dtype=mode, device=dev)
+                model.load_state_dict(loaded.state_dict())
+                with torch.inference_mode():
+                    labels[dev] = model.eval()(torch.from_numpy(targets).to(dev)).argmax(-1).cpu().numpy()
+            agree[mode] = float((labels["cuda"] == labels["cpu"]).mean())
+        seg_model = load_segnet(seg_dir, "cuda").train()
+        from davo_tpu_torch.train.loop import AdamTx
+
+        tx = AdamTx(Config(train=TrainConfig(learning_rate=2e-3)), seg_model.parameters())
+        x = torch.from_numpy(np.concatenate([targets] * 2)).cuda()
+        y = torch.randint(0, 19, x.shape[:3], device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+        seg_ms = []
+        for i in range(13):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = F.cross_entropy(seg_model(x).permute(0, 3, 1, 2), y)
+            tx.zero_grad()
+            loss.backward()
+            tx.step(i)
+            end.record()
+            end.synchronize()
+            if i >= 3:
+                seg_ms.append(start.elapsed_time(end))
+        infer = make_seg_infer(seg_dir, "cuda")
+        x16 = np.concatenate([targets] * 4)
+        infer(x16)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            infer(x16)
+        report["segnet"] = {"labels_agree": agree, "limits": {"float32": SEG_F32_AGREE, "bfloat16": SEG_BF16_AGREE},
+                            "step_ms_B8_median": statistics.median(seg_ms),
+                            "labels_per_s_B16": 160 / (time.perf_counter() - t0)}
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"phase": "data_path", **report}), flush=True)
+    if max(loss_err.values()) > TRAIN_LOSS_TOL or worst["card_vs_float64"][1] > grad_limit:
+        raise AssertionError(f"data path, card against CPU: loss {loss_err}, gradients {worst} (limit {grad_limit})")
+    if agree["float32"] < SEG_F32_AGREE or agree["bfloat16"] < SEG_BF16_AGREE:
+        raise AssertionError(f"SegNet labels card against CPU agree {agree}")
+    return {k: counts[k] for k in ("train_prepared", "train_kitti_root", "infer_kitti_root")}
+
+
 def main() -> int:
     import torch
 
@@ -3942,9 +4339,12 @@ def main() -> int:
     backend_counts = backend_path(torch, card, costvol, bandwarp)
     options_counts = options_path(torch, card, costvol, bandwarp, world_frames, world_seg, batch4)
     del world_frames, world_seg
+    data_counts = data_path(torch, card, costvol, bandwarp, train_counts["prefetch"])
 
     def options_by_path(kernel):
-        return {f"options {k}": v[kernel] for k, v in options_counts.items() if v[kernel]}
+        """Launches of the later phases' commands: options (13), real data (14)."""
+        return {f"{group} {k}": v[kernel] for group, counts in (("options", options_counts), ("data", data_counts))
+                for k, v in counts.items() if v.get(kernel)}
 
     # The kernels' line. cost_volume: the work of one serving request (its
     # two flow levels at B=64) on bf16 maps, the presets' dtype, beside the

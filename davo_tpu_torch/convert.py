@@ -1,4 +1,4 @@
-"""Flax parameter tree -> the port's state_dict.
+"""Flax parameter tree <-> the port's state_dict.
 
 The port's modules carry the Flax tree's names (`posenet/encoder/enc0/
 Conv_0`, `flownet/estimator1/flow`, `attn/fc0`, ...), so a leaf's path
@@ -75,3 +75,20 @@ def load_flax_params(module: nn.Module, tree: Mapping) -> list[str]:
             )
     module.load_state_dict(state)
     return skipped
+
+
+def state_dict_to_flax(state: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of `flax_to_state_dict`: {"params": nested dicts of
+    float32 numpy arrays}, conv kernels HWIO, dense kernels (in, out)."""
+    tree: dict = {}
+    for key, value in state.items():
+        *path, leaf = key.split(".")
+        arr = value.detach().float().cpu().numpy()
+        if leaf == "weight":
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+            leaf = "kernel"
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(arr, np.float32)
+    return {"params": tree}

@@ -1,6 +1,7 @@
 """KITTI odometry dataset IO.
 
-Pure-numpy host-side readers for the KITTI odometry benchmark layout:
+Host-side readers for the KITTI odometry benchmark layout (images
+through the port's codec, `data/imageio.py`):
 
     root/
       sequences/NN/image_2/*.png    (left color camera)
@@ -19,6 +20,8 @@ import os
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from davo_tpu_torch.data import imageio
 
 TRAIN_SEQS = tuple(f"{i:02d}" for i in range(9))
 EVAL_SEQS = ("09", "10")
@@ -70,6 +73,15 @@ def write_poses_kitti(path: str, poses: np.ndarray) -> None:
         f.write(format_poses_kitti(poses))
 
 
+def _load_frame(path: str, height: int | None, width: int | None) -> np.ndarray:
+    """A frame as float32 HWC RGB in [0, 1], INTER_AREA-resized to
+    (height, width) when both are given (the reference's cv2 calls)."""
+    img = imageio.imread_rgb(path)
+    if height is not None and width is not None:
+        img = imageio.resize_area(img, height, width)
+    return img.astype(np.float32) / 255.0
+
+
 @dataclass
 class KittiOdometry:
     """One KITTI odometry sequence on disk (host-side, lazy frame IO)."""
@@ -109,13 +121,7 @@ class KittiOdometry:
 
     def load_frame(self, i: int, height: int | None = None, width: int | None = None) -> np.ndarray:
         """Load frame i as float32 HWC in [0, 1], optionally resized."""
-        import cv2
-
-        img = cv2.imread(self.frame_path(i), cv2.IMREAD_COLOR)
-        img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
-        if height is not None and width is not None:
-            img = cv2.resize(img, (width, height), interpolation=cv2.INTER_AREA)
-        return img.astype(np.float32) / 255.0
+        return _load_frame(self.frame_path(i), height, width)
 
     @property
     def seg_dir(self) -> str | None:
@@ -132,17 +138,13 @@ class KittiOdometry:
         self, i: int, height: int | None = None, width: int | None = None
     ) -> np.ndarray:
         """Load the frame-i label map as int32 (H, W), nearest-resized."""
-        import cv2
-
         stem = os.path.splitext(self.frames[i])[0]
         path = os.path.join(self.seg_dir, stem + ".png")
-        seg = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
-        if seg is None:
+        if not os.path.exists(path):
             raise FileNotFoundError(path)
+        seg = imageio.imread_gray(path)
         if height is not None and width is not None:
-            seg = cv2.resize(
-                seg, (width, height), interpolation=cv2.INTER_NEAREST
-            )
+            seg = imageio.resize_nearest(seg, height, width)
         return seg.astype(np.int32)
 
     def scaled_intrinsics(self, height: int, width: int, native_hw: tuple[int, int]) -> np.ndarray:
@@ -216,15 +218,7 @@ class KittiRaw:
     def load_frame(
         self, i: int, height: int | None = None, width: int | None = None
     ) -> np.ndarray:
-        import cv2
-
-        img = cv2.imread(self.frame_path(i), cv2.IMREAD_COLOR)
-        img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
-        if height is not None and width is not None:
-            img = cv2.resize(
-                img, (width, height), interpolation=cv2.INTER_AREA
-            )
-        return img.astype(np.float32) / 255.0
+        return _load_frame(self.frame_path(i), height, width)
 
     def speeds(self) -> np.ndarray | None:
         """Per-frame ground speed |(vn, ve)| m/s from oxts, or None."""
@@ -344,15 +338,7 @@ class CityscapesSeq:
     def load_frame(
         self, i: int, height: int | None = None, width: int | None = None
     ) -> np.ndarray:
-        import cv2
-
-        img = cv2.imread(self.frame_path(i), cv2.IMREAD_COLOR)
-        img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
-        if height is not None and width is not None:
-            img = cv2.resize(
-                img, (width, height), interpolation=cv2.INTER_AREA
-            )
-        return img.astype(np.float32) / 255.0
+        return _load_frame(self.frame_path(i), height, width)
 
     def scaled_intrinsics(
         self, height: int, width: int, native_hw: tuple[int, int]

@@ -1,6 +1,6 @@
 """Snippet dataset: fixed-length frame windows -> fixed-shape batches
 (a copy of davo_tpu.data.snippets; the augmentation's resizes are
-NumPy here, see `_resize_linear`).
+NumPy here: `_resize_linear`, `imageio.resize_nearest`).
 
 Reference parity: `<ref>/data_loader.py` `load_train_batch` — 3-frame
 snippets (target = middle frame, sources = neighbors), per-snippet
@@ -24,6 +24,8 @@ from dataclasses import dataclass
 from typing import Iterator
 
 import numpy as np
+
+from davo_tpu_torch.data.imageio import resize_nearest
 
 
 def _linear_taps(n_out: int, n_in: int) -> tuple[np.ndarray, np.ndarray]:
@@ -55,15 +57,6 @@ def _resize_linear(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
     return (rows[yi] * (1.0 - yf) + rows[y1] * yf).astype(np.float32)
 
 
-def _resize_nearest(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
-    """Nearest resize to (nh, nw), as `cv2.INTER_NEAREST`: source index
-    floor(i * n_in / n_out)."""
-    H, W = img.shape[:2]
-    yi = np.minimum(np.floor(np.arange(nh) * (H / nh)).astype(np.int64), H - 1)
-    xi = np.minimum(np.floor(np.arange(nw) * (W / nw)).astype(np.int64), W - 1)
-    return img[yi][:, xi]
-
-
 def apply_scale_crop(
     frames: list[np.ndarray],
     seg: "np.ndarray | None",
@@ -83,7 +76,7 @@ def apply_scale_crop(
         return frames, seg, K
     frames = [_resize_linear(f, nh, nw)[oy : oy + H, ox : ox + W] for f in frames]
     if seg is not None:
-        seg = _resize_nearest(seg.astype(np.uint8), nh, nw)[
+        seg = resize_nearest(seg.astype(np.uint8), nh, nw)[
             oy : oy + H, ox : ox + W
         ].astype(np.int32)
     K = K.copy()
@@ -106,7 +99,7 @@ def augment_batches(batches, mode=True, seed: int = 0):
     the random zoom/crop with intrinsics follow-through
     (`apply_scale_crop`; gt_pose stays valid, the zoom is purely a K
     change). Color jitter is vectorized over the batch; zoom/crop runs
-    per item (cv2).
+    per item (`_resize_linear`, `imageio.resize_nearest`).
     """
     rng = np.random.default_rng(seed)
     for batch in batches:

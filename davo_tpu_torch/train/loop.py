@@ -299,19 +299,26 @@ def fit(
     log_fn: Callable[[int, dict], None] | None = None,
     state: TrainState | None = None,
     device: str | torch.device | None = None,
+    metrics_logger=None,
 ) -> tuple[DavoModel, TrainState, list[dict]]:
     """Train for cfg.train.max_steps over `batches` (dicts of numpy
     arrays or tensors) on `device` (the GPU unless device="cpu").
     Returns (model, state, history): a history entry, with steps_per_s,
     every log_every steps and at the last step. With `checkpoint_dir`,
     resumes from its newest checkpoint and saves every checkpoint_every
-    steps and at the end."""
-    if cfg.train.image_every > 0:
-        raise NotImplementedError("train.image_every > 0 (image summaries) is not ported yet")
+    steps and at the end. `metrics_logger` (utils.metrics.MetricsLogger)
+    gets each history entry and, when cfg.train.image_every > 0, the
+    warped-target and disparity panels of the step's batch every
+    image_every steps (train/summaries.py)."""
     device = resolve_device(device)
     if state is None:
         state = create_state(cfg, device)
     step_fn = make_train_step(cfg, device)
+    summary_fn = None
+    if metrics_logger is not None and cfg.train.image_every > 0:
+        from davo_tpu_torch.train.summaries import make_summary_fn
+
+        summary_fn = make_summary_fn(state.model, cfg)
     if checkpoint_dir:
         save_config(checkpoint_dir, cfg)
         restore_checkpoint(checkpoint_dir, state)
@@ -331,6 +338,10 @@ def fit(
             history.append(m)
             if log_fn:
                 log_fn(i + 1, m)
+            if metrics_logger is not None:
+                metrics_logger.log(i + 1, m)
+        if summary_fn is not None and (i + 1) % cfg.train.image_every == 0:
+            metrics_logger.log_images(i + 1, summary_fn(batch))
         if checkpoint_dir and (i + 1) % cfg.train.checkpoint_every == 0:
             save_checkpoint(checkpoint_dir, state)
     if checkpoint_dir:

@@ -103,13 +103,24 @@ def test_cli_infer_writes_trajectory(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "flags", [["--ckpt", "/nowhere", "--data", "/kitti"], ["--data", "/kitti"], ["--serving-flags"]]
+    "flags, rc, message",
+    [
+        (["--ckpt", "/nowhere", "--data", "/kitti"], 1, "no checkpoint found in /nowhere"),
+        (["--data", "/kitti"], None, None),
+        (["--serving-flags"], 2, "not ported"),
+    ],
 )
-def test_cli_refuses_unported_inputs(tmp_path, flags, capsys):
-    rc = cli_main(["infer", "--version", "tiny", "--out", str(tmp_path / "p.txt"),
-                   "--device", "cpu", *flags])
-    assert rc == 2
-    assert "not ported" in capsys.readouterr().err
+def test_cli_refuses_unported_inputs(tmp_path, flags, rc, message, capsys):
+    """What `infer` cannot serve writes nothing: a missing checkpoint
+    (rc 1), a KITTI root that is not there (the reader's error) and the
+    TPU-validated serving flags (rc 2, not ported)."""
+    argv = ["infer", "--version", "tiny", "--out", str(tmp_path / "p.txt"), "--device", "cpu", *flags]
+    if rc is None:
+        with pytest.raises(FileNotFoundError):
+            cli_main(argv)
+    else:
+        assert cli_main(argv) == rc
+        assert message in capsys.readouterr().err
     assert not (tmp_path / "p.txt").exists()
 
 

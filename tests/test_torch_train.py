@@ -245,9 +245,18 @@ def test_auto_gather_respects_the_environment(monkeypatch):
     assert (warp._DEFAULT_GATHER, warp._BAND) == ("block", (3, 5))
 
 
-def test_fit_refuses_image_summaries(batch):
-    with pytest.raises(NotImplementedError, match="image_every"):
-        loop.fit(_cfg(image_every=5), [batch], device="cpu")
+def test_fit_refuses_image_summaries(batch, tmp_path):
+    """image_every > 0 renders panels only for a MetricsLogger: without
+    one, fit trains and writes nothing; with one, every image_every
+    steps (tests/test_torch_data_real.py holds the panels)."""
+    from davo_tpu_torch.utils.metrics import MetricsLogger
+
+    _, state, _ = loop.fit(_cfg(image_every=5), [batch], device="cpu")
+    assert state.step == 1
+    logger = MetricsLogger(str(tmp_path), tensorboard=False)
+    loop.fit(_cfg(image_every=1), [batch], device="cpu", metrics_logger=logger)
+    logger.close()
+    assert len(list((tmp_path / "images").iterdir())) == 5
 
 
 def test_cli_train_runs_on_cpu(tmp_path, capsys):
@@ -261,13 +270,23 @@ def test_cli_train_runs_on_cpu(tmp_path, capsys):
     assert [s for s, _ in loop._checkpoints(str(tmp_path))] == [2]
 
 
-@pytest.mark.parametrize(
-    "flags", [["--data", "/kitti"], ["--log-dir", "/tmp/logs"], ["--set", "train.image_every=10"]]
-)
-def test_cli_train_refuses_unported_inputs(flags, capsys):
-    rc = cli_main(["train", "--version", "tiny", "--steps", "1", "--device", "cpu", *flags])
-    assert rc == 2
-    assert "not ported" in capsys.readouterr().err
+@pytest.mark.parametrize("flags", [["--data", "/kitti"], ["--log-dir"], ["--set", "train.image_every=1"]])
+def test_cli_train_refuses_unported_inputs(flags, tmp_path, capsys, monkeypatch):
+    """A KITTI root that is not there fails in its reader; --log-dir and
+    image summaries train (metrics.jsonl; panels only with --log-dir)."""
+    monkeypatch.setitem(__import__("sys").modules, "torch.utils.tensorboard", None)  # no TensorBoard here
+    if flags == ["--log-dir"]:
+        flags = ["--log-dir", str(tmp_path / "logs")]
+    argv = ["train", "--version", "tiny", "--steps", "1", "--device", "cpu", "--worlds", "1",
+            "--world-frames", "4", "--set", "train.batch_size=2", *flags]
+    if "/kitti" in flags:
+        with pytest.raises(FileNotFoundError):
+            cli_main(argv)
+        return
+    assert cli_main(argv) == 0
+    assert "not ported" not in capsys.readouterr().err
+    if "--log-dir" in flags:
+        assert (tmp_path / "logs" / "metrics.jsonl").read_text().count("\n") == 1
 
 
 def test_train_entry_points_default_to_the_gpu(batch, tmp_path):
