@@ -11,7 +11,7 @@
         # the training backward (rowconv_bwd.cu: per fused unit, and
         # flow_level_input_bwd at the B=4 and B=64 steps' levels) and the
         # conv stack (conv_stack.cu, the pose prefix at B=64 and 256, bf16
-        # and float32, each mode's weights as that source reads them)
+        # and float32), each other build behind this checkout's wrappers
 
 Phases, in order; any failure exits non-zero:
   1. environment: card name and power limit, torch/CUDA versions, TF32 flags
@@ -80,13 +80,20 @@ Phases, in order; any failure exits non-zero:
      through train.loop.fit; launch counts per step, finite loss terms,
      every parameter changed, no plain version run; (8b) the same on the
      fused training path (the five fuse_*_train flags), then `cli train`
-     with those flags for 2 steps; (8c) 2 fuse_estimator_train steps
+     with those flags for 2 steps; (8c) 2 fuse_estimator_train steps;
+     (8d) the float32 conv route (`kernels/conv_f32.py`: the split-TF32
+     layer kernel forward, gate, wgrad and dgrad backward) at every
+     float32 layer shape of the unfused davo step at 128x416, B=4,
+     forward and VJP against the plain version in float64, each shape's
+     plans agreeing with the launches (and a refused shape with the C
+     entry), device ms beside one cuDNN float32 call and the bound
   9. one train step on the card against the port on the CPU (davo
      widths, 64x128, float32): loss terms and every gradient leaf on a
-     noise batch; on a synthetic-world batch, the card no further from a
-     float64 CPU run of the same program than twice the CPU's float32
-     (9: the card with cuDNN off, the card as run printed beside it);
-     (9b) the same on the fused training path, the card as run
+     noise batch; on a synthetic-world batch, the card as run no further
+     from a float64 CPU run of the same program than twice the CPU's
+     float32; the float32 conv route launched forward and backward, no
+     float32 F.conv2d on the card; (9b) the same on the fused training
+     path
  10. train-step time at B=4 and B=64, peak memory, and device time by
      kernel of one B=64 step; (10b) the same on the fused training path
  11. the bench entry point: `python -m davo_tpu_torch.bench` (bench.py's
@@ -107,8 +114,9 @@ Phases, in order; any failure exits non-zero:
      head (pose_head=geo_hybrid) through `cli train` and `cli infer
      --ckpt` (with and without the serving flags), card against CPU
      (forward and train step), frames/s and host syncs against the conv
-     head; davo-fast with s2d_first_conv against the plain first conv,
-     and that conv alone; `cli infer --scan-chunks 4` and the 257-frame
+     head, and where the geometric head's card-against-CPU gap arises
+     (its GN solve's inputs, and the solve alone); davo-fast with
+     s2d_first_conv against the plain first conv, and that conv alone; `cli infer --scan-chunks 4` and the 257-frame
      world through one scan call against 4 per-call requests; a
      resumable evaluation crashed and resumed; davo at 120x400 (the
      non-integer resize) card against CPU
@@ -128,9 +136,9 @@ Phases, in order; any failure exits non-zero:
      set of rank processes on the one card (`dist.bootstrap.launch_local`):
      NCCL at world size 1, gloo at 2 and 4 (NCCL refuses two ranks on a
      device). Per group: the data-parallel step (davo, 128x416, float32,
-     global B=4 noise batch) against the single-process step, and again
-     both with cuDNN off, at 2 also on the fused training path; each
-     rank's launches; sharded pose
+     global B=4 noise batch) against the single-process step, as run, at
+     2 also on the fused training path; each rank's launches (the float32
+     conv route's too, no float32 F.conv2d on the card); sharded pose
      inference and streaming of phase 4's world against the runner;
      landmark-sharded BA on phase 12's first exact-flow window against
      ba_refine; the expert-parallel weight map against region_weight_map;
@@ -139,12 +147,12 @@ Phases, in order; any failure exits non-zero:
  16. parallelism and export (`parallel_export_path`): tensor parallelism
      from the rule table (davo, 128x416, float32, B=4) in gloo x2 on the
      one card, unfused and on the fused training path, against the
-     replicated model (poses, loss, every gradient; cuDNN off gated, as
-     run printed; host copies and differentiable collective calls per
-     step); the pipelines in one NCCL rank holding every stage (davo,
-     B=8, M=4): the pose function, the 2-stage and 3-stage training
-     against the single process (cuDNN off gated, as run printed),
-     launches per call; `cli export` (davo-fast, B=128) loaded back
+     replicated model as run (poses, loss, every gradient; host copies
+     and differentiable collective calls per step); the pipelines in one
+     NCCL rank holding every stage (davo, B=8, M=4): the pose function,
+     the 2-stage and 3-stage training against the single process as
+     run, launches per call (the float32 conv route's too, no float32
+     F.conv2d on the card); `cli export` (davo-fast, B=128) loaded back
      against the live model, the cost-volume kernel 2 launches a call,
      size, export seconds and frames/s beside the live forward's, and
      again with the four serving flags (the fused kernels as registered
@@ -432,71 +440,18 @@ def _turns(fns, reps=20):
     return times
 
 
-def _with_library(module, lib, fn, **attrs):
+def _with_library(module, lib, fn):
     """`fn` as a callable that runs with `module._library()` giving `lib`
-    (another checkout's build of the module's source, bound alike) and
-    the module's other attributes in `attrs` replaced."""
-    attrs["_library"] = lambda: lib
+    (another checkout's build of the module's source, bound alike)."""
 
     def call():
-        saved = {name: getattr(module, name) for name in attrs}
-        for name, value in attrs.items():
-            setattr(module, name, value)
+        saved = module._library
+        module._library = lambda: lib
         try:
             return fn()
         finally:
-            for name, value in saved.items():
-                setattr(module, name, value)
+            module._library = saved
     return call
-
-
-def _bind_other_rowconv(torch, lib):
-    """(`lib`, another checkout's rowconv.cu build, bound; the attributes
-    of `kernels.rowconv` its layers need). This checkout's entry points
-    that the build has are bound alike (before PR 12 it lacks
-    `davo_flow_level_input_last`, which `--against` does not call); a
-    build before PR 11, whose float32 layers run the FMA kernel
-    `davo_conv_layer` on (k, k, Cin, Cout) float32 weights, also gets that
-    entry and a `_launch_layer` that packs for it."""
-    import ctypes
-
-    import torch.nn.functional as F
-
-    from davo_tpu_torch.kernels import rowconv
-    from davo_tpu_torch.models.common import same_pads
-
-    P, I = ctypes.c_void_p, ctypes.c_int
-    signatures = {k: v for k, v in rowconv.SIGNATURES.items() if hasattr(lib, k)}
-    tf32 = "davo_conv_layer_tf32" in signatures
-    if not tf32:
-        signatures["davo_conv_layer"] = [P, I, P, P, P, I] + [I] * 14 + [P]
-    for name, argtypes in signatures.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, I
-    lib.davo_cuda_error_string.argtypes, lib.davo_cuda_error_string.restype = [I], ctypes.c_char_p
-    if tf32:
-        return lib, {}
-    launch, packed = rowconv._launch_layer, {}
-
-    def layer(x, w, b, out, stride, relu, act, dot):
-        if dot == torch.bfloat16:
-            return launch(x, w, b, out, stride, relu, act, dot)
-        B, H, W, cin = x.shape
-        _, Ho, Wo, cout = out.shape
-        k = w.shape[-1]
-        key = (w.data_ptr(), tuple(w.shape), cin)
-        if key not in packed:
-            packed[key] = (F.pad(w.detach(), (0, 0, 0, 0, 0, cin - w.shape[1])).permute(2, 3, 1, 0).contiguous(),
-                           b.detach().float().contiguous())
-        wp, bias = packed[key]
-        err = lib.davo_conv_layer(x.data_ptr(), int(x.dtype == torch.bfloat16), wp.data_ptr(), bias.data_ptr(),
-                                  out.data_ptr(), int(out.dtype == torch.bfloat16), B, H, W, cin, Ho, Wo, cout, k,
-                                  stride, same_pads(H, k, stride)[0], same_pads(W, k, stride)[0], 0,
-                                  int(act == torch.bfloat16), int(bool(relu)), torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise AssertionError(f"other float32 conv layer: launch failed ({err})")
-
-    return lib, {"_launch_layer": layer}
 
 
 def compare_against(torch, other_csrc):
@@ -513,12 +468,10 @@ def compare_against(torch, other_csrc):
     3d's units, bf16, float32 and bf16_dot; the training backward
     (rowconv_bwd.cu, likewise) per unit of phase 3e and
     `flow_level_input_bwd` alone at the fused B=4 and B=64 steps' levels;
-    the conv stack (conv_stack.cu: 13 ints a layer, each mode's weights
-    as that source reads them, `_stack_weight_layouts`) on the pose
-    prefix at B=64 and 256, bf16 and float32.
-    rowconv.cu and rowconv_bwd.cu must have this checkout's C entry points
-    (the parent's do, but rowconv.cu's `davo_flow_level_input_last`,
-    which no comparison calls)."""
+    the conv stack (conv_stack.cu, behind this checkout's wrapper) on the
+    pose prefix at B=64 and 256, bf16 and float32. Each other build runs
+    behind this checkout's wrappers, so it must have this checkout's C
+    entry points, table layout and packed weight layouts."""
     import ctypes
 
     from davo_tpu_torch.kernels import bandwarp, costvol, rowconv
@@ -648,15 +601,15 @@ def compare_against(torch, other_csrc):
         from davo_tpu_torch.models import presets
         from davo_tpu_torch.models.davo import DavoModel
 
-        builds = {"other": _bind_other_rowconv(torch, libs["rowconv"]), "this": (rowconv._library(), {})}
+        builds = {"other": rowconv.bind(libs["rowconv"]), "this": rowconv._library()}
         model = DavoModel(presets.with_overrides("davo-fast", **FUSED_FLAGS).model, device="cuda", seed=0)
         for unit in _rowconv_units(torch, model, 64):
             for mode in ("bfloat16", "float32", "bf16_dot"):
                 inputs = _unit_inputs(torch, unit, mode)
                 with torch.inference_mode():
                     want, _ = _unit_plain(torch, rowconv, unit, mode, inputs)
-                    fns = {name: _with_library(rowconv, lib, lambda: _unit_call(rowconv, unit, mode, inputs), **attrs)
-                           for name, (lib, attrs) in builds.items()}
+                    fns = {name: _with_library(rowconv, lib, lambda: _unit_call(rowconv, unit, mode, inputs))
+                           for name, lib in builds.items()}
                     errs = {name: _rel_err(fn(), want) for name, fn in fns.items()}
                     times = _turns(fns, reps=5)
                 print(json.dumps({
@@ -668,7 +621,7 @@ def compare_against(torch, other_csrc):
                     raise AssertionError(f"{unit['unit']} float32: errors {errs}")
         del model
         torch.cuda.empty_cache()
-        _level_input_against(torch, {name: lib for name, (lib, _) in builds.items()}, other_csrc)
+        _level_input_against(torch, builds, other_csrc)
 
     if "rowconv_bwd" in libs:
         _compare_backward_against(torch, libs["rowconv_bwd"], other_csrc)
@@ -816,67 +769,10 @@ def _level_input_bwd_against(torch, builds, other_csrc):
           flush=True)
 
 
-def _stack_weight_layouts(src):
-    """The weights each mode of a conv_stack.cu source reads, by the
-    kernels it holds: "oihw" (OIHW float32: the FMA kernels of PRs 5-11,
-    both modes before PR 10, float32 before PR 12), "mma" (bf16,
-    `rowconv._pack_mma`: `conv_stack_mma_kernel`, PR 10 on) or "tf32"
-    (`rowconv._pack_tf32`'s hi and lo planes: `conv_stack_tf32_kernel`,
-    PR 12 on)."""
-    text = Path(src).read_text()
-    return {"bfloat16": "mma" if "conv_stack_mma_kernel" in text else "oihw",
-            "float32": "tf32" if "conv_stack_tf32_kernel" in text else "oihw"}
-
-
-def _parent_stack_launch(torch, lib, x, ws, bs, strides, relus, mode, layouts):
-    """One launch of another checkout's conv_stack.cu (its
-    `davo_conv_stack`: 13 ints a layer, the entry of every version so
-    far), each weight as that source reads it in `mode` (`layouts`, from
-    `_stack_weight_layouts`: OIHW float32, `_pack_mma`'s bf16 or
-    `_pack_tf32`'s planes). Returns the float32 output."""
-    import ctypes
-
-    from davo_tpu_torch.kernels import conv_stack, rowconv
-
-    B, h, w, cin = x.shape
-    n, act_bf16 = len(ws), int(mode == "bfloat16")
-    layout = layouts[mode]
-    if layout == "oihw":
-        wf = [t.detach().float().contiguous() for t in ws]
-    else:
-        wf = [rowconv._packed(t, torch.bfloat16 if layout == "mma" else torch.float32, t.shape[1]) for t in ws]
-    bf = [t.detach().float().contiguous() for t in bs]
-    params, offsets, nbytes = [], [], 0
-    for i, (wt, s, r) in enumerate(zip(ws, strides, relus)):
-        k, cout = wt.shape[-1], wt.shape[0]
-        ho, pad_t, _ = conv_stack.same_pads(h, k, s)
-        wo, pad_l, _ = conv_stack.same_pads(w, k, s)
-        x_bf16 = act_bf16 if i else int(x.dtype == torch.bfloat16)
-        aligned = 1 if i else int(x.data_ptr() % (4 * x.element_size()) == 0)
-        params += [x_bf16, aligned, h, w, cin, ho, wo, cout, k, s, pad_t, pad_l, int(bool(r))]
-        if i < n - 1:
-            offsets.append(nbytes)
-            nbytes += -(-B * ho * wo * cout * (2 if act_bf16 else 4) // 256) * 256
-        h, w, cin = ho, wo, cout
-    out = torch.empty((B, h, w, cin), dtype=torch.float32, device=x.device)
-    work = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=x.device)
-    ins = [x.data_ptr()] + [work.data_ptr() + off for off in offsets]
-    outs = [work.data_ptr() + off for off in offsets] + [out.data_ptr()]
-
-    def ptrs(values):
-        return (ctypes.c_void_p * n)(*values)
-
-    err = lib.davo_conv_stack(n, B, ptrs(ins), ptrs(outs), ptrs([t.data_ptr() for t in wf]),
-                              ptrs([t.data_ptr() for t in bf]), (ctypes.c_int * len(params))(*params), act_bf16,
-                              torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise AssertionError(f"other conv stack: launch failed ({err})")
-    return out
-
-
 def _compare_conv_stack_against(torch, lib, other_csrc):
-    """`--against`: another checkout's conv_stack.cu (`_parent_stack_launch`
-    with the weights its source reads) against this checkout's
+    """`--against`: another checkout's conv_stack.cu (behind this
+    checkout's wrapper, so it takes this checkout's table and packed
+    weights) against this checkout's
     `fused_conv_stack` on the davo-fast pose prefix at B=64 and 256, bf16
     and float32: both held to the plain version (float32 within 1e-5 of
     the largest; bf16 a mean gap at most half the plain version's
@@ -889,20 +785,22 @@ def _compare_conv_stack_against(torch, lib, other_csrc):
     from davo_tpu_torch.bench.sol import conv_stack_sol
     from davo_tpu_torch.kernels import conv_stack, rowconv
 
-    layouts = _stack_weight_layouts(Path(other_csrc) / "conv_stack.cu")
-    lib.davo_conv_stack.argtypes = conv_stack.SIGNATURES["davo_conv_stack"]
-    lib.davo_conv_stack.restype = ctypes.c_int
+    for name, argtypes in conv_stack.SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    lib.davo_cuda_error_string.argtypes, lib.davo_cuda_error_string.restype = [ctypes.c_int], ctypes.c_char_p
     ws, bs, strides, relus, mods, prefix_input, shapes, _ = _pose_prefix(torch)
     with torch.inference_mode():
         for B in (64, 256):
             for mode in ("bfloat16", "float32"):
                 x = prefix_input(B, mode)
-                fns = {"other": lambda: _parent_stack_launch(torch, lib, x, ws, bs, strides, relus, mode, layouts),
-                       "this": lambda: conv_stack.fused_conv_stack(x, ws, bs, strides, relus, 8, mode)}
+                def this():
+                    return conv_stack.fused_conv_stack(x, ws, bs, strides, relus, 8, mode)
+
+                fns = {"other": _with_library(conv_stack, lib, this), "this": this}
                 want = conv_stack.fused_conv_stack_plain(x, ws, bs, strides, relus, 8, mode)
                 errs = {name: float((fn() - want).abs().max() / want.abs().max()) for name, fn in fns.items()}
-                row = {"phase": "conv_stack_against", "other": str(other_csrc), "other_weights": layouts[mode],
-                       "batch": B, "mode": mode, "max_rel_err": errs,
+                row = {"phase": "conv_stack_against", "other": str(other_csrc), "batch": B, "mode": mode, "max_rel_err": errs,
                        "bitwise_equal": bool(torch.equal(fns["other"](), fns["this"]()))}
                 seq = torch.nn.Sequential(*mods)
                 if mode == "bfloat16":
@@ -1486,13 +1384,14 @@ def _counts(costvol, bandwarp):
 
 def _reset_counts():
     """Every launch count of every kernel module to 0."""
-    from davo_tpu_torch.kernels import bandwarp, conv_stack, costvol, rowconv, rowconv_ad
+    from davo_tpu_torch.kernels import bandwarp, conv_f32, conv_stack, costvol, rowconv, rowconv_ad
 
     costvol.launches = costvol.backward_launches = 0
     bandwarp.launches = bandwarp.backward_launches = 0
     rowconv.reset_counts()
     rowconv_ad.reset_counts()
     conv_stack.reset_counts()
+    conv_f32.reset_counts()
 
 
 # ---------------------------------------------------------------- fused serving kernels
@@ -1507,6 +1406,9 @@ def _reset_counts():
 # noise). The mean, not the max: over millions of elements a single flip
 # already makes the max one ulp, as large as the mode's own max gap.
 ROWCONV_F32_TOL = 1e-5
+# The float32 yardstick of phases 3d-3f: the unfused modules' convolutions
+# on cuDNN in float32 (`_in_float32`).
+F32LIB = "cuDNN float32 ConvBlocks, TF32 off (the unfused route before kernels/conv_f32.py)"
 ROWCONV_BF16_SHARE = 1e-3
 ROWCONV_GAP_RATIO = 0.5
 BF16_FLOPS = 989e12        # H100 SXM bf16 tensor-core rate, dense
@@ -1526,16 +1428,23 @@ def _conv_params(mods):
 
 def _in_float32(mod):
     """A copy of `mod` (the port's unfused ConvBlocks, or a FlowEstimator)
-    that computes in float32: the same parameters, every compute dtype
-    float32 (cuDNN float32; TF32 off under `exact_f32`)."""
+    that computes in float32 on cuDNN, the yardstick of phases 3d-3f: the
+    same parameters, every compute dtype float32 and every `Conv` on
+    PyTorch's own convolution (`Conv._torch_conv`; cuDNN float32, TF32
+    off under `exact_f32`), where the model's float32 `Conv` runs the
+    port's split-TF32 kernels."""
     import copy
 
     import torch
+
+    from davo_tpu_torch.models.common import Conv
 
     mod = copy.deepcopy(mod)
     for m in mod.modules():
         if isinstance(getattr(m, "dtype", None), torch.dtype):
             m.dtype = torch.float32
+        if isinstance(m, Conv):
+            m._conv = m._torch_conv
     return mod
 
 
@@ -1765,7 +1674,6 @@ def check_rowconv(torch, rowconv, N=64):
                     plain_ms=_event_ms(lambda: _unit_plain(torch, rowconv, unit, mode, inputs), 3),
                     bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=unit["flops"],
                 )
-                route = "cuDNN bf16 ConvBlocks" if mode == "bfloat16" else "cuDNN float32 ConvBlocks, TF32 off"
                 if mode == "bfloat16":
                     row["library_ms"] = _graph_ms(unit["library"], reps=5)
                 elif mode == "float32":
@@ -1773,8 +1681,9 @@ def check_rowconv(torch, rowconv, N=64):
                     row["tf32_bound_ms"] = _bound_ms(nbytes, 3 * unit["flops"], TF32_FLOPS)[0]
                     row["library_ms"] = _graph_ms(unit["library32"], reps=5)
                 if mode != "bf16_dot":
-                    row["library_is"] = f"the port's unfused route ({route}" + (
-                        ", cost-volume kernel, ReLU, concatenation)" if unit["kind"] == "level" else ")")
+                    level = ", cost-volume kernel, ReLU, concatenation" if unit["kind"] == "level" else ""
+                    row["library_is"] = (f"the port's unfused route (cuDNN bf16 ConvBlocks{level})"
+                                         if mode == "bfloat16" else F32LIB + level)
             print(json.dumps({"phase": "rowconv", **row}), flush=True)
             if not ok:
                 raise AssertionError(f"{unit['kernel']} {unit['unit']} {mode}: {row}")
@@ -2695,8 +2604,8 @@ def check_conv_stack(torch, card):
                 # The float32 products as 3 TF32 passes (the layer kernel's design).
                 row["tf32_bound_ms"] = _bound_ms(nbytes, 3 * flops, TF32_FLOPS)[0]
             row["library_ms"] = _graph_ms(lambda: seq(x), reps=5)
-            row["library_is"] = "the port's unfused route ({} ConvBlocks enc0..enc4)".format(
-                "cuDNN bf16" if mode == "bfloat16" else "cuDNN float32, TF32 off")
+            row["library_is"] = ("the port's unfused route (cuDNN bf16 ConvBlocks enc0..enc4)" if mode == "bfloat16"
+                                 else F32LIB.replace("ConvBlocks", "ConvBlocks enc0..enc4"))
             print(json.dumps({"phase": "conv_stack", **row, "card": card}), flush=True)
             if not ok:
                 raise AssertionError(f"conv stack {row['unit']} {mode}: {row}")
@@ -3091,8 +3000,179 @@ def _loss_and_grads(torch, model, batch, cfg, device, step):
             {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
 
 
-def train_gpu_against_cpu(torch, phase="train_gpu_vs_cpu", flags=None, chain_backward=None, world_gated=False,
-                          cudnn_witness=False):
+def _f32_step_convs(torch, batch4):
+    """Every float32 `Conv` call of one unfused `davo` train step at
+    128x416 (phase 8's B=4 batch, compute dtype float32) on the card, by
+    shape: {(B, H, W, Cin, Cout, k, stride): [calls in the step, the
+    first call's input, its module's name, its module]}, from forward
+    pre-hooks over the training forward."""
+    from davo_tpu_torch.models import presets
+    from davo_tpu_torch.models.common import Conv
+    from davo_tpu_torch.models.davo import DavoModel
+    from davo_tpu_torch.train import loop
+
+    cfg = presets.with_overrides("davo", compute_dtype="float32")
+    loop._apply_warp_config(cfg, torch.device("cuda"))
+    model = DavoModel(cfg.model, device="cuda", seed=0, dispnet=True)
+    shapes, hooks = {}, []
+
+    def seen(name):
+        def hook(mod, args):
+            x = args[0]
+            key = (*x.shape, *mod.weight.shape[:1], mod.kernel, mod.stride)
+            if key in shapes:
+                shapes[key][0] += 1
+            else:
+                shapes[key] = [1, x.detach().float().contiguous(), name, mod]
+        return hook
+
+    for name, mod in model.named_modules():
+        if isinstance(mod, Conv):
+            hooks.append(mod.register_forward_pre_hook(seen(name)))
+    tb = {k: torch.from_numpy(v).cuda() for k, v in batch4.items()}
+    try:
+        with torch.no_grad():
+            model(tb["target"], tb["sources"], seg=tb["seg"], train=True, source_disp=True)
+    finally:
+        for h in hooks:
+            h.remove()
+    return shapes
+
+
+# A shape the float32 layer kernel refuses (no channel tile of a 31x31
+# kernel fits in shared memory): the plan and the C entry must agree.
+CONV_F32_REFUSED = (2, 16, 16, 16, 16, 31, 1)
+# Each float32 route kernel's library yardstick in phase 8d's rows.
+CONV_F32_LIBRARY = {"fwd": "cudnn_fwd_ms", "gate": "gate_library_ms", "wgrad": "cudnn_wgrad_ms",
+                    "dgrad": "cudnn_dgrad_ms"}
+
+
+def check_conv_f32_layers(torch, card, batch4):
+    """Phase 8d: the float32 conv route (`kernels/conv_f32.py`) at every
+    float32 layer shape of the unfused `davo` train step at 128x416, B=4
+    (`_f32_step_convs`), on the layer's input from that step: the forward
+    and the VJP (dx, dW, db for a random output cotangent) through the
+    registered op against the plain version summed in float64 on the
+    card, each within ROWCONV_F32_TOL of its largest element; the plans
+    (`conv_f32.plans`) accept every shape the kernels then launch, and
+    refuse CONV_F32_REFUSED, which the C entry refuses too and the wrapper
+    raises on. Each shape's device ms by CUDA-graph replay (forward, gate,
+    wgrad, dgrad) beside one cuDNN float32 call (TF32 off; the forward
+    with symmetric k // 2 padding, the backward on pre-formed operands)
+    and the bound (3 TF32 passes at TF32_FLOPS, or bytes at
+    HBM_BYTES_PER_S), and the plain version's ms (CUDA events). Returns
+    the step's sums (each shape times its calls in the step)."""
+    import ctypes
+
+    import torch.nn.functional as F
+
+    from davo_tpu_torch.kernels import conv_f32, rowconv, rowconv_ad
+    from davo_tpu_torch.models.common import conv_same_torch, same_pads
+
+    t_phase = time.perf_counter()
+    shapes = _f32_step_convs(torch, batch4)
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    limits = rowconv_ad.device_limits(torch.device("cuda", torch.cuda.current_device()))
+    scratch = dict.fromkeys(rowconv_ad.KERNELS, 0)
+
+    def rel(got, want):
+        return float((got.double() - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+    rows, sums = [], {}
+    for (B, H, W, cin, cout, k, s), (calls, x, name, mod) in shapes.items():
+        w, b = mod.weight.detach(), mod.bias.detach()
+        plan = conv_f32.plans(B, H, W, cin, cout, k, s, *limits)
+        with torch.no_grad():
+            y = conv_f32.conv_same(x, w, b, s)
+            want_y = conv_same_torch(x.double(), w.double(), b.double(), s)
+        dy = torch.randn(y.shape, device="cuda", generator=gen)
+        xg, wg, bg = (t.clone().requires_grad_() for t in (x, w, b))
+        torch.autograd.backward(conv_f32.conv_same(xg, wg, bg, s), dy)
+        want_dx = rowconv_ad._dgrad_plain(dy.double(), w.double(), x.shape, s)
+        want_dw, want_db = rowconv_ad._wgrad_plain(x.double(), dy.double(), w.shape, s)
+        errs = {"y": rel(y, want_y), "dx": rel(xg.grad, want_dx), "dw": rel(wg.grad, want_dw),
+                "db": rel(bg.grad, want_db)}
+        del want_y, want_dx, want_dw, want_db, xg, wg, bg
+        dz = rowconv_ad._launch_gate(dy, None, None, False, counts=scratch)
+        times = {
+            "fwd_ms": _graph_ms(lambda: conv_f32._forward_cuda(x, w, b, s), reps=5),
+            "gate_ms": _graph_ms(lambda: rowconv_ad._launch_gate(dy, None, None, False, counts=scratch), reps=5),
+            "wgrad_ms": _graph_ms(lambda: rowconv_ad._launch_wgrad(x, dz, w.shape, s, counts=scratch,
+                                                                   variants={}), reps=5),
+            "dgrad_ms": _graph_ms(lambda: rowconv_ad._launch_dgrad(dz, w, x.shape, s, torch.float32,
+                                                                   counts=scratch, variants={}), reps=5),
+        }
+        # One cuDNN float32 call each, and the plain version.
+        (top, bottom), (left, right) = same_pads(H, k, s), same_pads(W, k, s)
+        xn = x.permute(0, 3, 1, 2)
+        wn = w.contiguous(memory_format=torch.channels_last)
+        dz_n = dy.permute(0, 3, 1, 2).contiguous()
+        xp_n = F.pad(xn, (left, right, top, bottom)).contiguous()
+        size = (B, cin, H + top + bottom, W + left + right)
+        times.update(
+            cudnn_fwd_ms=_graph_ms(lambda: F.conv2d(xn, wn, b, stride=s, padding=k // 2), reps=5),
+            cudnn_wgrad_ms=_graph_ms(lambda: torch.nn.grad.conv2d_weight(xp_n, w.shape, dz_n, stride=s), reps=5),
+            cudnn_dgrad_ms=_graph_ms(lambda: torch.nn.grad.conv2d_input(size, w, dz_n, stride=s), reps=5),
+            fwd_plain_ms=_event_ms(lambda: conv_same_torch(x, w, b, s), 3),
+            wgrad_plain_ms=_event_ms(lambda: rowconv_ad._wgrad_plain(x, dy, w.shape, s), 3),
+            dgrad_plain_ms=_event_ms(lambda: rowconv_ad._dgrad_plain(dy, w, x.shape, s), 3),
+        )
+        del xn, wn, dz_n, xp_n, dz
+        flops = 2.0 * y.numel() * cin * k * k
+        io = {"fwd": x.numel() + w.numel() + cout + y.numel(),
+              "wgrad": x.numel() + y.numel() + w.numel() + cout,
+              "dgrad": y.numel() + w.numel() + x.numel()}
+        cop = rowconv_ad.padded_cout(cout)
+        times["gate_plain_ms"] = _event_ms(lambda: F.pad(dy, (0, cop - cout)), 3)
+        # The gate without ReLU or a second cotangent is one PyTorch call.
+        times["gate_library_ms"] = _graph_ms(lambda: F.pad(dy, (0, cop - cout)), reps=5)
+        bounds, bound_by = {"gate_bound_ms": _bound_ms(4.0 * (y.numel() + y.numel() // cout * cop), 0)[0]}, {}
+        for kind, n in io.items():
+            bounds[f"{kind}_bound_ms"], bound_by[f"{kind}_bound_by"] = _bound_ms(4.0 * n, 3 * flops, TF32_FLOPS)
+        row = {"phase": "conv_f32_layer", "module": name, "shape": [B, H, W, cin, cout, k, s],
+               "calls_per_step": calls, "plan": plan, "max_rel_err": errs, **times, **bounds, **bound_by,
+               "flops": flops}
+        print(json.dumps(row), flush=True)
+        if max(errs.values()) > ROWCONV_F32_TOL:
+            raise AssertionError(f"float32 conv route at {row}")
+        rows.append(row)
+        for key, v in {**times, **bounds}.items():
+            sums[key] = sums.get(key, 0.0) + calls * v
+        del x, y, dy
+    # The refused shape: the plan, the C entry and the wrapper agree.
+    B, H, W, cin, cout, k, s = CONV_F32_REFUSED
+    x = torch.randn(B, H, W, cin, device="cuda", generator=gen)
+    w = torch.randn(cout, cin, k, k, device="cuda", generator=gen)
+    b = torch.zeros(cout, device="cuda")
+    out = torch.empty(B, H, W, cout, device="cuda")
+    wp = rowconv._pack_tf32(w, cin)
+    err = rowconv._library().davo_conv_layer_tf32(
+        x.data_ptr(), 0, wp.data_ptr(), b.data_ptr(), out.data_ptr(), 0, B, H, W, cin, H, W, cout, k, s,
+        same_pads(H, k, s)[0], same_pads(W, k, s)[0], 0, 0, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    refusals = {}
+    for what, fn in (("plans", lambda: conv_f32.plans(B, H, W, cin, cout, k, s, *limits)),
+                     ("conv_same", lambda: conv_f32.conv_same(x, w, b, s))):
+        try:
+            fn()
+            refusals[what] = None
+        except ValueError as e:
+            refusals[what] = str(e)
+    summary = {"phase": "conv_f32_step", "card": card, "preset": "davo, 128x416, float32, B=4 (phase 8's batch)",
+               "shapes": len(rows), "calls_per_step": sum(r["calls_per_step"] for r in rows),
+               "worst_rel_err": max(max(r["max_rel_err"].values()) for r in rows),
+               "step_ms": sums, "refused": {"shape": list(CONV_F32_REFUSED), "c_entry_error": err, **refusals},
+               "slower_than_library": {kind: sum(r[f"{kind}_ms"] > r[CONV_F32_LIBRARY[kind]] for r in rows)
+                                       for kind in CONV_F32_LIBRARY},
+               "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps(summary), flush=True)
+    if not err or not all(refusals.values()):
+        raise AssertionError(f"refused float32 layer: the plan, the C entry and the wrapper disagree: {summary}")
+    del shapes
+    torch.cuda.empty_cache()
+    return summary, rows
+
+
+def train_gpu_against_cpu(torch, phase="train_gpu_vs_cpu", flags=None, chain_backward=None, world_gated=False):
     """Phase 9: one train step's loss terms and gradients on the card
     against the port on the CPU: `davo` widths at 64x128 in float32,
     TF32 off, the same seeded parameters and batch, banded warp (4, 16)
@@ -3112,12 +3192,11 @@ def train_gpu_against_cpu(torch, phase="train_gpu_vs_cpu", flags=None, chain_bac
     term and worst gradient leaf no further from float64 than twice the
     CPU float32's, or TRAIN_LOSS_TOL / TRAIN_GRAD_TOL, when `world_gated`
     is true; false (phase 13's calls) prints the world batch against the
-    CPU only. With `cudnn_witness` the card's step runs again with cuDNN
-    off (its convolutions on PyTorch's own GEMM route, the hand-written
-    kernels as before) and that run is held to the limits, the card as
-    run printed beside it: the unfused step's cuDNN float32 convolutions
-    miss them (ROADMAP Queue 3), so this keeps a fault of #1-#4 on the
-    world batch in view."""
+    CPU only. The card is gated as run: its float32 convolutions run on
+    the port's split-TF32 kernels (`kernels/conv_f32.py`), and each
+    card step must launch them, forward and backward, and run no float32
+    `F.conv2d` on the card (`_library_convs`). Returns the float32 conv
+    route's launches of the card's steps."""
     import dataclasses
 
     import numpy as np
@@ -3127,7 +3206,7 @@ def train_gpu_against_cpu(torch, phase="train_gpu_vs_cpu", flags=None, chain_bac
     from davo_tpu_torch.models import presets
     from davo_tpu_torch.models.davo import DavoModel
 
-    from davo_tpu_torch.kernels import rowconv_ad
+    from davo_tpu_torch.kernels import conv_f32, rowconv_ad
 
     cfg = presets.with_overrides("davo", img_height=64, img_width=128, compute_dtype="float32", **(flags or {}))
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
@@ -3148,18 +3227,25 @@ def train_gpu_against_cpu(torch, phase="train_gpu_vs_cpu", flags=None, chain_bac
     def rel(a, b):
         return {n: float((a[n].double() - b[n]).abs().max()) / max(float(b[n].abs().max()), 1e-30) for n in b}
 
+    route_launches = dict.fromkeys(conv_f32.KERNELS, 0)
     for name, batch in (("noise", noise_batch), ("world", world_batch)):
         want_m, want_g = _loss_and_grads(torch, cpu, batch, cfg, "cpu", step)
         rowconv_ad.reset_counts()
-        got_m, got_g = _loss_and_grads(torch, gpu, batch, cfg, "cuda", step)
+        conv_f32.reset_counts()
+        with _library_convs(torch) as library:
+            got_m, got_g = _loss_and_grads(torch, gpu, batch, cfg, "cuda", step)
         backward_launches = sum(rowconv_ad.backward_launches.values())
+        f32_counts = _conv_f32_counts(conv_f32)
+        for kernel, n in f32_counts["device_launches"].items():
+            route_launches[kernel] += n
+        _check_conv_f32_route(f"{phase} ({name})", f32_counts, library)
         loss_err = {k: abs(got_m[k] - want_m[k]) / abs(want_m[k]) for k in want_m}
         grad_err = rel(got_g, want_g)
         worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:5]
         row = {
             "phase": phase, "batch": name, "gated_against": "cpu", "flags": flags or {},
             "preset": "davo widths, 64x128, float32, B=2", "loss_terms": want_m,
-            "rowconv_ad_backward_launches": backward_launches,
+            "rowconv_ad_backward_launches": backward_launches, "conv_f32": f32_counts,
             "loss_rel_err": loss_err, "grad_leaves": len(grad_err), "worst_grad_rel_err": worst,
             "tf32": [torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32],
         }
@@ -3180,10 +3266,6 @@ def train_gpu_against_cpu(torch, phase="train_gpu_vs_cpu", flags=None, chain_bac
                 exact_m, exact_g = _loss_and_grads(torch, cpu64, batch64, cfg64, "cpu", step)
             runs = {"card": (got_m, got_g), "cpu": (want_m, want_g)}
             gated = "card"
-            if cudnn_witness:
-                with torch.backends.cudnn.flags(enabled=False):
-                    runs["card, cudnn off"] = _loss_and_grads(torch, gpu, batch, cfg, "cuda", step)
-                gated = "card, cudnn off"
             loss64 = {who: max(abs(m[k] - exact_m[k]) / abs(exact_m[k]) for k in exact_m)
                       for who, (m, _) in runs.items()}
             grad64 = {who: max(rel(g, exact_g).items(), key=lambda kv: kv[1]) for who, (_, g) in runs.items()}
@@ -3199,6 +3281,44 @@ def train_gpu_against_cpu(torch, phase="train_gpu_vs_cpu", flags=None, chain_bac
                                      f"grads {grad64}, limits {limits}")
         if (bool(flags) if chain_backward is None else chain_backward) != (backward_launches > 0):
             raise AssertionError(f"{phase}: {backward_launches} training-chain backward launches on the card")
+    return route_launches
+
+
+@contextlib.contextmanager
+def _library_convs(torch):
+    """Counts `torch.nn.functional.conv2d` calls while open, by device
+    type and dtype ("cuda float32", ...): the port's convolutions on
+    PyTorch's own route (cuDNN on the card). Its backward runs only
+    after such a forward, so no float32 call on the card means no cuDNN
+    float32 convolution there either."""
+    import torch.nn.functional as F
+
+    real = F.conv2d
+    counts: dict[str, int] = {}
+
+    def counted(x, *args, **kwargs):
+        key = f"{x.device.type} {str(x.dtype).split('.')[-1]}"
+        counts[key] = counts.get(key, 0) + 1
+        return real(x, *args, **kwargs)
+
+    F.conv2d = counted
+    try:
+        yield counts
+    finally:
+        F.conv2d = real
+
+
+def _conv_f32_counts(conv_f32) -> dict:
+    return {"launches": dict(conv_f32.launches), "device_launches": dict(conv_f32.device_launches),
+            "variant_launches": dict(conv_f32.variant_launches)}
+
+
+def _check_conv_f32_route(what, counts, library):
+    """A float32 training run on the card: the float32 conv route
+    launched every kernel, forward and backward, and no float32
+    `F.conv2d` ran on the card."""
+    if not all(counts["device_launches"].values()) or library.get("cuda float32", 0):
+        raise AssertionError(f"{what}: float32 conv route {counts}, F.conv2d calls {library}")
 
 
 def _device_batch(torch, batch, reps):
@@ -3618,10 +3738,14 @@ def _resize_fallbacks():
 def _card_and_cpu(torch, cfg, B, seed, with_k=False):
     """Poses (and pose_geo) of the same seeded model on the card
     and on the CPU, on one batch of the synthetic world's frames at cfg's
-    size (with its camera K when `with_k`)."""
+    size (with its camera K when `with_k`). With a geometric head, also
+    where its gap arises (`geo_gap`): the GN solve's inputs (the finest
+    flow level, the depth) card against CPU, and the solve alone on the
+    card against the CPU on the CPU's own inputs."""
     import numpy as np
 
     from davo_tpu_torch.data.synthetic import SyntheticSequence
+    from davo_tpu_torch.models import davo
     from davo_tpu_torch.models.davo import DavoModel
 
     world = SyntheticSequence(n_frames=B + 1, height=cfg.img_height, width=cfg.img_width, seed=seed)
@@ -3631,14 +3755,36 @@ def _card_and_cpu(torch, cfg, B, seed, with_k=False):
     kw = {"K": torch.from_numpy(np.asarray(world.K, np.float32))} if with_k else {}
     cpu = DavoModel(cfg, device="cpu", seed=seed).eval()
     gpu = DavoModel(cfg, device="cuda", seed=seed).eval()
-    with torch.inference_mode():
-        want = cpu(x, y, seg=s, **kw)
-        got = gpu(x.cuda(), y.cuda(), seg=s.cuda(), **{k: v.cuda() for k, v in kw.items()})
+    real, calls = davo.pose_from_flow_pyramid, []
+
+    def recorded(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    davo.pose_from_flow_pyramid = recorded
+    try:
+        with torch.inference_mode():
+            want = cpu(x, y, seg=s, **kw)
+            got = gpu(x.cuda(), y.cuda(), seg=s.cuda(), **{k: v.cuda() for k, v in kw.items()})
+    finally:
+        davo.pose_from_flow_pyramid = real
     errs = {}
+
+    def rel(a, b):
+        return float((a.cpu().double() - b.double()).abs().max()) / max(float(b.abs().max()), 1e-30)
+
     for key in ("poses", "pose_geo"):
         if key in want:
             scale = float(want[key].abs().max())
-            errs[key] = {"max_rel_err": float((got[key].cpu() - want[key]).abs().max()) / scale, "largest": scale}
+            errs[key] = {"max_rel_err": rel(got[key], want[key]), "largest": scale}
+    if calls:
+        (cpu_args, kwargs), (card_args, _) = calls
+        with torch.inference_mode():
+            solve_on_card = real(*(a.cuda() if torch.is_tensor(a) else a for a in cpu_args), **kwargs)
+            solve_on_cpu = real(*cpu_args, **kwargs)
+        errs["geo_gap"] = {"flow": rel(card_args[0], cpu_args[0]), "depth": rel(card_args[1], cpu_args[1]),
+                           "solve_alone_card_vs_cpu": rel(solve_on_card, solve_on_cpu),
+                           "pose_geo": errs["pose_geo"]["max_rel_err"]}
     return errs
 
 
@@ -3682,7 +3828,8 @@ def options_path(torch, card, costvol, bandwarp, frames, seg, batch4):
       host syncs per forward against the conv head at B=64;
     - `davo-fast` with s2d_first_conv at B=64: poses against the plain
       first conv (float32, TF32 off, 1e-4 of the largest); the first pose
-      conv alone, s2d against plain cuDNN, bf16 and float32;
+      conv alone, s2d against plain cuDNN in bf16, and in float32 (where
+      both run the split-TF32 layer kernel on the SAME stride-2 form);
     - scan-chunked serving: `cli infer --scan-chunks 4` against 1 on the
       CLI's world, and the main path's 257-frame world in 4 requests of
       64 through one scan call against 4 per-call requests (1e-6 of the
@@ -3801,7 +3948,7 @@ def options_path(torch, card, costvol, bandwarp, frames, seg, batch4):
     print(json.dumps({"phase": "options_geo_gpu_vs_cpu", "preset": "davo widths, 64x128, float32, geo_hybrid",
                       "errors": geo_errs, "tf32": [torch.backends.cuda.matmul.allow_tf32,
                                                    torch.backends.cudnn.allow_tf32]}), flush=True)
-    if any(not (e["largest"] > 0 and e["max_rel_err"] <= PORT_TOL) for e in geo_errs.values()):
+    if any(not (e["largest"] > 0 and e["max_rel_err"] <= PORT_TOL) for k, e in geo_errs.items() if k != "geo_gap"):
         raise AssertionError(f"geo_hybrid card vs CPU: {geo_errs}")
     train_gpu_against_cpu(torch, "options_geo_train_gpu_vs_cpu", {"pose_head": "geo_hybrid"}, chain_backward=False)
     train_gpu_against_cpu(torch, "options_res_train_gpu_vs_cpu", {"disp_encoder": "resnet"}, chain_backward=False)
@@ -3868,8 +4015,9 @@ def options_path(torch, card, costvol, bandwarp, frames, seg, batch4):
             block = lecun_init_(ConvBlock(9, 16, 7, 2, dtype, s2d=flag), torch.Generator().manual_seed(0))
             block = block.cuda()
             with torch.inference_mode():
-                conv_ms[f"{str(dtype).split('.')[-1]} {'s2d' if flag else 'plain cuDNN'}"] = _graph_ms(
-                    lambda b=block: b(pair))
+                route = ("s2d" if flag else "plain cuDNN") if dtype == torch.bfloat16 else (
+                    "s2d flag, split-TF32 kernel" if flag else "split-TF32 kernel")
+                conv_ms[f"{str(dtype).split('.')[-1]} {route}"] = _graph_ms(lambda b=block: b(pair))
     print(json.dumps({"phase": "options_s2d", "preset": f"davo-fast, float32, B={batch}",
                       "max_rel_err_vs_plain": s2d_err, "costvol_launches": s2d_launches,
                       "first_pose_conv_device_ms": conv_ms, "shape": list(pair.shape), "card": card}), flush=True)
@@ -4326,21 +4474,22 @@ def data_path(torch, card, costvol, bandwarp, synthetic_prefetch):
 DIST_GROUPS = (("nccl", 1), ("gloo", 2), ("gloo", 4))
 DIST_EP_TOL = 1e-6       # the expert-parallel weight map against region_weight_map, absolute
 DIST_TIMEOUT_S = 420     # a group's deadline (launch_local) and its collectives'
-DIST_TRAIN_CASES = ("dp", "dp_cudnn_off", "dp_fused")
+DIST_TRAIN_CASES = ("dp", "dp_fused")
 DIST_KERNELS = ("cost_volume", "cost_volume_backward", "banded_warp", "banded_warp_backward",
                 "flow_level_fused_ad_backward", "conv_chain_strided_ad_backward")
 
 
-def _dist_train_case(torch, rank, mesh, batch, flags, costvol, bandwarp, timed=True):
+def _dist_train_case(torch, rank, mesh, batch, flags, costvol, bandwarp):
     """One rank's DP step (`davo`, 128x416, float32, TF32 off, banded (4, 16),
     the depth gate half open) on its rows of the global B=4 `batch`, with
     the model `flags`; rank 0 first runs the single-process step on the
-    whole batch from the same seeded state. `timed`: 3 + 10 more DP steps
+    whole batch from the same seeded state; then 3 + 10 more DP steps
     timed by CUDA events."""
     import dataclasses
 
     from davo_tpu_torch.dist.mesh import shard_batch
     from davo_tpu_torch.dist.train import make_sharded_train_step, shard_state
+    from davo_tpu_torch.kernels import conv_f32
     from davo_tpu_torch.models import presets
     from davo_tpu_torch.train import loop
 
@@ -4361,9 +4510,11 @@ def _dist_train_case(torch, rank, mesh, batch, flags, costvol, bandwarp, timed=T
     step = make_sharded_train_step(cfg, mesh, "cuda:0")
     local = shard_batch(batch, mesh)
     _reset_counts()
-    state, metrics = step(state, local)
-    torch.cuda.synchronize()
+    with _library_convs(torch) as library:
+        state, metrics = step(state, local)
+        torch.cuda.synchronize()
     out["launches"] = _nonzero(_train_counts(costvol, bandwarp))
+    out["conv_f32"], out["library_convs"] = _conv_f32_counts(conv_f32), library
     out["metrics"] = {k: float(v) for k, v in metrics.items()}
     if rank == 0:
         grads = {n: p.grad for n, p in state.model.named_parameters()}
@@ -4372,8 +4523,6 @@ def _dist_train_case(torch, rank, mesh, batch, flags, costvol, bandwarp, timed=T
         out["worst_grad_rel_err"] = sorted(grad_err.items(), key=lambda kv: -kv[1])[:3]
         out["bitwise_equal"] = (out["metrics"] == ref_metrics
                                 and all(torch.equal(grads[n], g) for n, g in ref_grads.items()))
-    if not timed:
-        return out
     times = []
     for i in range(13):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -4502,11 +4651,6 @@ def dist_rank(rank, world_size, init_url, *, backend, batch, frames_path, seg_pa
     undo = _refuse_plains(_train_plains(costvol, bandwarp))
     try:
         report["dp"] = _dist_train_case(torch, rank, mesh, batch, {}, costvol, bandwarp)
-        # The witness for the DP step's distance from the single-process
-        # step: both again with PyTorch's own convolutions in place of
-        # cuDNN's, whose algorithms may differ between B=4 and a rank's rows.
-        with torch.backends.cudnn.flags(enabled=False):
-            report["dp_cudnn_off"] = _dist_train_case(torch, rank, mesh, batch, {}, costvol, bandwarp, timed=False)
         if fused:
             report["dp_fused"] = _dist_train_case(torch, rank, mesh, batch, FUSED_TRAIN_FLAGS, costvol, bandwarp)
         report["serving"], model = _dist_serving_case(torch, rank, mesh, frames, seg, costvol)
@@ -4538,6 +4682,13 @@ def _dist_check(runs):
                 missing = [k for k in need if not launches.get(k)]
                 if missing:
                     failures.append(f"{group} rank {r['rank']} {case}: no launches of {missing}: {launches}")
+                try:
+                    _check_conv_f32_route(f"{group} rank {r['rank']} {case}", r[case]["conv_f32"],
+                                          r[case]["library_convs"])
+                except AssertionError as e:
+                    failures.append(str(e))
+                for k, v in r[case]["conv_f32"]["device_launches"].items():
+                    totals[k] = totals.get(k, 0) + v
                 if r[case]["metrics"] != head[case]["metrics"]:
                     failures.append(f"{group} {case}: metrics differ between ranks")
                 for k in DIST_KERNELS:
@@ -4573,8 +4724,9 @@ def dist_path(torch, card, batch4, frames, seg, ba_window):
     training path at 2). Per group: the DP step on phase 9's kind of noise
     batch at 128x416 (global B=4) against the single-process step (phase
     9's TRAIN_LOSS_TOL / TRAIN_GRAD_TOL; whether they are bitwise equal
-    recorded), and both again with cuDNN off, each rank's kernel
-    launches, sharded serving and streaming of the main path's 257-frame
+    recorded), as run: the float32 convolutions on the port's split-TF32
+    kernels, each rank's step launching them and no float32 `F.conv2d`
+    on the card; each rank's kernel launches, sharded serving and streaming of the main path's 257-frame
     world against the runner (1e-4 of the largest translation), sharded BA on phase 12's window against
     ba_refine (1e-4 of the largest translation), the expert-parallel
     weight map (1e-6), TF32 off in every rank, the ops that went through
@@ -4631,11 +4783,11 @@ def dist_path(torch, card, batch4, frames, seg, ba_window):
 # ------------------------------------------------- phase 16: parallelism and export
 
 # Phase 16's gates. TP and PP hold the same function as the single
-# process in another partition of the work: with cuDNN off (PyTorch's own
-# per-sample GEMM convolutions), the poses within 1e-5 of the largest,
-# the loss within 1e-5 relative, every gradient within 1e-5 of the
-# largest gradient element of any leaf; as run (cuDNN picks other
-# algorithms for other shapes) printed. The unfused TP step's gradients
+# process in another partition of the work, as run (the float32
+# convolutions on the port's split-TF32 kernels, whose per-element sums
+# do not depend on the output channels a rank holds): the poses within
+# 1e-5 of the largest, the loss within 1e-5 relative, every gradient
+# within 1e-5 of the largest gradient element of any leaf. The unfused TP step's gradients
 # instead: no further from the same program in float64 (CPU) than twice
 # the replicated run's distance (phase 9's criterion), as its half-width
 # layers run other GEMMs, whose other order of the pose encoder's sums
@@ -4669,16 +4821,19 @@ def _worst(errs: dict, k: int = 3) -> list:
 
 def _tp_case(torch, mesh, batch, flags, costvol, bandwarp):
     """One rank's tensor-parallel `davo` (128x416, float32) against the
-    replicated model from the same seed, with cuDNN off and as run: the
-    serving poses, `total_loss` of the training forward on `batch` and
-    every gradient (a sharded one's local slice against the same slice of
-    the replicated gradient), every plain version refused on the card.
-    Launches, host copies and differentiable collective calls per TP step
-    (forward and backward). Unfused, both gradients also against the same
-    program in float64 on the CPU (`_float64_program`), printed."""
+    replicated model from the same seed, as run (the float32 convolutions
+    on the port's split-TF32 kernels): the serving poses, `total_loss` of
+    the training forward on `batch` and every gradient (a sharded one's
+    local slice against the same slice of the replicated gradient), every
+    plain version refused on the card. Launches (the float32 conv route's
+    too), float32 `F.conv2d` calls on the card, host copies and
+    differentiable collective calls per TP step (forward and backward).
+    Unfused, both gradients also against the same program in float64 on
+    the CPU (`_float64_program`), printed."""
     from torch.distributed.tensor import DTensor
 
     from davo_tpu_torch.dist import collectives
+    from davo_tpu_torch.kernels import conv_f32
     from davo_tpu_torch.dist.sharding_rules import match_partition_rules, shard_params_tp
     from davo_tpu_torch.models import presets
     from davo_tpu_torch.models.davo import DavoModel
@@ -4720,36 +4875,36 @@ def _tp_case(torch, mesh, batch, flags, costvol, bandwarp):
         for n in sharded:
             c = exact[n].shape[0] // mesh.size(mesh.mesh_dim_names.index("model"))
             exact[n] = exact[n].narrow(0, rank * c, c)
-    for variant, cudnn in (("cudnn_off", False), ("as_run", True)):
-        undo = _refuse_plains(_train_plains(costvol, bandwarp))
-        try:
-            with torch.backends.cudnn.flags(enabled=cudnn):
-                want_poses, want_loss, want = run(ref)
-                _reset_counts()
-                collectives.reset_host_copies()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                poses, loss, grads = run(tp)
-                torch.cuda.synchronize()
-                step_s = time.perf_counter() - t0
-        finally:
-            undo()
-        counts = _nonzero(_train_counts(costvol, bandwarp))
-        for n in sharded:  # this rank's slice of the replicated gradient
-            c = grads[n].shape[0]
-            want[n] = want[n].narrow(0, rank * c, c)
-        errs = _leaf_errors(torch, grads, want)
-        report[variant] = {
-            "pose_rel_err": float((poses - want_poses).abs().max()) / float(want_poses.abs().max()),
-            "loss_rel_err": abs(loss - want_loss) / abs(want_loss), "worst_grad_rel_err": _worst(errs),
-            "worst_grad_err_of_largest_leaf": _of_largest(grads, want),
-            "worst_leaf_largest": {n: float(want[n].abs().max()) for n, _ in _worst(errs)},
-            "launches": counts, "host_copies": {k: v for k, v in collectives.host_copies.items() if v},
-            "collective_calls": {k: v for k, v in collectives.tp_calls.items() if v}, "tp_step_s": step_s,
-        }
-        if exact is not None:
-            report[variant]["against_float64"] = {"tp": _worst(_leaf_errors(torch, grads, exact)),
-                                                  "replicated": _worst(_leaf_errors(torch, want, exact))}
+    undo = _refuse_plains(_train_plains(costvol, bandwarp))
+    try:
+        want_poses, want_loss, want = run(ref)
+        _reset_counts()
+        collectives.reset_host_copies()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _library_convs(torch) as library:
+            poses, loss, grads = run(tp)
+            torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    finally:
+        undo()
+    counts = _nonzero(_train_counts(costvol, bandwarp))
+    for n in sharded:  # this rank's slice of the replicated gradient
+        c = grads[n].shape[0]
+        want[n] = want[n].narrow(0, rank * c, c)
+    errs = _leaf_errors(torch, grads, want)
+    report["as_run"] = {
+        "pose_rel_err": float((poses - want_poses).abs().max()) / float(want_poses.abs().max()),
+        "loss_rel_err": abs(loss - want_loss) / abs(want_loss), "worst_grad_rel_err": _worst(errs),
+        "worst_grad_err_of_largest_leaf": _of_largest(grads, want),
+        "worst_leaf_largest": {n: float(want[n].abs().max()) for n, _ in _worst(errs)},
+        "launches": counts, "conv_f32": _conv_f32_counts(conv_f32), "library_convs": library,
+        "host_copies": {k: v for k, v in collectives.host_copies.items() if v},
+        "collective_calls": {k: v for k, v in collectives.tp_calls.items() if v}, "tp_step_s": step_s,
+    }
+    if exact is not None:
+        report["as_run"]["against_float64"] = {"tp": _worst(_leaf_errors(torch, grads, exact)),
+                                               "replicated": _worst(_leaf_errors(torch, want, exact))}
     return report
 
 
@@ -4778,8 +4933,10 @@ def pp_rank(rank, world_size, init_url, *, frames_path, seg_path, K):
     sends no CUDA tensors and NCCL refuses two ranks on one card): `davo`
     at 128x416, float32, B=8 pairs of the main path's world in M=4
     microbatches; the pose function, the 2-stage and the 3-stage training
-    against the single process, with cuDNN off and as run; launches per
-    pipeline call, every plain version refused."""
+    against the single process, as run (the float32 convolutions on the
+    port's split-TF32 kernels); launches per pipeline call (the float32
+    conv route's too) and float32 `F.conv2d` calls on the card, every
+    plain version refused."""
     import numpy as np
     import torch
 
@@ -4787,7 +4944,7 @@ def pp_rank(rank, world_size, init_url, *, frames_path, seg_path, K):
     from davo_tpu_torch.core import warp
     from davo_tpu_torch.dist import pipeline as pl
     from davo_tpu_torch.dist.bootstrap import initialize
-    from davo_tpu_torch.kernels import bandwarp, costvol
+    from davo_tpu_torch.kernels import bandwarp, conv_f32, costvol
     from davo_tpu_torch.models import presets
     from davo_tpu_torch.models.davo import DavoModel
     from davo_tpu_torch.train.losses import photometric_loss, pose_vec_l2
@@ -4824,41 +4981,40 @@ def pp_rank(rank, world_size, init_url, *, frames_path, seg_path, K):
     def counted(fn):
         _reset_counts()
         t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, _nonzero(_train_counts(costvol, bandwarp)), time.perf_counter() - t0
+        with _library_convs(torch) as library:
+            out = fn()
+            torch.cuda.synchronize()
+        counts = {**_nonzero(_train_counts(costvol, bandwarp)), **_nonzero(conv_f32.device_launches),
+                  **{f"F.conv2d {k}": v for k, v in library.items()}}
+        return out, counts, time.perf_counter() - t0
 
     report = {"rank": rank, "backend": torch.distributed.get_backend(), "stages_on_this_rank": "all",
               "batch": N, "microbatches": M}
     undo = _refuse_plains(_train_plains(costvol, bandwarp))
     try:
-        for variant, cudnn in (("cudnn_off", False), ("as_run", True)):
-            with torch.backends.cudnn.flags(enabled=cudnn):
-                with torch.no_grad():
-                    want_poses = model(tgt, src[:, None], seg=sg)["poses"][:, 0]
-                poses, pose_counts, pose_s = counted(lambda: pose_fn(mbs))
-                loss2_want, grads2_want = single(False)
-                (loss2, grads2), counts2, s2 = counted(lambda: grad2(mbs, gt.reshape(M, -1, 6)))
-                grads2 = {n: g.clone() for n, g in grads2.items()}
-                loss3_want, grads3_want = single(True)
-                (loss3, grads3), counts3, s3 = counted(lambda: grad3(mbs, Ks.reshape(M, -1, 3, 3),
-                                                                     gt.reshape(M, -1, 6)))
-                grads3 = {n: g.clone() for n, g in grads3.items()}
-            errs2, errs3 = _leaf_errors(torch, grads2, grads2_want), _leaf_errors(torch, grads3, grads3_want)
-            report[variant] = {
-                "pose_rel_err": float((poses.reshape(-1, 6) - want_poses).abs().max())
-                / float(want_poses.abs().max()),
-                "train2": {"loss_rel_err": abs(float(loss2) - loss2_want) / abs(loss2_want),
-                           "worst_grad_err_of_largest_leaf": _of_largest(grads2, grads2_want),
-                           "worst_grad_rel_err": _worst(errs2), "leaves": len(grads2)},
-                "train3": {"loss_rel_err": abs(float(loss3) - loss3_want) / abs(loss3_want),
-                           "worst_grad_err_of_largest_leaf": _of_largest(grads3, grads3_want),
-                           "worst_grad_rel_err": _worst(errs3), "leaves": len(grads3),
-                           "dispnet_grad_max": max(float(g.abs().max()) for n, g in grads3.items()
-                                                   if n.startswith("dispnet."))},
-                "launches_per_call": {"pose_fn": pose_counts, "train2": counts2, "train3": counts3},
-                "seconds_per_call": {"pose_fn": pose_s, "train2": s2, "train3": s3},
-            }
+        with torch.no_grad():
+            want_poses = model(tgt, src[:, None], seg=sg)["poses"][:, 0]
+        poses, pose_counts, pose_s = counted(lambda: pose_fn(mbs))
+        loss2_want, grads2_want = single(False)
+        (loss2, grads2), counts2, s2 = counted(lambda: grad2(mbs, gt.reshape(M, -1, 6)))
+        grads2 = {n: g.clone() for n, g in grads2.items()}
+        loss3_want, grads3_want = single(True)
+        (loss3, grads3), counts3, s3 = counted(lambda: grad3(mbs, Ks.reshape(M, -1, 3, 3), gt.reshape(M, -1, 6)))
+        grads3 = {n: g.clone() for n, g in grads3.items()}
+        errs2, errs3 = _leaf_errors(torch, grads2, grads2_want), _leaf_errors(torch, grads3, grads3_want)
+        report["as_run"] = {
+            "pose_rel_err": float((poses.reshape(-1, 6) - want_poses).abs().max()) / float(want_poses.abs().max()),
+            "train2": {"loss_rel_err": abs(float(loss2) - loss2_want) / abs(loss2_want),
+                       "worst_grad_err_of_largest_leaf": _of_largest(grads2, grads2_want),
+                       "worst_grad_rel_err": _worst(errs2), "leaves": len(grads2)},
+            "train3": {"loss_rel_err": abs(float(loss3) - loss3_want) / abs(loss3_want),
+                       "worst_grad_err_of_largest_leaf": _of_largest(grads3, grads3_want),
+                       "worst_grad_rel_err": _worst(errs3), "leaves": len(grads3),
+                       "dispnet_grad_max": max(float(g.abs().max()) for n, g in grads3.items()
+                                               if n.startswith("dispnet."))},
+            "launches_per_call": {"pose_fn": pose_counts, "train2": counts2, "train3": counts3},
+            "seconds_per_call": {"pose_fn": pose_s, "train2": s2, "train3": s3},
+        }
     finally:
         undo()
     return report
@@ -4921,15 +5077,15 @@ def parallel_export_path(torch, card, batch4, frames, seg):
     the pipelines (one NCCL rank holding every stage, `pp_rank`), with
     `scripts/torch_quickstart_synthetic.sh` on the card beside them, then
     `cli export` loaded back and run (unfused and with the four serving
-    flags). Returns the launches of #1, #1b, #3, #4 and of the fused
-    kernels summed over the phase."""
+    flags). Returns the launches of #1, #1b, #3, #4, of the fused
+    kernels and of the float32 conv route summed over the phase."""
     import os
     import tempfile
 
     import numpy as np
 
     from davo_tpu_torch.dist.bootstrap import launch_local
-    from davo_tpu_torch.kernels import costvol, rowconv
+    from davo_tpu_torch.kernels import conv_f32, costvol, rowconv
 
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
@@ -4979,34 +5135,40 @@ def parallel_export_path(torch, card, batch4, frames, seg):
     failures = []
     for r in tp:
         for case in ("tp", "tp_fused"):
-            off = r[case]["cudnn_off"]
-            if "against_float64" in off:  # unfused: no further from float64 than twice the replicated run
-                tp64, ref64 = (off["against_float64"][k][0][1] for k in ("tp", "replicated"))
+            run = r[case]["as_run"]
+            if "against_float64" in run:  # unfused: no further from float64 than twice the replicated run
+                tp64, ref64 = (run["against_float64"][k][0][1] for k in ("tp", "replicated"))
                 grads_ok = tp64 <= TP_FLOAT64_FACTOR * ref64
             else:
-                grads_ok = off["worst_grad_err_of_largest_leaf"] <= PARALLEL_TOL
-            if off["pose_rel_err"] > PARALLEL_TOL or off["loss_rel_err"] > PARALLEL_TOL or not grads_ok:
-                failures.append(f"TP rank {r['rank']} {case} against the replicated model (cuDNN off): {off}")
+                grads_ok = run["worst_grad_err_of_largest_leaf"] <= PARALLEL_TOL
+            if run["pose_rel_err"] > PARALLEL_TOL or run["loss_rel_err"] > PARALLEL_TOL or not grads_ok:
+                failures.append(f"TP rank {r['rank']} {case} against the replicated model: {run}")
             need = (("banded_warp", "banded_warp_backward", "flow_level_fused_ad_backward",
                      "conv_chain_strided_ad_backward") if case == "tp_fused" else
                     ("cost_volume", "cost_volume_backward", "banded_warp", "banded_warp_backward"))
-            missing = [k for k in need if not off["launches"].get(k)]
-            if missing or not r[case]["sharded_leaves"] or not off["collective_calls"].get("gather_from_model"):
-                failures.append(f"TP rank {r['rank']} {case}: no launches of {missing} or no sharded layer: {off}")
-    off = pp["cudnn_off"]
-    if off["pose_rel_err"] > PARALLEL_TOL:
-        failures.append(f"PP pose function against the single process: {off['pose_rel_err']}")
+            missing = [k for k in need if not run["launches"].get(k)]
+            if missing or not r[case]["sharded_leaves"] or not run["collective_calls"].get("gather_from_model"):
+                failures.append(f"TP rank {r['rank']} {case}: no launches of {missing} or no sharded layer: {run}")
+            try:
+                _check_conv_f32_route(f"TP rank {r['rank']} {case}", run["conv_f32"], run["library_convs"])
+            except AssertionError as e:
+                failures.append(str(e))
+    run = pp["as_run"]
+    if run["pose_rel_err"] > PARALLEL_TOL:
+        failures.append(f"PP pose function against the single process: {run['pose_rel_err']}")
     for name in ("train2", "train3"):
-        if off[name]["loss_rel_err"] > PARALLEL_TOL or off[name]["worst_grad_err_of_largest_leaf"] > PARALLEL_TOL:
-            failures.append(f"PP {name} against the single process (cuDNN off): {off[name]}")
-    if not off["train3"]["dispnet_grad_max"] > 0:
+        if run[name]["loss_rel_err"] > PARALLEL_TOL or run[name]["worst_grad_err_of_largest_leaf"] > PARALLEL_TOL:
+            failures.append(f"PP {name} against the single process: {run[name]}")
+    if not run["train3"]["dispnet_grad_max"] > 0:
         failures.append("PP 3-stage: DispNet got no gradient")
-    calls = off["launches_per_call"]
-    for name, need in (("pose_fn", ("cost_volume",)), ("train2", ("cost_volume", "cost_volume_backward")),
-                       ("train3", ("cost_volume", "cost_volume_backward", "banded_warp", "banded_warp_backward"))):
+    calls = run["launches_per_call"]
+    for name, need in (("pose_fn", ("cost_volume", "conv_layer_tf32")),
+                       ("train2", ("cost_volume", "cost_volume_backward", *conv_f32.KERNELS)),
+                       ("train3", ("cost_volume", "cost_volume_backward", "banded_warp", "banded_warp_backward",
+                                   *conv_f32.KERNELS))):
         missing = [k for k in need if not calls[name].get(k)]
-        if missing:
-            failures.append(f"PP {name}: no launches of {missing}: {calls[name]}")
+        if missing or calls[name].get("F.conv2d cuda float32"):
+            failures.append(f"PP {name}: no launches of {missing} or float32 F.conv2d on the card: {calls[name]}")
     plain, fused = export
     if plain["max_abs_err"] > EXPORT_TOL or plain["launches_per_call"]["cost_volume"] != 2 or not plain["finite"]:
         failures.append(f"export: {plain}")
@@ -5016,9 +5178,9 @@ def parallel_export_path(torch, card, batch4, frames, seg):
     if qs_rc != 0 or not all(artifacts.values()) or poses_written != 32:
         failures.append(f"quickstart rc {qs_rc}, artifacts {artifacts}, {poses_written} poses: {qs_out[-3000:]}")
     totals: dict = {}
-    for counts in ([r[c]["cudnn_off"]["launches"] for r in tp for c in ("tp", "tp_fused")]
-                   + [r[c]["as_run"]["launches"] for r in tp for c in ("tp", "tp_fused")]
-                   + [pp[v]["launches_per_call"][k] for v in ("cudnn_off", "as_run")
+    for counts in ([r[c]["as_run"]["launches"] for r in tp for c in ("tp", "tp_fused")]
+                   + [r[c]["as_run"]["conv_f32"]["device_launches"] for r in tp for c in ("tp", "tp_fused")]
+                   + [{k: v for k, v in pp["as_run"]["launches_per_call"][k].items() if not k.startswith("F.")}
                       for k in ("pose_fn", "train2", "train3")]
                    + [{k: v for k, v in e["launches_per_call"].items() if k != "device_launches"} for e in export]):
         for k, v in counts.items():
@@ -5127,7 +5289,8 @@ def main() -> int:
     estimator_train_counts, _ = train_path(torch, costvol, bandwarp, "estimator_train_path",
                                            {"fuse_estimator_train": True}, steps=2,
                                            per_step=ESTIMATOR_TRAIN_PER_STEP)
-    train_gpu_against_cpu(torch, world_gated=True, cudnn_witness=True)  # cuDNN as run: ROADMAP Queue 3
+    conv_f32_step, conv_f32_rows = check_conv_f32_layers(torch, card, batch4)
+    f32_train_launches = train_gpu_against_cpu(torch, world_gated=True)
     train_gpu_against_cpu(torch, "fused_train_gpu_vs_cpu", FUSED_TRAIN_FLAGS, world_gated=True)
     train_step_time(torch, card, batch4)
     _, fused_step_kernels = train_step_time(torch, card, batch4, "fused_train_step_time", FUSED_TRAIN_FLAGS)
@@ -5285,7 +5448,7 @@ def main() -> int:
             "float32_bound_ms": sum(r["bound_ms"] for r in f32_rows),
             "float32_tf32_bound_ms": sum(r["tf32_bound_ms"] for r in f32_rows),
             "float32_library_ms": sum(r["library_ms"] for r in f32_rows),
-            "float32_library_is": "the port's unfused route in float32 (cuDNN float32, TF32 off)",
+            "float32_library_is": F32LIB,
         })
     # The flow level's input kernel: the work of one fused serving request
     # (its two levels at B=64) in bf16, the path's mode, beside one fused
@@ -5351,7 +5514,7 @@ def main() -> int:
             "library_call_ms": sum(r["library_call_ms"] for r in unit_rows),
             "float32_ms": sum(r["ms"] for r in f32_rows),
             "float32_library_ms": sum(r["library_ms"] for r in f32_rows),
-            "float32_library_is": "the same in float32 (cuDNN float32, TF32 off), device time",
+            "float32_library_is": F32LIB.replace("ConvBlocks", "ConvBlocks' backward") + ", device time",
             "float32_library_call_ms": sum(r["library_call_ms"] for r in f32_rows),
         })
     # The training chains' backward kernels one by one: the work of one
@@ -5396,6 +5559,36 @@ def main() -> int:
             "float32_ms": layer_sum([r for r in bwd_layer_rows if r["mode"] == "float32"
                                      and r["kernel"] != "conv_chain_nhwc_ad"], f"{prefix}_ms"),
             "b64_step_ms": fused_step_kernels[name]["ms"],
+        })
+    # The float32 conv route (not a TPU kernel's port: the reference's
+    # float32 convolutions are XLA's): the work of one unfused davo train
+    # step at 128x416, B=4, summed over its float32 layers (phase 8d);
+    # launches on phase 9's float32 steps (the path reset just before),
+    # beside phases 15 and 16.
+    for name, kernel, kind, source in (
+        ("conv_same_f32", "conv_layer_tf32", "fwd", "rowconv.cu"),
+        ("conv_same_f32_gate", "conv_layer_gate", "gate", "rowconv_bwd.cu"),
+        ("conv_same_f32_wgrad", "conv_layer_wgrad", "wgrad", "rowconv_bwd.cu"),
+        ("conv_same_f32_dgrad", "conv_layer_dgrad", "dgrad", "rowconv_bwd.cu"),
+    ):
+        step = conv_f32_step["step_ms"]
+        errs = {"fwd": ("y",), "gate": ("dx", "dw", "db"), "wgrad": ("dw", "db"), "dgrad": ("dx",)}[kind]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"davo_tpu_torch/csrc/{source}",
+            "wrapper": "davo_tpu_torch/kernels/conv_f32.py (models/common.py Conv in float32)",
+            "replaces": "davo_tpu/models/common.py:53 (lax.conv_general_dilated in float32; XLA, no TPU kernel)",
+            "launches": f32_train_launches[kernel],
+            "launches_by_path": {"train step in float32 (phase 9)": f32_train_launches[kernel],
+                                 "dist (phase 15)": dist_counts.get(kernel, 0),
+                                 "parallel and export (phase 16)": parallel_counts.get(kernel, 0)},
+            "max_abs_err": max(r["max_rel_err"][e] for r in conv_f32_rows for e in errs),
+            "max_err_is": "float32, relative to the largest element, against the float64 plain version",
+            "ms": step[f"{kind}_ms"], "plain_ms": step[f"{kind}_plain_ms"], "bound_ms": step[f"{kind}_bound_ms"],
+            "bound_by": "bytes" if kind == "gate" else bound_by(r[f"{kind}_bound_by"] for r in conv_f32_rows),
+            "library_ms": step[CONV_F32_LIBRARY[kind]],
+            "library_is": "F.pad of dz to padded_cout, one call per layer" if kind == "gate"
+            else "one cuDNN float32 call per layer, TF32 off",
+            "layers_slower_than_library": conv_f32_step["slower_than_library"][kind],
         })
     level_rows = [r for r in bwd_layer_rows if r["layer"] == "flow_level_input_bwd"]
     level_bf16 = [r for r in level_rows if r["mode"] == "bfloat16"]

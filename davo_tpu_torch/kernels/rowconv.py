@@ -25,7 +25,7 @@ Weights are the port's OIHW float32 parameters (`Conv_0.weight`, as
 `convert.py` loads them). Both layer kernels are implicit GEMMs on the
 tensor cores with one K order (`mma_order`) and take the weights in it:
 the bf16 modes' as bf16 (`_pack_mma`), the float32 mode's split into
-TF32 hi and lo planes of float32 (`_pack_tf32`). `_packed` keeps each
+TF32 hi and lo planes of float32 (`_pack_tf32`). `cached_pack` keeps each
 parameter's packing until the parameter changes in place (its
 `_version`) or its storage changes, so an Adam step is seen by the next
 forward and an unchanged parameter is packed once.
@@ -235,12 +235,18 @@ def mma_order(w: torch.Tensor, cin: int | None = None) -> torch.Tensor:
     w = w.detach()
     if mma_chunked(cin):
         cp = -(-cin // 16) * 16
-        w = F.pad(w, (0, 0, 0, 0, 0, cp - cin_w))
+        w = _zero_pad(w, (0, 0, 0, 0, 0, cp - cin_w))
         w = w.reshape(cout, cp // 16, 16, k, k).permute(0, 1, 3, 4, 2).reshape(cout, -1)
     else:
-        w = F.pad(w, (0, 0, 0, 0, 0, cin - cin_w)).permute(0, 2, 3, 1).reshape(cout, -1)
-        w = F.pad(w, (0, -(-w.shape[1] // 16) * 16 - w.shape[1]))
-    return F.pad(w, (0, 0, 0, -(-cout // 8) * 8 - cout)).contiguous()
+        w = _zero_pad(w, (0, 0, 0, 0, 0, cin - cin_w)).permute(0, 2, 3, 1).reshape(cout, -1)
+        w = _zero_pad(w, (0, -(-w.shape[1] // 16) * 16 - w.shape[1]))
+    return _zero_pad(w, (0, 0, 0, -(-cout // 8) * 8 - cout)).contiguous()
+
+
+def _zero_pad(t: torch.Tensor, pads: tuple[int, ...]) -> torch.Tensor:
+    """`F.pad` with zeros, without its copy where every pad is 0 (the
+    weights are packed on the host's clock every step)."""
+    return F.pad(t, pads) if any(pads) else t
 
 
 def _pack_mma(w: torch.Tensor, cin: int | None = None) -> torch.Tensor:
@@ -266,33 +272,36 @@ def _pack_tf32(w: torch.Tensor, cin: int | None = None) -> torch.Tensor:
     return torch.stack([hi, tf32_rna(w - hi)]).contiguous()
 
 
-# Packed weights by parameter: id -> (weak reference to it, {(layout, cin):
+# Packed weights by parameter: id -> (weak reference to it, {key:
 # ((storage pointer, offset, _version), packed)}).
 _PACKED: dict[int, tuple] = {}
 
 
-def _packed(w: torch.Tensor, dot: torch.dtype, cin: int) -> torch.Tensor:
-    """The layer kernel's weights for OIHW `w` (input channels padded to
-    `cin`): `_pack_mma` for bf16 products, else `_pack_tf32`. Kept per
+def cached_pack(w: torch.Tensor, key, pack) -> torch.Tensor:
+    """`pack()`, a packing of weights `w` named by `key`, kept per
     parameter and reused while its storage and `_version` stay the same."""
-    layout = "mma" if dot == torch.bfloat16 else "tf32"
-
-    def pack():
-        return _pack_mma(w, cin) if layout == "mma" else _pack_tf32(w, cin)
-
     if w.is_inference():  # no version counter to watch
         return pack()
     ref, entries = _PACKED.get(id(w), (None, None))
     if ref is None or ref() is not w:
-        for key in [key for key, (r, _) in _PACKED.items() if r() is None]:
-            del _PACKED[key]
+        for stale in [k for k, (r, _) in _PACKED.items() if r() is None]:
+            del _PACKED[stale]
         entries = {}
         _PACKED[id(w)] = (weakref.ref(w), entries)
     stamp = (w.untyped_storage().data_ptr(), w.storage_offset(), w._version)
-    hit = entries.get((layout, cin))
+    hit = entries.get(key)
     if hit is None or hit[0] != stamp:
-        hit = entries[(layout, cin)] = (stamp, pack())
+        hit = entries[key] = (stamp, pack())
     return hit[1]
+
+
+def _packed(w: torch.Tensor, dot: torch.dtype, cin: int) -> torch.Tensor:
+    """The layer kernel's weights for OIHW `w` (input channels padded to
+    `cin`): `_pack_mma` for bf16 products, else `_pack_tf32`, kept by
+    `cached_pack`."""
+    if dot == torch.bfloat16:
+        return cached_pack(w, ("mma", cin), lambda: _pack_mma(w, cin))
+    return cached_pack(w, ("tf32", cin), lambda: _pack_tf32(w, cin))
 
 
 def _launch_layer(x, w, b, out, stride, relu, act, dot):
@@ -354,20 +363,23 @@ def last_level_input_kernel() -> str:
     return "flow_level_input_element_kernel" if code == -2 else f"flow_level_input_kernel<{code}>"
 
 
+def kernel_cin(cin: int) -> int:
+    """The input channels a first layer's kernel reads: a wide input whose
+    channels are not a multiple of 4 gets zero channels up to one (zero
+    weights too: the same sums), so it is staged 4 channels at a time; a
+    narrow one (the images, the flow cue) is read one channel at a time,
+    which costs less than the padded products."""
+    return -(-cin // 4) * 4 if cin % 4 and cin >= 32 else cin
+
+
 def _chain_cuda(name, x, weights, biases, strides, relus, act, dot, keep, last_f32, counts=None):
     """Run the layers on x; returns the outputs of the layers in `keep`.
     Each layer launch counts in `counts[name]` (`device_launches` unless
-    given).
-    Intermediates live in device memory. A wide input whose channels are
-    not a multiple of 4 is zero-padded to one (zero weights too: the same
-    sums), so the first layer reads 4 channels at a time (the tensor-core
-    kernel stages them 8 bytes a copy); a narrow one (the images, the flow
-    cue) is read one channel at a time, which costs less than the padded
-    products."""
+    given). Intermediates live in device memory; the input is zero-padded
+    to `kernel_cin` channels."""
     B, h, w, cin = x.shape
-    if cin % 4 and cin >= 32:
-        cin = -(-cin // 4) * 4
-        x = F.pad(x, (0, cin - x.shape[3]))
+    if kernel_cin(cin) != cin:
+        x = F.pad(x, (0, kernel_cin(cin) - cin))
     layers = list(zip(weights, biases, strides, relus))
     outs = {}
     for i, (wt, b, s, r) in enumerate(layers):

@@ -243,13 +243,8 @@ def _cotangent_args(dy, g, a_out, relu):
             int(bool(relu)))
 
 
-def _count_variant(name: str) -> None:
-    variant_launches[name] = variant_launches.get(name, 0) + 1
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def _count_variant(name: str, variants: dict[str, int]) -> None:
+    variants[name] = variants.get(name, 0) + 1
 
 
 def padded_cout(cout: int) -> int:
@@ -258,13 +253,101 @@ def padded_cout(cout: int) -> int:
     return -(-cout // 8) * 8
 
 
+# Shared memory a block may opt into on an H100 (227 KB), the plans'
+# default cap; on the card the launchers pass the device's own
+# (`device_limits`).
+SMEM_OPTIN = 227 * 1024
+INT_MAX = 2**31 - 1
+
+
+@functools.cache
+def _cuda_limits(index: int) -> tuple[int, int]:
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, getattr(props, "shared_memory_per_block_optin", SMEM_OPTIN)
+
+
+def device_limits(device: torch.device) -> tuple[int, int]:
+    """(SMs, bytes of shared memory a block may opt into) of a CUDA
+    device, the plans' `sms` and `smem_max`; an H100's (132, SMEM_OPTIN),
+    the plans' defaults, for any other device."""
+    if device.type != "cuda":
+        return 132, SMEM_OPTIN
+    return _cuda_limits(torch.cuda.current_device() if device.index is None else device.index)
+
+
+def _refuse_if(refused: bool, kernel: str, B, H, W, cin, cout, k, stride) -> None:
+    if refused:
+        raise ValueError(f"{kernel} takes no layer of input (B, H, W, Cin) = {(B, H, W, cin)}, Cout={cout}, "
+                         f"k={k}, stride={stride}")
+
+
+# The layer kernel's tiles (`mma_plan`, csrc/conv_mma.cuh): 4 warps of
+# 16x8 or 8x16 pixels, or 8 warps of 16x16.
+LAYER_TILES = ((16, 8), (8, 16), (16, 16))
+
+
+def layer_plan(B: int, H: int, W: int, cin: int, cout: int, k: int, stride: int, sms: int = 132,
+               smem_max: int = SMEM_OPTIN, x_bf16: bool = False) -> tuple[int, int, int, int, int]:
+    """The float32 layer kernel's launch (`davo_conv_layer_tf32`: the host
+    checks of `conv_layer_mma` and `mma_plan` with `wide`, split-TF32
+    operands, the halo in hi and lo planes for a float32 input, one plane
+    for a bf16 one) for an input of B x H x W x cin: (tile_h, tile_w, nt,
+    stages, shared memory bytes). The tile: 16x8, or 8x16 where it
+    computes fewer pixels past the map's edge; 16x16 where that computes at
+    most 15 % more, still gives every SM a block and K has 16 taps' chunks
+    or more (chunked order only, Cin >= 16). nt: the widest channel tile
+    for Cout (1, 2, 4 or 8 n-tiles of 8), halving until the shared memory
+    fits `smem_max`, with two staging buffers where K has more than one
+    chunk and they fit. Raises ValueError naming the shape where the
+    launcher returns cudaErrorInvalidValue: an even k, a stride other than
+    1 or 2, no channel tile that fits, a grid past INT_MAX blocks."""
+    ho, wo = -(-H // stride), -(-W // stride)
+    _refuse_if(min(B, H, W, cin, cout, k) <= 0 or k % 2 == 0 or stride not in (1, 2),
+               "conv_layer_tf32", B, H, W, cin, cout, k, stride)
+    flat = not rowconv.mma_chunked(cin)
+
+    def computed(tile):
+        return -(-ho // tile[0]) * tile[0] * -(-wo // tile[1]) * tile[1]
+
+    th, tw = LAYER_TILES[1] if computed(LAYER_TILES[1]) < computed(LAYER_TILES[0]) else LAYER_TILES[0]
+    nchunks, taps = -(-cin // 16), k * k
+    if (not flat and computed(LAYER_TILES[2]) * 100 <= computed((th, tw)) * 115
+            and B * computed(LAYER_TILES[2]) // 256 >= sms and nchunks * taps >= 16):
+        th, tw = LAYER_TILES[2]
+    hh, hw = (th - 1) * stride + k, (tw - 1) * stride + k
+    hws = 2 * -(-hw // 2) if stride == 2 else hw
+    kp = -(-(taps * cin) // 16) * 16
+    a_planes = 1 if x_bf16 else 2
+
+    def smem(n_rows, stages):
+        epi = th * tw * (n_rows + 4) * 4
+        if flat:
+            ops = 2 * n_rows * (kp // 4 + 1) * 16 + kp * 4 + a_planes * hh * hw * cin * 4
+        else:
+            ops = stages * (a_planes * hh * hws * 4 + 2 * n_rows * taps * 4) * 16
+        return max(ops, epi)
+
+    n8 = -(-cout // 8)
+    nt = 1 if n8 <= 1 else 2 if n8 <= 2 else 4 if n8 <= 4 else 8
+    while True:
+        stages = 2 if not flat and nchunks > 1 else 1
+        if smem(nt * 8, stages) > smem_max and stages == 2:
+            stages = 1
+        if smem(nt * 8, stages) <= smem_max:
+            break
+        _refuse_if(nt == 1, "conv_layer_tf32", B, H, W, cin, cout, k, stride)
+        nt //= 2
+    _refuse_if(B * -(-ho // th) * -(-wo // tw) > INT_MAX, "conv_layer_tf32", B, H, W, cin, cout, k, stride)
+    return th, tw, nt, stages, smem(nt * 8, stages)
+
+
 # conv_layer_dgrad's tiles of class pixels, by warps along M: 4 warps of
 # 32 pixels (128), or 2 (64; the other two warps split the channels).
 DGRAD_TILES = {4: ((8, 16), (16, 8), (4, 32)), 2: ((4, 16), (8, 8))}
 
 
 def dgrad_plan(B: int, H: int, W: int, cin: int, cout: int, k: int, stride: int,
-               sms: int) -> tuple[int, int, int, int, int]:
+               sms: int, smem_max: int = SMEM_OPTIN) -> tuple[int, int, int, int, int]:
     """conv_layer_dgrad's launch for a layer input of B x H x W x cin:
     (nt, wm, tile_h, tile_w, splits). A block takes a tile of one parity
     class (at stride 2 ceil(H/2) x ceil(W/2) pixels at most) with 4 warps,
@@ -274,7 +357,10 @@ def dgrad_plan(B: int, H: int, W: int, cin: int, cout: int, k: int, stride: int,
     best 128-pixel one's; the channel slice is the widest (at most 64) that
     pads cin by at most 1/8 more than the narrowest. Where that gives under
     2 blocks per SM (the small maps of DispNet's 256- and 512-channel
-    layers), K (Cout chunks of 8) splits so that it gives about 2."""
+    layers), K (Cout chunks of 8) splits so that it gives about 2. Where
+    the block's shared memory (`dgrad_smem`) would pass `smem_max`, nt
+    halves; a shape no plan fits raises ValueError, as the launcher would
+    refuse it."""
     ny, nx = -(-H // stride), -(-W // stride)
 
     def computed(tile):
@@ -288,9 +374,23 @@ def dgrad_plan(B: int, H: int, W: int, cin: int, cout: int, k: int, stride: int,
     padded = {nt: -(-cin // (nt * per_nt)) * nt * per_nt for nt in nts}
     least = min(padded.values())
     nt = next(nt for nt in nts if 8 * padded[nt] <= 9 * least)
+    # Fewer channels a block where its staging would not fit (large k at stride 1).
+    while nt > 1 and dgrad_smem(k, stride, nt, wm, th, tw) > smem_max:
+        nt //= 2
     blocks = B * stride * stride * -(-ny // th) * -(-nx // tw) * padded[nt] // (nt * per_nt)
+    _refuse_if(dgrad_smem(k, stride, nt, wm, th, tw) > smem_max or blocks > INT_MAX or k % 2 == 0
+               or stride not in (1, 2), "conv_layer_dgrad", B, H, W, cin, cout, k, stride)
     splits = max(1, min(padded_cout(cout) // 8, -(-2 * sms // blocks)))
     return nt, wm, th, tw, splits
+
+
+def dgrad_smem(k: int, stride: int, nt: int, wm: int, tile_h: int, tile_w: int) -> int:
+    """Bytes of shared memory of a conv_layer_dgrad block: two stages of
+    the dz halo and the class's taps of the block's weights, 12 floats a
+    slot (`launch_dgrad`)."""
+    per = -(-k // stride)
+    n_block = nt * 8 * (4 // wm)
+    return 2 * ((tile_h + per - 1) * (tile_w + per - 1) + per * per * n_block) * 12 * 4
 
 
 # conv_layer_wgrad's output tiles: 64 or 128 pixels (4 warps, two 8-pixel
@@ -333,7 +433,7 @@ def wgrad_smem(tile_h: int, tile_w: int, k: int, stride: int, cpb: int, mt: int,
 
 
 def wgrad_plan(B: int, Ho: int, Wo: int, cin: int, cout: int, k: int, stride: int, sms: int,
-               x_stride: int | None = None, x_bytes: int = 2):
+               x_stride: int | None = None, x_bytes: int = 2, smem_max: int = SMEM_OPTIN):
     """conv_layer_wgrad's launch for a layer output of B x Ho x Wo x cout
     and an input of x_bytes-byte elements: (mt, flat, wn, cpb, tpg,
     tile_h, tile_w, chunks, tiles per chunk). A block takes 16 * mt output
@@ -344,7 +444,10 @@ def wgrad_plan(B: int, Ho: int, Wo: int, cin: int, cout: int, k: int, stride: in
     WGRAD_SMEM). wn warps split the column tiles, 18 / mt at most each;
     the other 4 / wn split the pixels: a block with few columns shares its
     k-steps out rather than its columns. The tile computes the fewest
-    pixels past the map's edge (the first of WGRAD_TILES on a tie)."""
+    pixels past the map's edge (the first of WGRAD_TILES on a tie). A
+    launch whose shared memory (the staged input and dz, or the warps'
+    reduction) passes `smem_max`, or whose grid passes the card's limits,
+    raises ValueError, as the launcher would refuse it."""
     th, tw = min(WGRAD_TILES, key=lambda t: -(-Ho // t[0]) * t[0] * -(-Wo // t[1]) * t[1])
     mt, flat = (1 if cout <= 16 else 2), wgrad_flat(cin, cin if x_stride is None else x_stride)
     per_warp = 18 // mt
@@ -360,10 +463,18 @@ def wgrad_plan(B: int, Ho: int, Wo: int, cin: int, cout: int, k: int, stride: in
     wn = next(w for w in (1, 2, 4) if w * per_warp >= n_cols)
     if flat:
         blocks_y = -(-(-(-(k * k * cin) // 8)) // (wn * per_warp))
+        hw = (tw - 1) * stride + k
+        smem = 2 * (-(-(((th - 1) * stride + k) * hw * cin * x_bytes) // 16) * 16 + th * tw * (16 * mt + 8) * 4)
     else:
         blocks_y = -(-(-(-cin // 8)) // cpb) * -(-(k * k) // tpg)
+        smem = wgrad_smem(th, tw, k, stride, cpb, mt, x_bytes)
+    if wn < 4:  # the k-step warps' sums reduced through shared memory
+        smem = max(smem, 4 * (per_warp + 1) * mt * 128 * 4)
+    tiles = B * -(-Ho // th) * -(-Wo // tw)
+    _refuse_if(smem > smem_max or blocks_y > 65535 or tiles > INT_MAX or k % 2 == 0 or stride not in (1, 2),
+               "conv_layer_wgrad", B, (Ho - 1) * stride + 1, (Wo - 1) * stride + 1, cin, cout, k, stride)
     blocks = -(-padded_cout(cout) // (16 * mt)) * blocks_y
-    return (mt, flat, wn, cpb, tpg, th, tw, *wgrad_chunks(B * -(-Ho // th) * -(-Wo // tw), blocks, sms))
+    return (mt, flat, wn, cpb, tpg, th, tw, *wgrad_chunks(tiles, blocks, sms))
 
 
 def wgrad_variant(mt: int, x_bf16: bool, flat: bool) -> str:
@@ -378,9 +489,11 @@ def _pack_dgrad(w, cop):
     return F.pad(w.detach().float().permute(2, 3, 1, 0), (0, cop - cout)).reshape(k * k, cin, cop).contiguous()
 
 
-def _launch_gate(dy, g, a_out, relu):
+def _launch_gate(dy, g, a_out, relu, counts=device_launches):
     """conv_layer_gate: the layer's output cotangent (dy + g) * (a_out > 0),
-    float32 (B, Ho, Wo, padded_cout(Cout)), the padding zero."""
+    float32 (B, Ho, Wo, padded_cout(Cout)), the padding zero. The launch
+    counts in `counts` (`device_launches` unless given), as the other
+    launchers'."""
     B, Ho, Wo, cout = (dy if dy is not None else g).shape
     device = (dy if dy is not None else g).device
     dz = torch.empty((B, Ho, Wo, padded_cout(cout)), dtype=torch.float32, device=device)
@@ -390,21 +503,24 @@ def _launch_gate(dy, g, a_out, relu):
             torch.cuda.current_stream(device).cuda_stream,
         )
     _raise_if(err, "conv layer gate")
-    device_launches["conv_layer_gate"] += 1
+    counts["conv_layer_gate"] += 1
     return dz
 
 
-def _launch_dgrad(dz, w, x_shape, stride, dtype):
+def _launch_dgrad(dz, w, x_shape, stride, dtype, counts=device_launches, variants=variant_launches,
+                  plan=None):
     """conv_layer_dgrad: the input cotangent (x_shape) in `dtype` of the
-    layer with OIHW weights w, used unrounded, from the gate's dz."""
+    layer with OIHW weights w, used unrounded, from the gate's dz; by
+    `plan` (`dgrad_plan` on the device's limits unless given). The packed
+    weights are kept by `rowconv.cached_pack`."""
     cout, cin, k, _ = w.shape
     B, H, W, _ = x_shape
     _, Ho, Wo, cop = dz.shape
     top, _, left, _ = _pads(H, W, k, stride)
-    nt, wm, th, tw, splits = dgrad_plan(B, H, W, cin, cout, k, stride, _sm_count(w.device.index or 0))
+    nt, wm, th, tw, splits = plan or dgrad_plan(B, H, W, cin, cout, k, stride, *device_limits(w.device))
     dx = torch.empty((B, H, W, cin), dtype=dtype, device=w.device)
     partial = torch.empty(splits * dx.numel() if splits > 1 else 0, dtype=torch.float32, device=w.device)
-    wp = _pack_dgrad(w, cop)
+    wp = rowconv.cached_pack(w, ("dgrad", cop), lambda: _pack_dgrad(w, cop))
     with torch.cuda.device(w.device):
         err = _library().davo_conv_dgrad(
             dz.data_ptr(), wp.data_ptr(), dx.data_ptr(), int(dtype == torch.bfloat16),
@@ -412,22 +528,24 @@ def _launch_dgrad(dz, w, x_shape, stride, dtype):
             nt, wm, th, tw, torch.cuda.current_stream(w.device).cuda_stream,
         )
     _raise_if(err, "conv layer dgrad")
-    device_launches["conv_layer_dgrad"] += 1
-    _count_variant(f"conv_dgrad_mma_kernel<{nt}>")
+    counts["conv_layer_dgrad"] += 1
+    _count_variant(f"conv_dgrad_mma_kernel<{nt}>", variants)
     return dx
 
 
-def _launch_wgrad(x, dz, w_shape, stride):
+def _launch_wgrad(x, dz, w_shape, stride, counts=device_launches, variants=variant_launches, plan=None):
     """conv_layer_wgrad: (dW OIHW, db) float32 of a layer on input x,
-    whose first Cin channels are the layer's input, from the gate's dz."""
+    whose first Cin channels are the layer's input, from the gate's dz;
+    by `plan` (`wgrad_plan` on the device's limits unless given)."""
     cout, cin, k, _ = w_shape
     B, H, W, _ = x.shape
     _, Ho, Wo, cop = dz.shape
     top, _, left, _ = _pads(H, W, k, stride)
     K = k * k * cin
     x_bf16 = rowconv._bf16_flag(x, "layer input")
-    mt, flat, wn, cpb, tpg, th, tw, chunks, per = wgrad_plan(
-        B, Ho, Wo, cin, cout, k, stride, _sm_count(x.device.index or 0), x.shape[3], x.element_size())
+    sms, smem_max = device_limits(x.device)
+    mt, flat, wn, cpb, tpg, th, tw, chunks, per = plan or wgrad_plan(
+        B, Ho, Wo, cin, cout, k, stride, sms, x.shape[3], x.element_size(), smem_max)
     partial = torch.empty(chunks * (K + 1) * cout, dtype=torch.float32, device=x.device)
     out = torch.empty((K + 1, cout), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
@@ -437,8 +555,8 @@ def _launch_wgrad(x, dz, w_shape, stride):
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _raise_if(err, "conv layer wgrad")
-    device_launches["conv_layer_wgrad"] += 1
-    _count_variant(wgrad_variant(mt, x_bf16, flat))
+    counts["conv_layer_wgrad"] += 1
+    _count_variant(wgrad_variant(mt, x_bf16, flat), variants)
     return out[:K].view(k, k, cin, cout).permute(3, 2, 0, 1).contiguous(), out[K]
 
 

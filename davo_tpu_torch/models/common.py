@@ -45,6 +45,22 @@ def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def conv_same_torch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, stride: int) -> torch.Tensor:
+    """A SAME convolution of NHWC `x` with OIHW `weight` on `F.conv2d`, in
+    the operands' dtype: the output rounded to it, then the bias added in
+    it, as Flax adds it. Symmetric pads go to the conv, others pad first."""
+    k = weight.shape[-1]
+    (top, bottom), (left, right) = (same_pads(n, k, stride) for n in x.shape[1:3])
+    if (top, left) == (bottom, right):
+        pad = (top, left)
+    else:
+        x = F.pad(x, (0, 0, left, right, top, bottom))
+        pad = 0
+    # An NHWC tensor seen as NCHW is channels-last memory: no copy.
+    y = F.conv2d(x.permute(0, 3, 1, 2), weight, stride=stride, padding=pad)
+    return y.permute(0, 2, 3, 1) + bias
+
+
 def conv_same_stride2_s2d(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype
 ) -> torch.Tensor:
@@ -80,9 +96,10 @@ def conv_same_stride2_s2d(
 class Conv(nn.Module):
     """`flax.linen.Conv(features, (k, k), strides, padding="SAME",
     dtype=dtype, param_dtype=float32)` on NHWC input: input, kernel and
-    bias are cast to `dtype` and the conv runs in it. `s2d=True` (the
-    reference's `ConvBlock(s2d=True)`) evaluates a stride-2 conv on an
-    even-sized input through `conv_same_stride2_s2d`, with the same
+    bias are cast to `dtype` and the conv runs in it (float32 on the
+    card: the port's split-TF32 kernels, `kernels/conv_f32.py`). `s2d=True`
+    (the reference's `ConvBlock(s2d=True)`) evaluates a stride-2 bf16 conv
+    on an even-sized input through `conv_same_stride2_s2d`, with the same
     parameters."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
@@ -112,24 +129,23 @@ class Conv(nn.Module):
         return self.weight, self.bias
 
     def _conv(self, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-        k, s = self.kernel, self.stride
+        """The conv on plain tensors (a tensor-parallel layer's local
+        shard too). float32 runs `kernels.conv_f32.conv_same`: on the card
+        the port's split-TF32 kernels (an s2d layer on its SAME stride-2
+        form, the same products), on the CPU this module's plain
+        computation; bf16 runs `_torch_conv`."""
+        if self.dtype == torch.float32:
+            from davo_tpu_torch.kernels import conv_f32
+
+            return conv_f32.conv_same(x.float(), weight, bias, self.stride)
+        return self._torch_conv(x, weight, bias)
+
+    def _torch_conv(self, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        """The conv on PyTorch's own convolution (cuDNN on the card),
+        space-to-depth where `s2d` is set and the dims are even."""
         if self.s2d and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0:
             return conv_same_stride2_s2d(x, weight, bias, self.dtype)
-        (top, bottom), (left, right) = (same_pads(n, k, s) for n in x.shape[1:3])
-        if (top, left) == (bottom, right):
-            pad = (top, left)
-        else:
-            x = F.pad(x, (0, 0, left, right, top, bottom))
-            pad = 0
-        # An NHWC tensor seen as NCHW is channels-last memory: no copy.
-        y = F.conv2d(
-            x.to(self.dtype).permute(0, 3, 1, 2),
-            weight.to(self.dtype),
-            stride=s,
-            padding=pad,
-        )
-        # Bias after the conv's output is rounded to `dtype`, as Flax adds it.
-        return y.permute(0, 2, 3, 1) + bias.to(self.dtype)
+        return conv_same_torch(x.to(self.dtype), weight.to(self.dtype), bias.to(self.dtype), self.stride)
 
 
 class Dense(nn.Linear):

@@ -130,7 +130,8 @@ def _emulate_wgrad(x, dz, w_shape, stride, sms=132, passes=None):
     # im2col on the tile grid, columns (tap, channel) and a column of ones (db).
     hp, wp = (ty_n * th - 1) * stride + k, (tx_n * tw - 1) * stride + k
     xp = torch.zeros(B, hp, wp, cin)
-    xp[:, top : top + H, left : left + W] = x[..., :cin].float()
+    h, w = min(H, hp - top), min(W, wp - left)  # k < stride: the last rows and columns are never read
+    xp[:, top : top + h, left : left + w] = x[:, :h, :w, :cin].float()
     cols = torch.stack([xp[:, ky : ky + ty_n * th * stride : stride, kx : kx + tx_n * tw * stride : stride]
                         for ky in range(k) for kx in range(k)], 3).reshape(B, ty_n * th, tx_n * tw, -1)
     cols = torch.cat([cols, torch.ones(*cols.shape[:3], 1)], -1)
