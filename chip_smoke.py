@@ -90,8 +90,9 @@ Phases, in order; any failure exits non-zero:
   9. one train step on the card against the port on the CPU (davo
      widths, 64x128, float32): loss terms and every gradient leaf on a
      noise batch; on a synthetic-world batch, the card as run no further
-     from a float64 CPU run of the same program than twice the CPU's
-     float32; the float32 conv route launched forward and backward, no
+     from a float64 CPU run of the same program (checked float64
+     throughout) than twice the CPU's float32; the float32 conv route
+     launched forward and backward, no
      float32 F.conv2d on the card; (9b) the same on the fused training
      path
  10. train-step time at B=4 and B=64, peak memory, and device time by
@@ -115,7 +116,9 @@ Phases, in order; any failure exits non-zero:
      --ckpt` (with and without the serving flags), card against CPU
      (forward and train step), frames/s and host syncs against the conv
      head, and where the geometric head's card-against-CPU gap arises
-     (its GN solve's inputs, and the solve alone); davo-fast with
+     (its GN solve's inputs, and the solve alone), the solve alone and
+     pose_geo as run each no further from a float64 run of the solve
+     (checked float64 throughout) than twice the CPU's; davo-fast with
      s2d_first_conv against the plain first conv, and that conv alone; `cli infer --scan-chunks 4` and the 257-frame
      world through one scan call against 4 per-call requests; a
      resumable evaluation crashed and resumed; davo at 120x400 (the
@@ -157,6 +160,9 @@ Phases, in order; any failure exits non-zero:
      size, export seconds and frames/s beside the live forward's, and
      again with the four serving flags (the fused kernels as registered
      ops); scripts/torch_quickstart_synthetic.sh on the card
+ 17. printed, not gated: whole-model bf16 davo-fast poses (128x416, B=2,
+     2 seeds) against the same model's float32 poses, on the card beside
+     the CPU, and the card's bf16 poses against the CPU's
 The line before the last names the card; the last line is the result.
 """
 
@@ -3114,8 +3120,8 @@ def check_conv_f32_layers(torch, card, batch4):
             cudnn_wgrad_ms=_graph_ms(lambda: torch.nn.grad.conv2d_weight(xp_n, w.shape, dz_n, stride=s), reps=5),
             cudnn_dgrad_ms=_graph_ms(lambda: torch.nn.grad.conv2d_input(size, w, dz_n, stride=s), reps=5),
             fwd_plain_ms=_event_ms(lambda: conv_same_torch(x, w, b, s), 3),
-            wgrad_plain_ms=_event_ms(lambda: rowconv_ad._wgrad_plain(x, dy, w.shape, s), 3),
-            dgrad_plain_ms=_event_ms(lambda: rowconv_ad._dgrad_plain(dy, w, x.shape, s), 3),
+            wgrad_plain_ms=_event_ms(lambda: rowconv_ad._wgrad_plain(x, dy, w.shape, s, torch.float64), 3),
+            dgrad_plain_ms=_event_ms(lambda: rowconv_ad._dgrad_plain(dy, w, x.shape, s, torch.float64), 3),
         )
         del xn, wn, dz_n, xp_n, dz
         flops = 2.0 * y.numel() * cin * k * k
@@ -3257,13 +3263,16 @@ def train_gpu_against_cpu(torch, phase="train_gpu_vs_cpu", flags=None, chain_bac
                 raise AssertionError(f"{phase}: loss {loss_err}, worst grads {worst}")
         else:
             t0 = time.perf_counter()
-            with _float64_program(torch):
+            with _float64_program(torch) as seen:
                 unfused = {k: False for k in (flags or {}) if k.startswith("fuse_")}
                 cfg64 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="float64", **unfused))
                 cpu64 = DavoModel(cfg64.model, device="cpu", seed=0, dispnet=True).double()
                 cpu64.load_state_dict({k: v.double() for k, v in cpu.state_dict().items()})
                 batch64 = {k: v.astype(np.float64) if v.dtype == np.float32 else v for k, v in batch.items()}
+                seen.clear()
                 exact_m, exact_g = _loss_and_grads(torch, cpu64, batch64, cfg64, "cpu", step)
+            if seen != {torch.float64}:
+                raise AssertionError(f"{phase}: the float64 step computed in {seen}")
             runs = {"card": (got_m, got_g), "cpu": (want_m, want_g)}
             gated = "card"
             loss64 = {who: max(abs(m[k] - exact_m[k]) / abs(exact_m[k]) for k in exact_m)
@@ -3713,6 +3722,8 @@ def backend_path(torch, card, costvol, bandwarp):
 # ------------------------------------------------------------- phase 13: options
 
 OPTIONS_SCAN_TOL = 1e-6  # scan against per call, resumed against uninterrupted: of the largest element
+# The geo solve's float64 gate (phase 13): twice the CPU's distance, at least 4 float32 ulps of the largest pose.
+GEO_FLOAT64_FLOOR = 4 * 2.0 ** -23
 GEO_SETS = ["--set", "model.pose_head=geo_hybrid"]
 
 
@@ -3741,7 +3752,14 @@ def _card_and_cpu(torch, cfg, B, seed, with_k=False):
     size (with its camera K when `with_k`). With a geometric head, also
     where its gap arises (`geo_gap`): the GN solve's inputs (the finest
     flow level, the depth) card against CPU, and the solve alone on the
-    card against the CPU on the CPU's own inputs."""
+    card against the CPU on the CPU's own inputs; and (`from_float64`)
+    how far float32 lands from a float64 run of the port's solve
+    (`_float64_program`, checked float64 throughout) on the same inputs:
+    the solve alone on the card and on the CPU from the float64 solve of
+    the CPU's inputs, and pose_geo as run, the card's from the float64
+    solve of the card's own inputs, the CPU's from that of the CPU's. The
+    card's are within `limit`, twice the CPU's (GEO_FLOAT64_FLOOR at
+    least) where `within` says so, as phase 9 holds a train step."""
     import numpy as np
 
     from davo_tpu_torch.data.synthetic import SyntheticSequence
@@ -3758,8 +3776,9 @@ def _card_and_cpu(torch, cfg, B, seed, with_k=False):
     real, calls = davo.pose_from_flow_pyramid, []
 
     def recorded(*args, **kwargs):
-        calls.append((args, kwargs))
-        return real(*args, **kwargs)
+        out = real(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
 
     davo.pose_from_flow_pyramid = recorded
     try:
@@ -3778,13 +3797,26 @@ def _card_and_cpu(torch, cfg, B, seed, with_k=False):
             scale = float(want[key].abs().max())
             errs[key] = {"max_rel_err": rel(got[key], want[key]), "largest": scale}
     if calls:
-        (cpu_args, kwargs), (card_args, _) = calls
+        (cpu_args, kwargs, cpu_geo), (card_args, _, card_geo) = calls
+        exact = {}
         with torch.inference_mode():
             solve_on_card = real(*(a.cuda() if torch.is_tensor(a) else a for a in cpu_args), **kwargs)
             solve_on_cpu = real(*cpu_args, **kwargs)
+            for who, args in (("cpu", cpu_args), ("card", card_args)):
+                args64 = [a.cpu().double() if torch.is_tensor(a) else a for a in args]
+                with _float64_program(torch) as seen:
+                    seen.clear()
+                    exact[who] = real(*args64, **kwargs)
+                if seen != {torch.float64}:
+                    raise AssertionError(f"the float64 geo solve on the {who}'s inputs computed in {seen}")
+        from64 = {"solve_alone": {"card": rel(solve_on_card, exact["cpu"]), "cpu": rel(solve_on_cpu, exact["cpu"])},
+                  "pose_geo": {"card": rel(card_geo, exact["card"]), "cpu": rel(cpu_geo, exact["cpu"])}}
+        for row in from64.values():
+            row["limit"] = max(2 * row["cpu"], GEO_FLOAT64_FLOOR)
+            row["within"] = row["card"] <= row["limit"]
         errs["geo_gap"] = {"flow": rel(card_args[0], cpu_args[0]), "depth": rel(card_args[1], cpu_args[1]),
                            "solve_alone_card_vs_cpu": rel(solve_on_card, solve_on_cpu),
-                           "pose_geo": errs["pose_geo"]["max_rel_err"]}
+                           "pose_geo": errs["pose_geo"]["max_rel_err"], "from_float64": from64}
     return errs
 
 
@@ -3824,7 +3856,9 @@ def options_path(torch, card, costvol, bandwarp, frames, seg, batch4):
       model) against the checkpoint restored in memory (1e-6 of the
       largest), and with the four serving flags; the forward card against
       CPU (64x128, float32: poses and pose_geo within 1e-4 of the
-      largest); one train step card against CPU; forward frames/s and
+      largest; the GN solve alone and pose_geo as run no further from a
+      float64 run of the solve than twice the CPU's distance); one train
+      step card against CPU; forward frames/s and
       host syncs per forward against the conv head at B=64;
     - `davo-fast` with s2d_first_conv at B=64: poses against the plain
       first conv (float32, TF32 off, 1e-4 of the largest); the first pose
@@ -3950,6 +3984,8 @@ def options_path(torch, card, costvol, bandwarp, frames, seg, batch4):
                                                    torch.backends.cudnn.allow_tf32]}), flush=True)
     if any(not (e["largest"] > 0 and e["max_rel_err"] <= PORT_TOL) for k, e in geo_errs.items() if k != "geo_gap"):
         raise AssertionError(f"geo_hybrid card vs CPU: {geo_errs}")
+    if not all(row["within"] for row in geo_errs["geo_gap"]["from_float64"].values()):
+        raise AssertionError(f"geo_hybrid solve against float64: {geo_errs['geo_gap']['from_float64']}")
     train_gpu_against_cpu(torch, "options_geo_train_gpu_vs_cpu", {"pose_head": "geo_hybrid"}, chain_backward=False)
     train_gpu_against_cpu(torch, "options_res_train_gpu_vs_cpu", {"disp_encoder": "resnet"}, chain_backward=False)
     step_ms = {"davo": [], "davo-res": []}
@@ -4098,12 +4134,27 @@ def _float64_program(torch):
     """Run the port's float32 training program in float64 on the CPU: a
     reference for how far float32 lands from exact arithmetic. The
     model's compute dtype "float64", and the forward's and the losses'
-    explicit float32 (`.float()`, `.to(torch.float32)`, float32 zeros and
-    ones, einsum operands, the default dtype) go to float64 while it is
-    open."""
+    explicit float32 (`.float()`, `.to(torch.float32)`, float32 zeros,
+    ones, identities and ranges, so `geometry.pixel_grid`'s too, einsum
+    operands, the default dtype) go to float64 while it is open. Yields
+    the set of floating dtypes that the torch functions called while open
+    returned: a run is float64 only where that set is {torch.float64}.
+    The resize's cached weight matrices are dropped on entry and exit, so
+    that neither program reads the other's."""
+    from torch.overrides import TorchFunctionMode
+    from torch.utils._pytree import tree_leaves
+
+    from davo_tpu_torch.kernels import resize
     from davo_tpu_torch.models import common
 
-    real = (torch.Tensor.float, torch.Tensor.to, torch.einsum, torch.zeros, torch.ones)
+    real = (torch.Tensor.float, torch.Tensor.to, torch.einsum, torch.zeros, torch.ones, torch.eye, torch.arange)
+    seen = set()
+
+    class Dtypes(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            seen.update(t.dtype for t in tree_leaves(out) if isinstance(t, torch.Tensor) and t.is_floating_point())
+            return out
 
     def to(self, *a, **k):
         if a and a[0] is torch.float32:
@@ -4120,14 +4171,17 @@ def _float64_program(torch):
     common._DTYPES["float64"] = torch.float64
     torch.Tensor.float, torch.Tensor.to = (lambda self, *a, **k: self.double()), to
     torch.einsum = lambda eq, *ops: real[2](eq, *[o.double() if o.is_floating_point() else o for o in ops])
-    torch.zeros, torch.ones = dtype64(real[3]), dtype64(real[4])
+    torch.zeros, torch.ones, torch.eye, torch.arange = (dtype64(f) for f in real[3:])
     torch.set_default_dtype(torch.float64)
+    resize._weight_mat.cache_clear()
     try:
-        yield
+        with Dtypes():
+            yield seen
     finally:
-        torch.Tensor.float, torch.Tensor.to, torch.einsum, torch.zeros, torch.ones = real
+        torch.Tensor.float, torch.Tensor.to, torch.einsum, torch.zeros, torch.ones, torch.eye, torch.arange = real
         torch.set_default_dtype(torch.float32)
         del common._DTYPES["float64"]
+        resize._weight_mat.cache_clear()
 
 
 def _nonzero(counts):
@@ -5197,6 +5251,57 @@ def parallel_export_path(torch, card, batch4, frames, seg):
     return totals
 
 
+# ------------------------------------------------------------- phase 17: bf16 poses at depth
+
+BF16_POSE_SEEDS = (0, 1)
+
+
+def bf16_pose_gap(torch, card):
+    """Phase 17, printed, not gated: the whole-model bf16 `davo-fast` poses
+    at 128x416 (B=2, the port's weights made from each seed, frames and
+    labels as tests/test_torch_bf16_depth.py draws them) against the float32 poses
+    of the same model, on the card and on the CPU: each the mean |bf16 -
+    float32| over the mean |float32|, and the card's bf16 poses against
+    the CPU's. The CPU tests hold this path against the reference
+    (ROADMAP Queue 3, "not faults"); this line shows the card's bf16 gap
+    beside the CPU's."""
+    import numpy as np
+
+    from davo_tpu_torch.models import presets
+    from davo_tpu_torch.models.davo import DavoModel
+
+    fast32 = presets.with_overrides("davo-fast", compute_dtype="float32").model
+    fast16 = presets.with_overrides("davo-fast", compute_dtype="bfloat16").model
+    H, W = fast32.img_height, fast32.img_width
+    rows = []
+    for seed in BF16_POSE_SEEDS:
+        rng = np.random.default_rng(50 + seed)
+        target = torch.from_numpy(rng.uniform(size=(2, H, W, 3)).astype(np.float32))
+        sources = torch.from_numpy(rng.uniform(size=(2, 1, H, W, 3)).astype(np.float32))
+        seg = torch.from_numpy(rng.integers(0, fast32.num_seg_classes, size=(2, H, W)))
+        poses, state = {}, DavoModel(fast32, device="cpu", seed=seed).state_dict()
+        for device in ("cuda", "cpu"):
+            for name, cfg in (("float32", fast32), ("bfloat16", fast16)):
+                model = DavoModel(cfg, device=device, seed=seed).eval()
+                model.load_state_dict(state)
+                with torch.inference_mode():
+                    out = model(target.to(device), sources.to(device), seg=seg.to(device))
+                poses[device, name] = out["poses"].float().cpu().double()
+        if not all(bool(torch.isfinite(p).all()) and p.shape == (2, 1, 6) for p in poses.values()):
+            raise AssertionError(f"bf16 pose gap, seed {seed}: poses not finite (2, 1, 6)")
+
+        def gap(a, b):
+            return float((a - b).abs().mean() / b.abs().mean())
+
+        rows.append({"seed": seed,
+                     "card_bf16_vs_card_float32": gap(poses["cuda", "bfloat16"], poses["cuda", "float32"]),
+                     "cpu_bf16_vs_cpu_float32": gap(poses["cpu", "bfloat16"], poses["cpu", "float32"]),
+                     "card_bf16_vs_cpu_bf16": gap(poses["cuda", "bfloat16"], poses["cpu", "bfloat16"])})
+    print(json.dumps({"phase": "bf16_pose_gap", "gated": False, "label": "printed, not gated",
+                      "preset": "davo-fast, 128x416, B=2", "measure": "mean |a - b| / mean |b| of the poses",
+                      "seeds": rows, "card": card}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -5301,6 +5406,7 @@ def main() -> int:
     dist_counts = dist_path(torch, card, batch4, world_frames, world_seg, ba_window)
     parallel_counts = parallel_export_path(torch, card, batch4, world_frames, world_seg)
     del world_frames, world_seg
+    bf16_pose_gap(torch, card)
 
     def options_by_path(kernel):
         """Launches of the later phases' commands: options (13), real data

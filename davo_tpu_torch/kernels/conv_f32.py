@@ -28,8 +28,11 @@ cuDNN, as the reference computes them outside any Pallas kernel.
 `layer_plan`, `rowconv_ad.dgrad_plan` and `wgrad_plan` refuse on the
 host every shape the launchers would (ValueError naming the shape): a
 CUDA tensor launches the kernels or raises, never another route. A CPU
-tensor runs the plain version (`models.common.conv_same_torch`, the
-unfused `Conv`'s own computation, and its VJP by `torch.nn.grad`).
+tensor runs the plain version: the forward `models.common.conv_same_torch`
+(the unfused `Conv`'s own computation), and dW and dx by `torch.nn.grad`
+summed in float64 and rounded once to float32: oneDNN's float32 dW
+landed up to 21x, its dx 2.3x, further from exact arithmetic than XLA's
+on the same operands (a `davo` train step's flow net).
 
 The layer is one registered op, `torch.ops.davo.conv_same_f32`, with a
 fake implementation (so `torch.export` keeps one node per convolution)
@@ -142,9 +145,9 @@ def _backward(ctx, g):
     else:
         g = g.float()
         if need_w or need_b:
-            dw, db = rowconv_ad._wgrad_plain(x, g, weight.shape, s)
+            dw, db = rowconv_ad._wgrad_plain(x, g, weight.shape, s, accumulate=torch.float64)
         if need_x:
-            dx = rowconv_ad._dgrad_plain(g, weight, x.shape, s)
+            dx = rowconv_ad._dgrad_plain(g, weight, x.shape, s, accumulate=torch.float64)
     return dx, dw if need_w else None, db if need_b else None, None
 
 

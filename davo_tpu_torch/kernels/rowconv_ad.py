@@ -99,21 +99,27 @@ def _pads(h, w, k, stride):
     return top, bottom, left, right
 
 
-def _dgrad_plain(dz, w, x_shape, stride):
+def _dgrad_plain(dz, w, x_shape, stride, accumulate=None):
+    """dx of a SAME layer, in dz's dtype; `accumulate` (float64) sums in
+    that dtype and rounds once to dz's."""
     B, H, W, cin = x_shape
+    acc = accumulate or dz.dtype
     top, bottom, left, right = _pads(H, W, w.shape[-1], stride)
     dxp = torch.nn.grad.conv2d_input(
-        (B, cin, H + top + bottom, W + left + right), w.to(dz.dtype), dz.permute(0, 3, 1, 2), stride=stride
+        (B, cin, H + top + bottom, W + left + right), w.to(acc), dz.permute(0, 3, 1, 2).to(acc), stride=stride
     )
-    return dxp[:, :, top : top + H, left : left + W].permute(0, 2, 3, 1)
+    return dxp[:, :, top : top + H, left : left + W].to(dz.dtype).permute(0, 2, 3, 1)
 
 
-def _wgrad_plain(x, dz, w_shape, stride):
+def _wgrad_plain(x, dz, w_shape, stride, accumulate=None):
+    """(dW, db) of a SAME layer, in dz's dtype; `accumulate` (float64)
+    forms dW in that dtype and rounds once."""
     k = w_shape[-1]
+    acc = accumulate or dz.dtype
     top, bottom, left, right = _pads(x.shape[1], x.shape[2], k, stride)
-    xp = F.pad(x.to(dz.dtype).permute(0, 3, 1, 2), (left, right, top, bottom))
-    dw = torch.nn.grad.conv2d_weight(xp, w_shape, dz.permute(0, 3, 1, 2), stride=stride)
-    return dw, dz.sum((0, 1, 2))
+    xp = F.pad(x.to(acc).permute(0, 3, 1, 2), (left, right, top, bottom))
+    dw = torch.nn.grad.conv2d_weight(xp, w_shape, dz.permute(0, 3, 1, 2).to(acc), stride=stride)
+    return dw.to(dz.dtype), dz.sum((0, 1, 2))
 
 
 def conv_layer_dgrad_plain(dy, g, a_out, relu, w, x_shape, stride):
