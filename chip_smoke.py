@@ -163,6 +163,13 @@ Phases, in order; any failure exits non-zero:
  17. printed, not gated: whole-model bf16 davo-fast poses (128x416, B=2,
      2 seeds) against the same model's float32 poses, on the card beside
      the CPU, and the card's bf16 poses against the CPU's
+ 18. the validated serving flags (`serving_flags_path`): the serving
+     probe (davo-fast at B=64, the unfused baseline and each fused
+     serving candidate: frames/s, poses against the baseline's), the
+     winner promoted into a temporary BENCH_FLAGS_torch.json, then `cli
+     infer --serving-flags` on phase 4's world against `--set` of the
+     promoted flags, and with a stale file against plain `infer`; the
+     fused kernels launched when a candidate was promoted
 The line before the last names the card; the last line is the result.
 """
 
@@ -3119,7 +3126,7 @@ def check_conv_f32_layers(torch, card, batch4):
             cudnn_fwd_ms=_graph_ms(lambda: F.conv2d(xn, wn, b, stride=s, padding=k // 2), reps=5),
             cudnn_wgrad_ms=_graph_ms(lambda: torch.nn.grad.conv2d_weight(xp_n, w.shape, dz_n, stride=s), reps=5),
             cudnn_dgrad_ms=_graph_ms(lambda: torch.nn.grad.conv2d_input(size, w, dz_n, stride=s), reps=5),
-            fwd_plain_ms=_event_ms(lambda: conv_same_torch(x, w, b, s), 3),
+            fwd_plain_ms=_event_ms(lambda: conv_f32._forward_plain(x, w, b, s), 3),
             wgrad_plain_ms=_event_ms(lambda: rowconv_ad._wgrad_plain(x, dy, w.shape, s, torch.float64), 3),
             dgrad_plain_ms=_event_ms(lambda: rowconv_ad._dgrad_plain(dy, w, x.shape, s, torch.float64), 3),
         )
@@ -5302,6 +5309,112 @@ def bf16_pose_gap(torch, card):
                       "seeds": rows, "card": card}), flush=True)
 
 
+# ------------------------------------------------------------- phase 18: serving flags
+
+SERVING_FLAGS_TOL = 1e-6  # `infer --serving-flags` against the same flags by --set: of the largest pose
+
+
+def serving_flags_path(torch, card, costvol, rowconv, frames, seg):
+    """Phase 18: the validated serving flags. The serving probe
+    (`bench.serving_probe.probe`, davo-fast at B=64) times the unfused
+    baseline and each fused serving candidate and holds each one's poses
+    against the baseline's; `utils.serving_flags.promote` writes the
+    winner, if any, to a temporary file. Then `cli infer --serving-flags`
+    in process against that file (the module's default path patched) on
+    the main path's 257-frame world: its poses against `infer --set` of
+    the promoted flags, and against a file with a wrong fingerprint,
+    whose run must serve the plain config, against plain `infer`; each
+    within SERVING_FLAGS_TOL of the largest pose. The promoted run must
+    launch fused kernels when a candidate was promoted; promotion itself
+    is a measurement, not a gate. Returns the kernels' launches over the
+    phase's `infer` runs."""
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from davo_tpu_torch.bench import serving_probe
+    from davo_tpu_torch.cli import main as cli
+    from davo_tpu_torch.data.synthetic import SyntheticSequence
+    from davo_tpu_torch.models import presets
+    from davo_tpu_torch.utils import serving_flags
+
+    t0 = time.perf_counter()
+    results = serving_probe.probe()
+    probe_s = time.perf_counter() - t0
+    failed = {tag: r for tag, r in results.items() if isinstance(r, dict) and r.get("status") != "done"}
+    cfg = presets.get("davo-fast").model
+    world = SyntheticSequence(n_frames=len(frames), height=cfg.img_height, width=cfg.img_width, seed=0)
+    launches: dict[str, int] = {}
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "BENCH_FLAGS_torch.json")
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            promoted = serving_flags.promote(results, path)
+        print(json.dumps({"phase": "serving_flags_probe", "batch": 64, "card": card, "probe_s": probe_s,
+                          "results": results, "promote_said": said.getvalue().strip(), "promoted": promoted}),
+              flush=True)
+        if failed:
+            raise AssertionError(f"serving probe: candidates failed on the card: {failed}")
+        stale = Path(tmp) / "stale.json"
+        stale.write_text(json.dumps({**(promoted or {}), "validated_on": "gpu", "fingerprint": "0" * 16,
+                                     "overrides": {f"model.{k}": True for k in serving_probe.SERVING_FLAGS}}))
+        sets = [a for k, v in (promoted or {}).get("overrides", {}).items() for a in ("--set", f"{k}={v}")]
+        real = (serving_flags.FLAGS, cli._load_sequence)
+        cli._load_sequence = lambda data, seq, cfg, with_seg: (frames, seg if with_seg else None, world.poses,
+                                                               world.K)
+        try:
+            for name, flags_file, extra in (("serving_flags", path, ["--serving-flags"]), ("sets", None, sets),
+                                            ("stale_flags", str(stale), ["--serving-flags"]), ("plain", None, [])):
+                serving_flags.FLAGS = flags_file or path
+                out = str(Path(tmp) / f"{name}.txt")
+                _reset_counts()
+                with contextlib.redirect_stderr(io.StringIO()) as err:
+                    rc = cli.main(["infer", "--version", "davo-fast", "--data", "synthetic", "--seq", "0",
+                                   "--out", out, "--batch-size", "64", *extra])
+                torch.cuda.synchronize()
+                counts = _fused_counts(costvol, rowconv)
+                for k, v in counts.items():
+                    if k != "device_launches":
+                        launches[k] = launches.get(k, 0) + v
+                runs[name] = {"rc": rc, "stderr": err.getvalue().strip(), "launches": _nonzero(counts),
+                              "poses": np.loadtxt(out) if rc == 0 else None}
+        finally:
+            serving_flags.FLAGS, cli._load_sequence = real
+
+    def gap(a, b):
+        return float(np.abs(runs[a]["poses"] - runs[b]["poses"]).max() / np.abs(runs[b]["poses"]).max())
+
+    fused = {k: runs["serving_flags"]["launches"].get(k, 0)
+             for k in ("flow_level_fused", "conv_chain_strided", "conv_chain_nhwc")}
+    no_flags = "infer: no validated BENCH_FLAGS for this code; serving plain config"
+    checks = {
+        "all_rc_0": all(r["rc"] == 0 for r in runs.values()),
+        "shapes": {n: list(r["poses"].shape) if r["poses"] is not None else None for n, r in runs.items()},
+    }
+    if checks["all_rc_0"]:
+        checks.update(serving_flags_vs_sets=gap("serving_flags", "sets"), stale_vs_plain=gap("stale_flags", "plain"))
+    row = {"phase": "serving_flags_infer", "preset": "davo-fast", "frames": len(frames), "batch": 64,
+           "promoted": (promoted or {}).get("probe"), "label": "promoted" if promoted else "nothing promoted",
+           "runs": {n: {**{k: v for k, v in r.items() if k != "poses"}, "stderr": r["stderr"][-400:]}
+                    for n, r in runs.items()}, **checks,
+           "fused_launches_promoted_run": fused, "tolerance": SERVING_FLAGS_TOL,
+           "phase_s": time.perf_counter() - t0, "card": card}
+    print(json.dumps(row), flush=True)
+    if not checks["all_rc_0"] or any(v != [len(frames), 12] for v in checks["shapes"].values()):
+        raise AssertionError(f"serving flags: infer runs {row['runs']}")
+    if max(row["serving_flags_vs_sets"], row["stale_vs_plain"]) > SERVING_FLAGS_TOL:
+        raise AssertionError(f"serving flags: poses apart {row}")
+    served_plain = no_flags in runs["serving_flags"]["stderr"]
+    if no_flags not in runs["stale_flags"]["stderr"] or (promoted is None) != served_plain:
+        raise AssertionError(f"serving flags: the gate's messages {row['runs']}")
+    if promoted and not sum(fused.values()):
+        raise AssertionError(f"serving flags: {promoted['probe']} promoted, yet no fused kernel launched: {row}")
+    if runs["stale_flags"]["launches"] != runs["plain"]["launches"]:
+        raise AssertionError(f"serving flags: a stale file changed what ran: {row['runs']}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5405,19 +5518,22 @@ def main() -> int:
     data_counts = data_path(torch, card, costvol, bandwarp, train_counts["prefetch"])
     dist_counts = dist_path(torch, card, batch4, world_frames, world_seg, ba_window)
     parallel_counts = parallel_export_path(torch, card, batch4, world_frames, world_seg)
-    del world_frames, world_seg
     bf16_pose_gap(torch, card)
+    serving_flag_counts = serving_flags_path(torch, card, costvol, rowconv, world_frames, world_seg)
+    del world_frames, world_seg
 
     def options_by_path(kernel):
         """Launches of the later phases' commands: options (13), real data
-        (14), the distribution layer's ranks (15), and parallelism and
-        export (16)."""
+        (14), the distribution layer's ranks (15), parallelism and export
+        (16), and the serving flags' `infer` runs (18)."""
         by_path = {f"{group} {k}": v[kernel] for group, counts in (("options", options_counts), ("data", data_counts))
                    for k, v in counts.items() if v.get(kernel)}
         if dist_counts.get(kernel):
             by_path["dist (phase 15)"] = dist_counts[kernel]
         if parallel_counts.get(kernel):
             by_path["parallel and export (phase 16)"] = parallel_counts[kernel]
+        if serving_flag_counts.get(kernel.removeprefix("serving_")):
+            by_path["serving flags (phase 18)"] = serving_flag_counts[kernel.removeprefix("serving_")]
         return by_path
 
     # The kernels' line. cost_volume: the work of one serving request (its
@@ -5691,6 +5807,8 @@ def main() -> int:
             "max_err_is": "float32, relative to the largest element, against the float64 plain version",
             "ms": step[f"{kind}_ms"], "plain_ms": step[f"{kind}_plain_ms"], "bound_ms": step[f"{kind}_bound_ms"],
             "bound_by": "bytes" if kind == "gate" else bound_by(r[f"{kind}_bound_by"] for r in conv_f32_rows),
+            "plain_is": "F.pad of dz to padded_cout" if kind == "gate"
+            else "the route's CPU version: products summed in float64, rounded once to float32",
             "library_ms": step[CONV_F32_LIBRARY[kind]],
             "library_is": "F.pad of dz to padded_cout, one call per layer" if kind == "gate"
             else "one cuDNN float32 call per layer, TF32 off",

@@ -30,9 +30,11 @@ preset; dotted `--set key=value` overrides reach any config field.
 `--ckpt` serves the newest checkpoint that `train --checkpoint-dir`
 wrote (`tools/orbax_to_torch.py` converts the reference's); a
 `pose_head=geo_hybrid` model gets the sequence's intrinsics in `infer`
-and `depth`. `infer --serving-flags` is refused: its BENCH_FLAGS.json
-holds flags validated on a TPU for the JAX package; so is `export
---platforms`, which a torch.export program has no use for.
+and `depth`. `infer --serving-flags` applies the fused-serving flags
+that the serving probe validated on the card for this code
+(BENCH_FLAGS_torch.json, `utils/serving_flags.py`; no compiler options,
+as a CUDA kernel takes none) or, without them, serves the plain config.
+`export --platforms` is refused: a torch.export program has no use for it.
 """
 
 from __future__ import annotations
@@ -162,8 +164,8 @@ def _restore_model(cfg, ckpt_dir: str, device):
     return model
 
 
-def _refuse(cmd: str, refused: list[str], why: str = "not ported to davo_tpu_torch yet") -> int:
-    print(f"{cmd}: {why}: " + ", ".join(refused), file=sys.stderr)
+def _refuse(cmd: str, reason: str) -> int:
+    print(f"{cmd}: refused: {reason}", file=sys.stderr)
     return 2
 
 
@@ -267,17 +269,26 @@ def cmd_train(args) -> int:
     return 0
 
 
-SERVING_FLAGS_REASON = (
-    "--serving-flags (BENCH_FLAGS.json holds fused-serving flags validated "
-    "on a TPU against davo_tpu's code fingerprint, which says nothing of "
-    "this package's kernels; set the fused flags with --set model.fuse_*=true)"
-)
+def _serving_flags(cfg):
+    """`cfg` with the fused-serving overrides validated on the card
+    (BENCH_FLAGS_torch.json, written only by `utils.serving_flags.promote`
+    after the serving probe's on-card equality check and frames/s win;
+    gated on the serving code's fingerprint), or `cfg` as it is when no
+    such file is there. The JAX package's promoted PJRT compiler options
+    have no counterpart: a CUDA kernel here takes no per-computation
+    compiler options."""
+    from davo_tpu_torch.config import apply_overrides
+    from davo_tpu_torch.utils.serving_flags import load_validated_flags
+
+    flags = load_validated_flags()
+    if not flags:
+        print("infer: no validated BENCH_FLAGS for this code; serving plain config", file=sys.stderr)
+        return cfg
+    print(f"infer: applying BENCH_FLAGS {flags['overrides']}", file=sys.stderr)
+    return apply_overrides(cfg, flags["overrides"])
 
 
 def cmd_infer(args) -> int:
-    if args.serving_flags:
-        return _refuse("infer", [SERVING_FLAGS_REASON])
-
     import numpy as np
 
     from davo_tpu_torch.data.kitti import write_poses_kitti
@@ -291,6 +302,8 @@ def cmd_infer(args) -> int:
     from davo_tpu_torch.models.davo import DavoModel
 
     cfg = _apply_sets(presets.get(args.version), args.set)
+    if args.serving_flags:
+        cfg = _serving_flags(cfg)
     if args.ckpt:
         model = _restore_model(cfg, args.ckpt, args.device)
         if model is None:
@@ -508,7 +521,7 @@ def cmd_export(args) -> int:
     registers all four (`torch.export.load(path).module()(target, source,
     seg)`)."""
     if args.platforms:
-        return _refuse("export", [PLATFORMS_REASON], why="refused")
+        return _refuse("export", PLATFORMS_REASON)
     import time
 
     import numpy as np
@@ -650,7 +663,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     i.add_argument(
         "--serving-flags", action="store_true",
-        help="refused: BENCH_FLAGS.json holds flags validated on a TPU for davo_tpu",
+        help="apply the fused-serving flags validated on the card for this code "
+        "(BENCH_FLAGS_torch.json at the repo root; none: the plain config)",
     )
     i.add_argument("--set", action="append", help="dotted override k=v")
     i.add_argument("--device", default=None, help=device_help)

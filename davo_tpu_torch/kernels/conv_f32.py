@@ -28,11 +28,18 @@ cuDNN, as the reference computes them outside any Pallas kernel.
 `layer_plan`, `rowconv_ad.dgrad_plan` and `wgrad_plan` refuse on the
 host every shape the launchers would (ValueError naming the shape): a
 CUDA tensor launches the kernels or raises, never another route. A CPU
-tensor runs the plain version: the forward `models.common.conv_same_torch`
-(the unfused `Conv`'s own computation), and dW and dx by `torch.nn.grad`
-summed in float64 and rounded once to float32: oneDNN's float32 dW
-landed up to 21x, its dx 2.3x, further from exact arithmetic than XLA's
-on the same operands (a `davo` train step's flow net).
+tensor runs the plain version, each output's products summed in float64
+and rounded once to float32: the forward by
+`models.common.conv_same_torch` on float64 operands, then the bias added
+in float32, as Flax adds it (`_forward_plain`), and dW and dx by
+`torch.nn.grad` (`rowconv_ad._wgrad_plain`, `_dgrad_plain` with
+`accumulate`). On a `davo` train step's flow net oneDNN's float32 sums
+landed further from exact arithmetic than XLA's on the same operands:
+dW up to 21x, dx 2.3x, the forward 3.4x (`estimator1.est0`), and that
+forward's rounding flipped one ReLU and put the whole step 2.17x the
+reference's distance from float64. The card's gates are twice the CPU's
+distance from float64 (chip_smoke.py phases 9 and 13), so this route is
+the card's yardstick too.
 
 The layer is one registered op, `torch.ops.davo.conv_same_f32`, with a
 fake implementation (so `torch.export` keeps one node per convolution)
@@ -106,11 +113,18 @@ def _forward_cuda(x, weight, bias, stride):
     return out
 
 
+def _forward_plain(x, weight, bias, stride):
+    """The forward on the CPU: products summed in float64, rounded once to
+    float32, then the bias added in float32."""
+    zero = weight.new_zeros(weight.shape[0], dtype=torch.float64)
+    return conv_same_torch(x.double(), weight.double(), zero, stride).float() + bias
+
+
 @torch.library.custom_op("davo::conv_same_f32", mutates_args=(), device_types=("cpu", "cuda"))
 def _conv_same_f32(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, stride: int) -> torch.Tensor:
     if _on_cuda(x):
         return _forward_cuda(x, weight, bias, stride)
-    return conv_same_torch(x, weight, bias, stride)
+    return _forward_plain(x, weight, bias, stride)
 
 
 @_conv_same_f32.register_fake

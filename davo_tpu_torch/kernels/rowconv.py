@@ -134,11 +134,17 @@ def _modes(name: str) -> tuple[torch.dtype, torch.dtype]:
 
 
 def _layer_plain(x, w, b, stride, relu, act, dot):
-    """One fused layer on NHWC `x` (already in the activation dtype)."""
+    """One fused layer on NHWC `x` (already in the activation dtype). In
+    float32 operands each output's products are summed in float64 and
+    rounded once to float32, as the float32 `Conv`'s CPU route sums
+    (`kernels/conv_f32.py`): oneDNN's float32 sums landed up to 3.4x
+    further from float64 than XLA's on a `davo` step's flow net. bf16
+    operands' products are exact in float32 and summed there."""
     k = w.shape[-1]
+    acc = torch.float64 if dot == torch.float32 else torch.float32
     (top, bottom), (left, right) = (same_pads(n, k, stride) for n in x.shape[1:3])
-    xin = F.pad(x.to(dot).float().permute(0, 3, 1, 2), (left, right, top, bottom))
-    y = F.conv2d(xin, w.to(dot).float(), stride=stride)
+    xin = F.pad(x.to(dot).to(acc).permute(0, 3, 1, 2), (left, right, top, bottom))
+    y = F.conv2d(xin, w.to(dot).to(acc), stride=stride).float()
     y = (y + b.float()[:, None, None]).to(act)
     if relu:
         y = torch.relu(y)

@@ -107,13 +107,13 @@ def test_cli_infer_writes_trajectory(tmp_path):
     [
         (["--ckpt", "/nowhere", "--data", "/kitti"], 1, "no checkpoint found in /nowhere"),
         (["--data", "/kitti"], None, None),
-        (["--serving-flags"], 2, "not ported"),
+        (["--serving-flags", "--ckpt", "/nowhere"], 1, "no checkpoint found in /nowhere"),
     ],
 )
 def test_cli_refuses_unported_inputs(tmp_path, flags, rc, message, capsys):
     """What `infer` cannot serve writes nothing: a missing checkpoint
-    (rc 1), a KITTI root that is not there (the reader's error) and the
-    TPU-validated serving flags (rc 2, not ported)."""
+    (rc 1), with or without the validated serving flags, and a KITTI
+    root that is not there (the reader's error)."""
     argv = ["infer", "--version", "tiny", "--out", str(tmp_path / "p.txt"), "--device", "cpu", *flags]
     if rc is None:
         with pytest.raises(FileNotFoundError):

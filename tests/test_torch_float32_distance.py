@@ -48,7 +48,6 @@ run as they run in use, the reference under `jax.jit`. Each batch's four
 runs are made once and shared by the tests of this module.
 """
 
-import contextlib
 import dataclasses
 import functools
 
@@ -69,11 +68,12 @@ from davo_tpu.models.flownet import FlowNetLite as JFlowNetLite
 from davo_tpu.train.losses import total_loss as j_total_loss
 from davo_tpu_torch.convert import flax_to_state_dict, load_flax_params
 from davo_tpu_torch.core import warp
-from davo_tpu_torch.kernels import conv_f32, rowconv_ad
+from davo_tpu_torch.kernels import conv_f32, rowconv, rowconv_ad
 from davo_tpu_torch.models import presets
 from davo_tpu_torch.models.common import Conv, conv_same_torch
 from davo_tpu_torch.models.davo import DavoModel
 from davo_tpu_torch.train.losses import total_loss
+from torch_float64 import reference_float64, relative_error, to_float64, worst_leaf
 
 STEP = 125  # phase 9's: the depth warm-up gate half open
 SIZE = dict(img_height=64, img_width=128, compute_dtype="float32")
@@ -90,20 +90,6 @@ def _take4():
     yield
     warp.configure(*saved[0])
     jwarp.configure(*saved[1])
-
-
-@contextlib.contextmanager
-def _reference_float64():
-    """x64 on, and `jnp.float32` read as float64 while open: the
-    reference's explicit float32 casts (its compute dtype, `.astype`,
-    zeros, grids) compute in float64."""
-    real = jnp.float32
-    with jax.enable_x64(True):
-        jnp.float32 = jnp.float64
-        try:
-            yield
-        finally:
-            jnp.float32 = real
 
 
 def _batch(name):
@@ -176,17 +162,6 @@ def _port_grads(cfg, model, batch, records=None):
             [z.grad.double().numpy() for z in zeros])
 
 
-def _worst(got, exact):
-    errs = {n: _rel(got[n], w) for n, w in exact.items()}
-    return max(errs.items(), key=lambda kv: kv[1])
-
-
-def _rel(got, exact):
-    """max |got - exact| over exact's largest magnitude."""
-    got, exact = (torch.as_tensor(np.array(a)).double() for a in (got, exact))
-    return float((got - exact).abs().max()) / max(float(exact.abs().max()), 1e-30)
-
-
 def _runs(name):
     """The four runs of one batch, made once: each package's float32 and
     float64 gradients and flow-level cotangents, the port's flow-net convs'
@@ -200,9 +175,9 @@ def _runs(name):
     params = JDavoModel(jcfg.model).init(jax.random.key(0), jb["target"], jb["sources"], seg=jb["seg"],
                                          train=True, source_disp=True)
     ref32 = _reference_grads(jcfg, params, batch)
-    with _reference_float64():
+    with reference_float64():
         params64 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), params)
-        batch64 = {k: v.astype(np.float64) if v.dtype == np.float32 else v for k, v in batch.items()}
+        batch64 = to_float64(batch)
         ref64 = _reference_grads(jcfg, params64, batch64)
 
     cfg = presets.with_overrides("davo", **SIZE)
@@ -221,25 +196,14 @@ def _runs(name):
     return _RUNS[name]
 
 
-FORWARD_XFAIL = pytest.mark.xfail(strict=True, reason=(
-    "ROADMAP Queue 3: the CPU's float32 conv forward (oneDNN) lands up to 3.4x XLA's distance from float64 on "
-    "the flow estimators' deep contractions (estimator1.est0: 1.63e-6 against 4.85e-7 of the largest output); "
-    "summed in float64 it passes, but redraws the rounding two tiny parity steps hold at 1e-4"))
-WORLD_XFAIL = pytest.mark.xfail(strict=True, reason=(
-    "ROADMAP Queue 3: on the world batch the port's CPU float32 lands 9.99e-3 of flownet.estimator1.est2's bias "
-    "from float64, 2.17x the jitted reference's worst leaf (4.61e-3): oneDNN's forward rounding flips one ReLU "
-    "of estimator1.est2 (float64 pre-activation -4.07e-8); the cotangent at the flow pyramid and the plain "
-    "backward are no further than the reference's"))
-
-
-@pytest.mark.parametrize("name", ["noise", pytest.param("world", marks=WORLD_XFAIL)])
+@pytest.mark.parametrize("name", ["noise", "world"])
 def test_port_lands_no_further_from_float64_than_the_reference(name):
     r = _runs(name)
     (ref32, _), (ref64, _), (port32, _), (port64, _) = r["ref32"], r["ref64"], r["port32"], r["port64"]
     assert ref32.keys() == port32.keys() == ref64.keys() == port64.keys()
     # The two float64 runs compute one function: they must agree closely.
-    exact_gap = _worst(port64, ref64)
-    ref, port = _worst(ref32, ref64), _worst(port32, port64)
+    exact_gap = worst_leaf(port64, ref64)
+    ref, port = worst_leaf(ref32, ref64), worst_leaf(port32, port64)
     print(f"{name} batch, worst leaf from its own float64: reference {ref}, port {port}; "
           f"port64 vs ref64 {exact_gap}")
     assert exact_gap[1] <= 1e-6
@@ -251,9 +215,9 @@ def test_flow_cotangent_no_further_from_float64_than_the_reference():
     loss, warps, SSIM, attention and pose net backward), each package
     against its own float64."""
     r = _runs("world")
-    ref = [_rel(a, b) for a, b in zip(r["ref32"][1], r["ref64"][1])]
-    port = [_rel(a, b) for a, b in zip(r["port32"][1], r["port64"][1])]
-    exact = [_rel(a, b) for a, b in zip(r["port64"][1], r["ref64"][1])]
+    ref = [relative_error(a, b) for a, b in zip(r["ref32"][1], r["ref64"][1])]
+    port = [relative_error(a, b) for a, b in zip(r["port32"][1], r["port64"][1])]
+    exact = [relative_error(a, b) for a, b in zip(r["port64"][1], r["ref64"][1])]
     print(f"flow cotangent by level (/4, /8, /16) from its own float64: reference {ref}, port {port}; "
           f"port64 vs ref64 {exact}")
     assert max(exact) <= 1e-9
@@ -279,20 +243,12 @@ def _port_flownet_grads(net, a, b, cots):
     return {n: p.grad.detach().double() for n, p in net.named_parameters()}
 
 
-def _summed_in_float64(x, weight, bias, stride):
-    """A float32 SAME conv with its products summed in float64, rounded
-    once, then the bias added in float32."""
-    zero = torch.zeros(weight.shape[0], dtype=torch.float64)
-    return conv_same_torch(x.double(), weight.double(), zero, stride).float() + bias
-
-
-def test_flow_net_backward_alone_no_further_from_float64_than_the_reference(monkeypatch):
+def test_flow_net_backward_alone_no_further_from_float64_than_the_reference():
     """The world step's second half: the flow net's forward and backward
     on the step's frames, given the float64 cotangent rounded to float32,
-    each package in float32 against its own float64. The port as run is
-    printed (one ReLU of estimator1.est2 flips in its forward); with its
-    forward convs summed in float64 the port's backward (the plain dW and
-    dx) lands no further than twice the reference's."""
+    each package in float32 against its own float64: the port as run
+    (its plain forward and backward sum in float64) no further than twice
+    the reference's."""
     r = _runs("world")
     batch = r["batch"]
     S, B = batch["sources"].shape[1], batch["sources"].shape[0]
@@ -300,20 +256,17 @@ def test_flow_net_backward_alone_no_further_from_float64_than_the_reference(monk
     tgt = np.tile(batch["target"], (S, 1, 1, 1))
     cots = [c.astype(np.float32) for c in r["port64"][1]]
     ref32 = _reference_flownet_grads(r["jcfg"], r["params"], tgt, src, cots)
-    with _reference_float64():
+    with reference_float64():
         params64 = jax.tree_util.tree_map(lambda v: jnp.asarray(v, jnp.float64), r["params"])
         ref64 = _reference_flownet_grads(r["jcfg"], params64, tgt.astype(np.float64), src.astype(np.float64),
                                          [c.astype(np.float64) for c in cots])
-    as_run = _port_flownet_grads(r["model"].flownet, tgt, src, cots)
-    monkeypatch.setattr(conv_f32, "conv_same_torch", _summed_in_float64)
     port32 = _port_flownet_grads(r["model"].flownet, tgt, src, cots)
-    monkeypatch.undo()
     with chip_smoke._float64_program(torch):
         port64 = _port_flownet_grads(r["model64"].flownet, tgt.astype(np.float64), src.astype(np.float64),
                                      [c.astype(np.float64) for c in cots])
-    ref, port, exact = _worst(ref32, ref64), _worst(port32, port64), _worst(port64, ref64)
-    print(f"flow net alone, worst leaf from its own float64: reference {ref}, port as run {_worst(as_run, port64)}, "
-          f"port with its forward summed in float64 {port}; port64 vs ref64 {exact}")
+    ref, port, exact = worst_leaf(ref32, ref64), worst_leaf(port32, port64), worst_leaf(port64, ref64)
+    print(f"flow net alone, worst leaf from its own float64: reference {ref}, port {port}; "
+          f"port64 vs ref64 {exact}")
     assert exact[1] <= 1e-6
     assert port[1] <= 2 * ref[1]
 
@@ -353,15 +306,22 @@ def _port_conv(x, w, b, stride, g):
     return {"forward": y.detach(), "weight": dw, "bias": db, "input": dx}
 
 
-@pytest.mark.parametrize("part", [pytest.param("forward", marks=FORWARD_XFAIL), "weight", "bias", "input"])
+def _port_chain_layer(x, w, b, stride, g):
+    """The fused chains' float32 plain layer (`rowconv._layer_plain`, no
+    ReLU): the CPU yardstick of chip_smoke.py phase 9b's fused step."""
+    return {"chain forward": rowconv._layer_plain(x, w, b, stride, False, torch.float32, torch.float32)}
+
+
+@pytest.mark.parametrize("part", ["forward", "weight", "bias", "input", "chain forward"])
 def test_each_flow_net_conv_no_further_from_float64_than_xla(part):
     """Each of the flow net's convolutions alone, on its own input and
     output cotangent from the world step's float64 run, rounded to float32:
-    the port's plain version (the float32 `Conv`'s CPU route) and XLA's VJP
-    of the reference's float32 conv, each against float64 on the same
-    operands, at most twice XLA's distance for every layer. Before the
-    plain backward summed in float64, oneDNN's dW landed up to 21x
-    (pyramid.feat0a) and its dx 2.3x further than XLA's."""
+    the port's plain version (the float32 `Conv`'s CPU route; for "chain
+    forward" the fused chains' float32 plain layer) and XLA's VJP of the
+    reference's float32 conv, each against float64 on the same operands,
+    at most twice XLA's distance for every layer. Before the plain route
+    summed in float64, oneDNN's dW landed up to 21x (pyramid.feat0a), its
+    dx 2.3x and its forward 3.4x (estimator1.est0) further than XLA's."""
     r = _runs("world")
     convs = {n: m for n, m in r["model"].flownet.named_modules() if isinstance(m, Conv)}
     assert set(convs) == set(r["records"]) and len(convs) == 20
@@ -370,10 +330,11 @@ def test_each_flow_net_conv_no_further_from_float64_than_xla(part):
         conv = convs[name]
         w, b = conv.weight.detach(), conv.bias.detach()
         x, g = rec["x"].float(), rec["g"].float()
-        exact = _exact_conv(x, w, b, conv.stride, g)[part]
-        port = _port_conv(x, w, b, conv.stride, g)[part]
-        xla = _xla_conv(x, w, b, conv.stride, g)[part]
-        rows[name] = (_rel(port, exact), _rel(xla, exact))
+        of = "forward" if part == "chain forward" else part
+        exact = _exact_conv(x, w, b, conv.stride, g)[of]
+        port = (_port_chain_layer if part == "chain forward" else _port_conv)(x, w, b, conv.stride, g)[part]
+        xla = _xla_conv(x, w, b, conv.stride, g)[of]
+        rows[name] = (relative_error(port, exact), relative_error(xla, exact))
     print(f"{part}, from float64 on the same operands (port, XLA):",
           {n: (f"{p:.2e}", f"{q:.2e}") for n, (p, q) in rows.items()})
     assert all(p <= 2 * q for p, q in rows.values()), {n: v for n, v in rows.items() if v[0] > 2 * v[1]}

@@ -1,9 +1,9 @@
 """Options of davo_tpu_torch that the earlier slices refused, against the
 JAX package (CPU): the space-to-depth first conv (`s2d_first_conv`), the
 resnet DispNet encoder (`davo-res`), scan-chunked serving
-(`predict_sequence(scan_chunks=...)`, `infer --scan-chunks`), the
-resumable evaluation (`eval/resumable.py`) and `infer --serving-flags`
-(refused with its reason).
+(`predict_sequence(scan_chunks=...)`, `infer --scan-chunks`),
+and the resumable evaluation (`eval/resumable.py`). `infer
+--serving-flags` is tests/test_torch_serving_flags.py's.
 
 Tolerances: float32 layers and DispNet within 1e-5, whole-model poses
 within 1e-4 (as tests/test_torch_models.py holds them), a train step's
@@ -296,14 +296,6 @@ def test_cli_infer_scan_chunks_equals_per_call(tmp_path):
     one, four = np.loadtxt(paths[1]), np.loadtxt(paths[4])
     assert one.shape == (32, 12)
     np.testing.assert_allclose(four, one, rtol=0, atol=1e-6 * np.abs(one).max())
-
-
-def test_cli_infer_refuses_serving_flags_with_the_reason(tmp_path, capsys):
-    rc = cli_main(["infer", "--version", "tiny", "--out", str(tmp_path / "p.txt"), "--device", "cpu",
-                   "--serving-flags"])
-    err = capsys.readouterr().err
-    assert rc == 2 and "--serving-flags" in err and "validated on a TPU" in err and "BENCH_FLAGS.json" in err
-    assert not (tmp_path / "p.txt").exists()
 
 
 # ---------------------------------------------------------- resumable evaluation

@@ -1,8 +1,8 @@
 """The port's train step under the banded warp against the JAX package
 (CPU, float32, `tiny`, band (2, 4)): the reference runs its Pallas
-kernels in interpret mode, the port the kernels' plain versions. In a
-file of its own because the interpret-mode reference takes most of a
-minute."""
+kernels in interpret mode, the port the kernels' plain versions. The
+criteria of `test_torch_train.check_train_step_against_reference`. In a
+file of its own because the interpret-mode reference takes minutes."""
 
 import pytest
 
